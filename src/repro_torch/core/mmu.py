@@ -1,0 +1,213 @@
+"""MMU translation-pipeline driver (paper §§4-6, Table 3); port of
+``repro.core.mmu`` for the radix and Victima compositions.
+
+The translation path is a statically composed list of stages (see
+``repro_torch.core.stages``): L1 TLB -> L2 TLB -> [Victima L2-cache
+probe] -> radix page-table walker.  ``make_step`` folds the composition
+into one per-access step over lane-batched state; ``scan_accesses`` runs
+it over a trace through ``repro_torch.kernels.mmu_step.blocked_scan``,
+which launches the hand-written CUDA kernel when the state lies on the
+card and runs the step itself, access by access, when it lies on the CPU.
+
+Two entry points share the step:
+  simulate         — one (config, trace)
+  simulate_batch   — one config, W workloads in lock-step (traces [T, W])
+
+Both run on ``device="cuda"`` unless the caller passes ``device="cpu"``;
+with no card and no explicit CPU request they raise.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.caches import BT_DATA, REUSE_BUCKETS, access_data
+from repro_torch.core.stages import (MMUState, Request, STAGES, SimConfig,
+                                     Stats, WALK_HIST_BUCKETS,
+                                     default_stages, fill_order, make_state,
+                                     validate_stages)
+from repro_torch.core.stages.fold import accum_stats
+from repro_torch.kernels import mmu_step
+
+__all__ = [
+    "MMUState", "SimConfig", "Stats", "WALK_HIST_BUCKETS", "make_state",
+    "make_step", "resolve_device", "scan_accesses", "simulate",
+    "simulate_batch",
+]
+
+# trace leaves the step reads, with their dtypes
+TRACE_DTYPES = {"vpn": torch.int32, "is2m": torch.bool,
+                "line": torch.int32, "ipa": torch.float32}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller
+    names another.  Raises when the card is asked for and absent (no
+    silent CPU fallback)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch version on the CPU")
+    return dev
+
+
+def make_step(cfg: SimConfig, stage_names=None):
+    """Build the per-access step for this configuration.
+
+    ``step(state, access) -> state`` updates the lane-batched state in
+    place.  ``access`` maps ``vpn`` (int32 4K-VPN), ``is2m`` (bool),
+    ``line`` (int32 data line id) and ``ipa`` (float32 instructions per
+    access) to ``[W]`` tensors.
+    """
+    names = tuple(stage_names) if stage_names else default_stages(cfg)
+    validate_stages(cfg, names)
+    stages = [STAGES[n] for n in names]
+    fills = [STAGES[n] for n in fill_order(names)]
+
+    def step(st: MMUState, acc) -> MMUState:
+        vpn, is2m, ipa = acc["vpn"], acc["is2m"], acc["ipa"]
+        st.now.add_(1)
+        now = st.now.clone()
+        s0 = st.stats
+        # both signals read the stats BEFORE this access, in float32
+        instrs = s0.n_access.float().clamp_min(1.0) * ipa
+        pressure = (s0.n_l2tlb_miss.float() * 1000.0
+                    > cfg.pressure_mpki * instrs)
+        l2_bypass = (st.hier.n_l2_miss.float() * 1000.0
+                     >= cfg.bypass_l2mpki * instrs)
+        vpn2 = vpn >> 9
+        vpn_sz = torch.where(is2m, vpn2, vpn)
+        req = Request(
+            vpn=vpn, is2m=is2m, line=acc["line"], ipa=ipa, vpn2=vpn2,
+            vpn_sz=vpn_sz, key2=(vpn_sz << 1) | is2m.int(), now=now,
+            pressure=pressure, l2_bypass=l2_bypass,
+        )
+
+        # ---------------- lookup pass: fold the composition
+        out: dict = {}
+        need = torch.ones_like(is2m)
+        trans = 0    # cycles up to and including the L2 TLB
+        past_l2 = 0  # cycles past the L2 TLB (Fig 9/22/29)
+        for stg in stages:
+            st, res = stg.lookup(cfg, st, req, need)
+            need = need & ~res.hit
+            out[stg.name] = res._replace(need=need)
+            if stg.past_l2:
+                past_l2 = past_l2 + res.cycles
+            else:
+                trans = trans + res.cycles
+        walk_res = out["_walk"] = out[names[-1]]
+
+        # ---------------- fill pass: refills, learning, background walks
+        for stg in fills:
+            st = stg.fill(cfg, st, req, out)
+        trans = trans + past_l2
+
+        # ---------------- the data access itself
+        _, dcyc = access_data(st.hier, req.line, now, pressure,
+                              cfg.tlb_aware, cfg.lat)
+        accum_stats(st.stats, st, out, walk_res, trans, past_l2, dcyc)
+        return st
+
+    return step
+
+
+def scan_accesses(step, st0: MMUState, trace: dict, cfg: SimConfig,
+                  stage_names) -> MMUState:
+    """Run the per-access ``step`` over ``trace`` (leaves ``[T, W]``).
+
+    Updates ``st0`` in place and returns it.  The kernel wrapper picks
+    the path from the state's device: the CUDA kernel on the card, the
+    plain step on the CPU.
+    """
+    return mmu_step.blocked_scan(step, st0, trace, cfg, stage_names)
+
+
+def _final_hists(l2):
+    """Fold still-resident blocks into the reuse histograms (blocks that
+    were never evicted would otherwise be invisible to Figs. 11/24)."""
+    lanes = l2.reuse.shape[0]
+    bucket = l2.reuse.clamp_max(REUSE_BUCKETS - 1).reshape(lanes, -1).long()
+    is_data = ((l2.btype == BT_DATA) & l2.valid).reshape(lanes, -1).int()
+    is_tlb = ((l2.btype != BT_DATA) & l2.valid).reshape(lanes, -1).int()
+    hd = l2.hist_reuse_data.clone().scatter_add_(1, bucket, is_data)
+    ht = l2.hist_reuse_tlb.clone().scatter_add_(1, bucket, is_tlb)
+    return hd, ht
+
+
+def _finalize(st: MMUState):
+    """The finished state as host numpy: (Stats, l2a, l2m, hd, ht) with
+    a leading lane axis on every leaf."""
+    hd, ht = _final_hists(st.hier.l2)
+
+    def host(x):
+        return x.cpu().numpy()
+
+    stats = Stats(*[host(x) for x in st.stats])
+    return (stats, host(st.hier.n_l2_access), host(st.hier.n_l2_miss),
+            host(hd), host(ht))
+
+
+def _extras_of(l2a, l2m, hd, ht, index=lambda x: x) -> dict:
+    return {"l2_access": int(index(l2a)), "l2_miss": int(index(l2m)),
+            "hist_reuse_data": np.asarray(index(hd)),
+            "hist_reuse_tlb": np.asarray(index(ht))}
+
+
+def _lane_trace(trace: dict, cfg: SimConfig, device, lanes: int | None):
+    """Trace leaves as ``[T, W]`` tensors on `device` (``lanes=None``:
+    one ``[T]`` trace, given one lane).  A missing ``ipa`` leaf takes
+    ``cfg.ipa``, as in the reference; other dtypes must match exactly."""
+    out = {}
+    for k, dtype in TRACE_DTYPES.items():
+        if k not in trace:
+            if k != "ipa":
+                raise KeyError(f"trace has no {k!r} leaf")
+            continue
+        x = torch.tensor(np.asarray(trace[k]))
+        if x.dtype != dtype:
+            raise TypeError(f"trace leaf {k!r} is {x.dtype}, want {dtype}")
+        out[k] = x
+    shape = out["vpn"].shape
+    if "ipa" not in out:
+        out["ipa"] = torch.full(shape, cfg.ipa, dtype=torch.float32)
+    want_nd = 1 if lanes is None else 2
+    for k, x in out.items():
+        if x.shape != shape or x.ndim != want_nd:
+            raise ValueError(f"trace leaf {k!r} has shape "
+                             f"{tuple(x.shape)}, want {want_nd}-d like "
+                             f"vpn {tuple(shape)}")
+    return {k: (x if lanes else x[:, None]).contiguous().to(device)
+            for k, x in out.items()}
+
+
+def simulate(cfg: SimConfig, trace: dict, stage_names=None, device=None):
+    """Run one trace under `cfg`; returns (Stats, extras) as numpy."""
+    dev = resolve_device(device)
+    names = tuple(stage_names) if stage_names else default_stages(cfg)
+    step = make_step(cfg, names)
+    tr = _lane_trace(trace, cfg, dev, None)
+    st = scan_accesses(step, make_state(cfg, 1, dev), tr, cfg, names)
+    stats, l2a, l2m, hd, ht = _finalize(st)
+    return (Stats(*[x[0] for x in stats]),
+            _extras_of(l2a, l2m, hd, ht, index=lambda x: x[0]))
+
+
+def simulate_batch(cfg: SimConfig, traces: dict, stage_names=None,
+                   device=None):
+    """Run W workloads in lock-step: traces leaves are [T, W].
+
+    Returns (list of W Stats, list of W extras dicts), as numpy.
+    """
+    dev = resolve_device(device)
+    names = tuple(stage_names) if stage_names else default_stages(cfg)
+    step = make_step(cfg, names)
+    tr = _lane_trace(traces, cfg, dev, lanes=True)
+    W = tr["vpn"].shape[1]
+    st = scan_accesses(step, make_state(cfg, W, dev), tr, cfg, names)
+    stats, l2a, l2m, hd, ht = _finalize(st)
+    per = [Stats(*[x[i] for x in stats]) for i in range(W)]
+    extras = [_extras_of(l2a, l2m, hd, ht, index=lambda x, i=i: x[i])
+              for i in range(W)]
+    return per, extras

@@ -1,0 +1,66 @@
+"""Composable translation-pipeline stages (port of
+``repro.core.stages``): the radix and Victima compositions.
+
+``STAGES`` maps stage names to singleton stage objects; a *composition*
+is an ordered tuple of names ending in the walker stage ``"ptw"``.
+``default_stages(cfg)`` derives the canonical composition from a
+SimConfig.
+"""
+from __future__ import annotations
+
+from repro_torch.core.stages.base import (Feats, MMUState, Request,
+                                          SimConfig, Stage, StageResult,
+                                          Stats, WALK_HIST_BUCKETS,
+                                          make_state, state_from_numpy,
+                                          state_leaves, state_to_numpy,
+                                          zero_feats, zero_stats)
+from repro_torch.core.stages.l1_tlb import L1TLBStage
+from repro_torch.core.stages.l2_tlb import L2TLBStage
+from repro_torch.core.stages.ptw import RadixWalkStage
+from repro_torch.core.stages.victima import VictimaStage
+
+STAGES: dict[str, Stage] = {
+    s.name: s for s in (L1TLBStage(), L2TLBStage(), VictimaStage(),
+                        RadixWalkStage())
+}
+
+
+def default_stages(cfg: SimConfig) -> tuple[str, ...]:
+    """Canonical stage composition implied by a SimConfig."""
+    names = ["l1_tlb", "l2_tlb"]
+    if cfg.victima:
+        names.append("victima")
+    names.append("ptw")
+    return tuple(names)
+
+
+def validate_stages(cfg: SimConfig, names: tuple[str, ...]) -> None:
+    """A composition must agree with the config flags the stages read."""
+    expect = default_stages(cfg)
+    if tuple(names) != expect:
+        raise ValueError(
+            f"stage composition {tuple(names)} inconsistent with config "
+            f"(expected {expect}: the victima flag and the stage list "
+            f"must agree)")
+
+
+def fill_order(names: tuple[str, ...]) -> tuple[str, ...]:
+    """Refill/learning pass order for a composition.
+
+    Victima systems: the L2 TLB refill's evicted entry feeds Victima's
+    background walk, so it must land first.  Non-Victima systems update
+    the walker's PTW-CP counters then refill the L2 TLB.  The L1 refill
+    closes out every composition.
+    """
+    order = (["l2_tlb", "victima"] if "victima" in names
+             else [names[-1], "l2_tlb"])
+    order.append("l1_tlb")
+    return tuple(order)
+
+
+__all__ = [
+    "Feats", "MMUState", "Request", "STAGES", "SimConfig", "Stage",
+    "StageResult", "Stats", "WALK_HIST_BUCKETS", "default_stages",
+    "fill_order", "make_state", "state_from_numpy", "state_leaves",
+    "state_to_numpy", "validate_stages", "zero_feats", "zero_stats",
+]

@@ -22,4 +22,6 @@ def pytest_configure(config):
         "they self-skip below 4 devices — run them under "
         "XLA_FLAGS=--xla_force_host_platform_device_count=4 (the "
         "multidev CI job does)")
+    config.addinivalue_line(
+        "markers", "gpu: tests that need a CUDA card; they skip without one")
 
