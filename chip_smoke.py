@@ -2,13 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version on the card, drives the port's main
-path (``repro_torch.sim.runner.run_batch`` over all 11 workloads, radix
-and Victima at the Table-3 defaults) against the JAX package's snapshot
-``tests/golden/torch_fullsize_stats.json``, and times it.  Any failed
-check raises, so the exit code is non-zero; no phase's failure is
-caught.  With no CUDA device, or without the repository around it, it
+Builds the port's CUDA kernels from the sources in this checkout, in
+parallel, and drives its two paths on the card:
+
+- the simulator (phases 2-5): the ``mmu_step`` kernel against its plain
+  PyTorch version, ``repro_torch.sim.runner.run_batch`` over all 11
+  workloads (radix and Victima at the Table-3 defaults) against the JAX
+  package's snapshot ``tests/golden/torch_fullsize_stats.json``, timed;
+- serving granite-3-2b (phases 6-8): the ``flash_attention`` (prefill)
+  and ``paged_attention`` (decode) kernels against their plain versions
+  at the JAX tests' shapes and granite's; the model at full width, 2
+  layers, against the JAX snapshot
+  ``tests/golden/torch_granite_fullwidth.json``; then at full width and
+  depth, 8 requests x 512 prompt tokens and 64 greedy decode steps,
+  counted (one flash launch per layer per prefill, one paged launch per
+  layer per step), checked against the plain path and timed.
+
+Any failed check raises, so the exit code is non-zero; no phase's
+failure is caught.  With no CUDA device, or without the repository around it, it
 exits non-zero and prints no result.
 
 The last line of standard output is ``{"ok": true, "device": ...}``; the
@@ -54,7 +65,8 @@ def golden_trace(n: int = 6000, seed: int = 1234) -> dict:
 SYSTEMS = ("radix", "victima")
 CHECK_N = 2000      # accesses of the kernel-vs-plain check at Table 3
 UNIT_N = 512        # accesses of the timed kernel-vs-plain unit
-SOURCES = ("mmu_step", "load_latency")  # csrc/*.cu, built side by side
+SOURCES = ("mmu_step", "load_latency", "flash_attention",
+           "paged_attention")  # csrc/*.cu, built side by side
 FULL_N = 20_000     # main path against the JAX snapshot
 TIMED_N = 150_000   # main path at the runner's default length
 
@@ -76,6 +88,24 @@ def cuda_time(fn, reps=1):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(fn, reps=20):
+    """Milliseconds of device time per `fn()`: `reps` calls between CUDA
+    events, queued behind a spin of the card (torch.cuda._sleep) so that
+    the host's time to issue them does not leave the card waiting inside
+    the timed window."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms at the H100's clocks
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def load_latency_ns(lib, footprint: int, dev) -> float:
@@ -143,6 +173,382 @@ def latency_floor(cfg, st, l1_ns: float, l2_ns: float):
     ns = small * l1_ns + big * l2_ns
     return (float(ns.max()) / 1e6,
             float(((small + big) / acc).mean()))
+
+
+# ---------------------------------------------------------------- attention
+
+BF16_TFLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate (data sheet)
+F32_TFLOPS = 67e12     # H100 SXM float32 rate outside the tensor cores
+TOL = {torch.float32: 1e-5}   # the JAX kernel tests' tolerances
+FLASH_BF16_TOL, PAGED_BF16_TOL = 2e-2, 3e-2
+# tests/test_kernels_flash.py's shapes, then granite-3-2b's prefill
+FLASH_SHAPES = [(1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 256, 8, 1, 64),
+                (2, 128, 6, 3, 16), (8, 512, 32, 8, 64)]
+# tests/test_kernels_paged.py's shapes, then granite-3-2b's decode (a
+# cache of 1024 positions in pages of 128)
+PAGED_SHAPES = [(2, 4, 2, 64, 64, 4, 16), (1, 8, 1, 32, 32, 8, 16),
+                (4, 4, 4, 16, 16, 2, 32), (8, 32, 8, 64, 128, 8, 64)]
+SNAP_TOL = 2e-2        # full-width logits against the JAX snapshot
+# kernel path against plain path, bf16 logits at full depth: the flash
+# kernel rounds p to bf16 where the plain version does not, and 40 layers
+# carry that to the logits (a CPU emulation of that rounding at 40
+# layers, d_model 512, moved logits of size ~1.3 by 3.0e-2)
+SERVE_TOL = 5e-2
+SERVE_B, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 8, 512, 1024, 64
+
+
+def close(got, want, tol, what):
+    """Max |got - want|; raises unless |got - want| <= tol + tol*|want|
+    everywhere (numpy's assert_allclose with atol = rtol = tol)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    if bool((diff > tol + tol * w.abs()).any()):
+        raise AssertionError(f"{what}: max abs err {float(diff.max())} "
+                             f"beyond the tolerance {tol}")
+    return float(diff.max())
+
+
+def flash_bound_ms(q, k, causal, window=None):
+    """Least time of flash attention on these inputs: q, k, v read once
+    and o written once over the memory rate, or 4*hd operations per
+    (query, key) pair the masks keep over the peak rate of the dtype."""
+    B, H, S, hd = q.shape
+    Sk = k.shape[2]
+    qpos = torch.arange(S)[:, None]
+    kpos = torch.arange(Sk)[None, :]
+    keep = torch.ones(S, Sk, dtype=torch.bool)
+    if causal:
+        keep &= qpos >= kpos
+    if window is not None:
+        keep &= qpos - kpos < window
+    ops_ = 4 * hd * B * H * int(keep.sum())
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    peak = BF16_TFLOPS if q.dtype == torch.bfloat16 else F32_TFLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def paged_bound_ms(q, k_pages, tables, lens):
+    """Least time of paged decode attention: the K and V rows up to
+    lens read once, q, tables and lens read and o written once, over the
+    memory rate; or 4*hd operations per (query head, token) over the
+    peak rate of the dtype."""
+    B, H, hd = q.shape
+    K = k_pages.shape[2]
+    n = int(lens.long().clamp(max=tables.shape[1] * k_pages.shape[1]).sum())
+    nbytes = (2 * n * K * hd * k_pages.element_size()
+              + 2 * q.numel() * q.element_size()
+              + 4 * (tables.numel() + lens.numel()))
+    ops_ = 4 * hd * H * n
+    peak = BF16_TFLOPS if q.dtype == torch.bfloat16 else F32_TFLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def attention_vs_plain(dev):
+    """Phase 6: both attention kernels against their plain versions on
+    the card, at the JAX tests' shapes and granite-3-2b's.  Returns the
+    max abs error of each kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(0)
+
+    def draw(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev).to(dtype)
+
+    errs = {"flash_attention": 0.0, "paged_attention": 0.0}
+    cases = [(s, dt, c, None) for s in FLASH_SHAPES
+             for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
+    cases += [((1, 256, 4, 2, 32), dt, True, w)
+              for dt in (torch.float32, torch.bfloat16) for w in (32, 128)]
+    for (B, S, H, K, hd), dt, causal, window in cases:
+        q, k, v = draw((B, H, S, hd), dt), draw((B, K, S, hd), dt), \
+            draw((B, K, S, hd), dt)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.mha_reference(q, k, v, causal=causal, window=window)
+        tol = TOL.get(dt, FLASH_BF16_TOL)
+        err = close(got, want, tol, f"flash {B, S, H, K, hd}")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        print(f"flash B={B} S={S} H={H} K={K} hd={hd} {str(dt)[6:]} "
+              f"causal={causal} window={window}: max abs err {err:.3g} "
+              f"(tolerance {tol})")
+    for B, H, K, hd, page, nb, P in PAGED_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            q = draw((B, H, hd), dt)
+            kp, vp = draw((P, page, K, hd), dt), draw((P, page, K, hd), dt)
+            tables = torch.from_numpy(rng.permutation(P)[:B * nb].reshape(
+                B, nb).astype(np.int32)).to(dev)
+            lens = torch.from_numpy(rng.integers(1, nb * page, size=B).astype(
+                np.int32)).to(dev)
+            got = pa.paged_attention(q, kp, vp, tables, lens)
+            want = ref.paged_attention_reference(q, kp, vp, tables, lens)
+            tol = TOL.get(dt, PAGED_BF16_TOL)
+            err = close(got, want, tol, f"paged {B, H, K, hd, page, nb, P}")
+            errs["paged_attention"] = max(errs["paged_attention"], err)
+            print(f"paged B={B} H={H} K={K} hd={hd} page={page} nb={nb} "
+                  f"P={P} {str(dt)[6:]}, permuted pool, lens "
+                  f"{lens.tolist()}: max abs err {err:.3g} (tolerance {tol})")
+    return errs
+
+
+def full_width_vs_snapshot(dev):
+    """Phase 7: granite-3-2b at full width, 2 layers, against the JAX
+    package's snapshot tests/golden/torch_granite_fullwidth.json."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    with open(os.path.join(ROOT, "tests", "golden",
+                           "torch_granite_fullwidth.json")) as f:
+        snap = json.load(f)
+    cfg = dataclasses.replace(get_config("granite-3-2b"),
+                              n_layers=snap["n_layers"])
+    t0 = time.perf_counter()
+    tree = M.numpy_params(cfg, snap["seed"])
+    if M.tree_sha256(tree) != snap["weights_sha256"]:
+        raise AssertionError("the weights differ from the ones the snapshot "
+                             "was made from (numpy draws other normals?)")
+    B, S = snap["batch"], snap["prompt_len"]
+    prompt = np.random.default_rng(snap["seed"] + 1).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    if M.tree_sha256({}, prompt) != snap["prompt_sha256"]:
+        raise AssertionError("the prompt differs from the snapshot's")
+    print(f"weights and prompt equal the snapshot's (sha256; "
+          f"{time.perf_counter() - t0:.1f} s to draw and digest)")
+    m = M.build(cfg, dev)
+    params = M.params_from_jax(tree, cfg, dev)
+    del tree
+    logits, cache = m.prefill(params, {"tokens": torch.from_numpy(prompt)},
+                              m.init_cache(B, snap["cache_len"]))
+    worst, compared = 0.0, 0
+    for i, st in enumerate(snap["steps"]):
+        if i:
+            tok = torch.tensor(snap["steps"][i - 1]["token"],
+                               dtype=torch.int32)[:, None]
+            logits, cache = m.decode_step(
+                params, cache, tok, torch.full((B,), S + i - 1,
+                                               dtype=torch.int32))
+        lg = logits[:, -1].float()
+        top = torch.gather(lg, 1, torch.tensor(st["top_ids"], device=dev))
+        err = close(top, torch.tensor(st["top_logits"], device=dev),
+                    SNAP_TOL, f"step {i} top-{snap['top']} logits")
+        lse = torch.logsumexp(lg, -1)
+        err = max(err, close(lse, torch.tensor(st["logsumexp"], device=dev),
+                             SNAP_TOL, f"step {i} logsumexp"))
+        worst = max(worst, err)
+        greedy = lg.argmax(-1).tolist()
+        for b in range(B):
+            if st["margin"][b] > SNAP_TOL:
+                compared += 1
+                if greedy[b] != st["token"][b]:
+                    raise AssertionError(f"step {i}, request {b}: greedy "
+                                         f"token {greedy[b]} != "
+                                         f"{st['token'][b]}")
+    print(f"prefill + {snap['decode_steps']} decode steps, B={B}: max abs "
+          f"err {worst:.4g} on the top-{snap['top']} logits and logsumexp "
+          f"(tolerance {SNAP_TOL}); {compared} greedy tokens with a top-2 "
+          f"margin above it all equal the snapshot's")
+    return worst
+
+
+def plain_attention():
+    """The model's attention through the plain versions on the card (the
+    comparison path): patches the two functions ``layers`` calls and
+    returns a function that restores them."""
+    from repro_torch.kernels import ops, ref
+
+    saved = ops.flash_attention, ops.paged_attention
+
+    def flash(q, k, v, *, causal=True, window=None):
+        return ref.mha_reference(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=causal,
+                                 window=window).transpose(1, 2)
+
+    ops.flash_attention, ops.paged_attention = \
+        flash, ref.paged_attention_reference
+
+    def restore():
+        ops.flash_attention, ops.paged_attention = saved
+    return restore
+
+
+def serving_path(dev):
+    """Phase 8: granite-3-2b at full width and depth serves SERVE_B
+    requests: prefill of SERVE_PROMPT tokens, SERVE_STEPS greedy decode
+    steps over a cache of SERVE_CACHE positions."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.models import model as M
+
+    cfg = get_config("granite-3-2b")
+    m = M.build(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = m.init(gen)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_params() / 1e9:.2f} B parameters in {cfg.dtype}, drawn "
+          f"on the card in {time.perf_counter() - t0:.1f} s")
+    prompt = M.dummy_batch(cfg, SERVE_B, SERVE_PROMPT, gen)
+
+    def run(steps, tokens=None):
+        """Prefill and `steps` decode steps; the logits of each, and the
+        tokens fed (greedy unless given)."""
+        cache = m.init_cache(SERVE_B, SERVE_CACHE)
+        lg, cache = m.prefill(params, prompt, cache)
+        out, fed = [lg], []
+        for i in range(steps):
+            tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None] \
+                if tokens is None else tokens[i]
+            fed.append(tok)
+            pos = torch.full((SERVE_B,), SERVE_PROMPT + i, dtype=torch.int32,
+                             device=dev)
+            lg, cache = m.decode_step(params, cache, tok, pos)
+            out.append(lg)
+        return out, fed, cache
+
+    # the kernel path against the plain path on the same weights
+    kern, fed, _ = run(4)
+    restore = plain_attention()
+    plain, _, _ = run(4, fed)
+    restore()
+    serve_err = 0.0
+    for i, (a, b) in enumerate(zip(kern, plain)):
+        serve_err = max(serve_err, close(a, b, SERVE_TOL, f"serving step {i}"))
+    print(f"kernel path == plain path (attention's plain versions on the "
+          f"card) over the prefill and 4 decode steps: max abs err "
+          f"{serve_err:.4g} on the bf16 model's logits (tolerance "
+          f"{SERVE_TOL})")
+
+    # the main path, counted and timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = m.init_cache(SERVE_B, SERVE_CACHE)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    fa.LAUNCHES = pa.LAUNCHES = 0
+    t0 = time.perf_counter()
+    lg, cache = m.prefill(params, prompt, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if (fa.LAUNCHES, pa.LAUNCHES) != (cfg.n_layers, 0):
+        raise AssertionError(f"prefill launched flash {fa.LAUNCHES} and "
+                             f"paged {pa.LAUNCHES} times")
+    finite &= torch.isfinite(lg).all()
+    t0 = time.perf_counter()
+    for i in range(SERVE_STEPS):
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        pos = torch.full((SERVE_B,), SERVE_PROMPT + i, dtype=torch.int32,
+                         device=dev)
+        lg, cache = m.decode_step(params, cache, tok, pos)
+        finite &= torch.isfinite(lg).all()
+        if pa.LAUNCHES != cfg.n_layers * (i + 1) \
+                or fa.LAUNCHES != cfg.n_layers:
+            raise AssertionError(f"decode step {i}: paged launched "
+                                 f"{pa.LAUNCHES} times in all")
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / SERVE_STEPS
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / SERVE_STEPS
+    launches = {"flash_attention": fa.LAUNCHES,
+                "paged_attention": pa.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not bool(finite):
+        raise AssertionError("non-finite logits on the serving path")
+    print(f"main path: prefill {prefill_ms:.2f} ms ({SERVE_B} x "
+          f"{SERVE_PROMPT} tokens), decode {decode_ms:.3f} ms per step, "
+          f"{SERVE_B * 1e3 / decode_ms:,.0f} tokens/s over {SERVE_STEPS} "
+          f"steps; launches {launches}; logits finite; peak device memory "
+          f"{peak:.2f} GiB")
+    print(f"decode: the host enqueued a step every {enqueue_ms:.3f} ms "
+          f"(the card then needed {SERVE_STEPS * (decode_ms - enqueue_ms):.2f}"
+          f" ms more to finish all {SERVE_STEPS})")
+
+    # where a decode step's device time goes (torch.profiler, 4 steps)
+    prof_steps = 4
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(prof_steps):
+            pos = torch.full((SERVE_B,), SERVE_PROMPT + SERVE_STEPS + i,
+                             dtype=torch.int32, device=dev)
+            lg, cache = m.decode_step(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    # the kernels' own rows: an operator's row repeats its kernels' time
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(r[1] for r in rows)
+    print(f"profiled {prof_steps} decode steps: wall {prof_ms:.2f} ms, "
+          f"device busy {busy_ms:.2f} ms ({busy_ms / prof_ms:.1%}; idle "
+          f"{1 - busy_ms / prof_ms:.1%} under the profiler)")
+    for key, ms_, n in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"  {ms_ / prof_steps:8.3f} ms/step {n // prof_steps:5d} "
+              f"calls/step  {key[:90]}")
+
+    # each kernel alone at the main path's shapes
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rng = np.random.default_rng(1)
+
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev).to(torch.bfloat16)
+
+    # the model's layout [B,S,H,hd], seen as [B,H,S,hd] as ops passes it
+    q = draw((SERVE_B, SERVE_PROMPT, H, hd)).transpose(1, 2)
+    k, v = (draw((SERVE_B, SERVE_PROMPT, K, hd)).transpose(1, 2)
+            for _ in range(2))
+    kx, vx = (x.repeat_interleave(H // K, dim=1) for x in (k, v))
+    flash = {
+        "ms": device_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+        "plain_ms": device_ms(lambda: ref.mha_reference(q, k, v,
+                                                        causal=True)),
+        "library_ms": device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kx, vx, is_causal=True))}
+    flash["bound_ms"], flash["bound_by"] = flash_bound_ms(q, k, True)
+    nb = SERVE_CACHE // m.page
+    kp = cache["k"][0].view(SERVE_B * nb, m.page, K, hd)
+    vp = cache["v"][0].view(SERVE_B * nb, m.page, K, hd)
+    qd = draw((SERVE_B, H, hd))
+    tables = torch.arange(SERVE_B * nb, dtype=torch.int32,
+                          device=dev).reshape(SERVE_B, nb)
+    lens = torch.full((SERVE_B,), SERVE_PROMPT + SERVE_STEPS,
+                      dtype=torch.int32, device=dev)
+    kg = kp[tables.long()].reshape(SERVE_B, SERVE_CACHE, K, hd).transpose(
+        1, 2).repeat_interleave(H // K, dim=1)
+    vg = vp[tables.long()].reshape(SERVE_B, SERVE_CACHE, K, hd).transpose(
+        1, 2).repeat_interleave(H // K, dim=1)
+    mask = (torch.arange(SERVE_CACHE, device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
+    paged = {
+        "ms": device_ms(lambda: pa.paged_attention(qd, kp, vp, tables,
+                                                   lens)),
+        "plain_ms": device_ms(lambda: ref.paged_attention_reference(
+            qd, kp, vp, tables, lens)),
+        "library_ms": device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qd[:, :, None], kg, vg, attn_mask=mask))}
+    paged["bound_ms"], paged["bound_by"] = paged_bound_ms(qd, kp, tables,
+                                                          lens)
+    for name, r in (("flash_attention", flash), ("paged_attention", paged)):
+        print(f"{name}: {r['ms']:.4f} ms per launch, plain {r['plain_ms']:.4f}"
+              f" ms, library {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+    print(f"share: flash {cfg.n_layers * flash['ms'] / prefill_ms:.1%} of "
+          f"the prefill, paged {cfg.n_layers * paged['ms'] / decode_ms:.1%} "
+          f"of a decode step")
+    return {"launches": launches, "flash": flash, "paged": paged}
 
 
 def main() -> int:
@@ -368,6 +774,42 @@ def main() -> int:
           f"rounds per access, L1 {l1_ns:.1f} ns, L2 {l2_ns:.1f} ns)")
     print(f"phase 5: {time.perf_counter() - t:.1f} s")
 
+    # ------------------------------------------------------------ 6
+    t = phase("6. attention kernels against their plain versions, on the "
+              "card")
+    attn_errs = attention_vs_plain(dev)
+    print(f"phase 6: {time.perf_counter() - t:.1f} s")
+
+    # ------------------------------------------------------------ 7
+    t = phase("7. granite-3-2b at full width, 2 layers, against the JAX "
+              "snapshot")
+    full_width_vs_snapshot(dev)
+    print(f"phase 7: {time.perf_counter() - t:.1f} s")
+
+    # ------------------------------------------------------------ 8
+    t = phase(f"8. serving path: granite-3-2b, full width and depth, "
+              f"{SERVE_B} requests x {SERVE_PROMPT} prompt tokens, "
+              f"{SERVE_STEPS} decode steps")
+    serve = serving_path(dev)
+    print(f"phase 8: {time.perf_counter() - t:.1f} s")
+
+    shape = {"flash_attention": f"granite-3-2b prefill: B={SERVE_B}, "
+                                f"S={SERVE_PROMPT}, H=32, K=8, hd=64, bf16, "
+                                f"causal",
+             "paged_attention": f"granite-3-2b decode: B={SERVE_B}, H=32, "
+                                f"K=8, hd=64, bf16, page 128, nb 8, lens "
+                                f"{SERVE_PROMPT + SERVE_STEPS}"}
+    attn = [{"name": name, "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+             "replaces": f"src/repro/kernels/{name}.py:{line}",
+             "launches": serve["launches"][name],
+             "max_abs_err": attn_errs[name],
+             "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": r["library_ms"], "unit": shape[name],
+             "matches_plain": True}
+            for name, line, r in (("flash_attention", 85, serve["flash"]),
+                                  ("paged_attention", 73, serve["paged"]))]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "mmu_step", "route": "cuda",
@@ -382,7 +824,7 @@ def main() -> int:
         "l1_hit_ns": l1_ns, "l2_hit_ns": l2_ns,
         "unit": f"victima, Table-3 defaults, first {UNIT_N} accesses x "
                 f"{W} lanes",
-        "matches_plain": True, "matches_reference": True}]}))
+        "matches_plain": True, "matches_reference": True}] + attn}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

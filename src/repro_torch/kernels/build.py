@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into ``build/kernels/lib<name>-<hash>.so`` at the repository
 root (listed in ``.gitignore``) the first time a wrapper needs it; the
-hash of the source names the library, so an edited source rebuilds and
-an unchanged one loads the library already built.  Nothing is compiled
-at import time.
+hash of the source and its flags names the library, so an edited source
+rebuilds and an unchanged one loads the library already built.  Nothing
+is compiled at import time.
 """
 from __future__ import annotations
 
@@ -21,8 +21,15 @@ BUILD_DIR = os.path.abspath(os.path.join(CSRC, "..", "..", "..", "..",
                                          "build", "kernels"))
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+# flags of one source only: mmu_step must add its float32 sums exactly as
+# the reference does, so it contracts no multiply-add into an FMA
+EXTRA_FLAGS = {"mmu_step": ("-fmad=false",)}
+
+
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
 def nvcc() -> str:
@@ -35,8 +42,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+        h.update(f.read())
+    digest = h.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
@@ -50,7 +59,7 @@ def compile_kernel(name: str) -> dict:
     out = library_path(name)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    cmd = [nvcc(), *flags(name), "-o", tmp, os.path.join(CSRC, name + ".cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

@@ -1,0 +1,181 @@
+"""The port's attention functions against the JAX package's.
+
+Inputs are drawn with numpy from a seed and fed to both sides.  The JAX
+side runs as its own tests run it: ``repro.kernels.ops`` (the Pallas
+kernels, in interpret mode on the CPU) and the ``repro.kernels.ref``
+oracles.  The port's side is what its wrappers run on CPU tensors: the
+plain PyTorch versions, against which ``chip_smoke.py`` and
+``tests/test_torch_attention_gpu.py`` hold the CUDA kernels on the card.
+
+Tolerances are the JAX kernel tests' own: float32 1e-5; bfloat16 2e-2
+for flash and 3e-2 for paged attention (atol and rtol alike).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import ref as tref
+
+TOL_F32 = 1e-5
+TOL_FLASH_BF16 = 2e-2
+TOL_PAGED_BF16 = 3e-2
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def both(a: np.ndarray, dtype: str):
+    """The same float32 numpy draw as a JAX array and a torch tensor, both
+    rounded to ``dtype`` the same way (round to nearest even)."""
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(a).astype(jd), torch.from_numpy(a).to(td)
+
+
+def f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def assert_close(got, want, tol):
+    np.testing.assert_allclose(f32(got), f32(want), atol=tol, rtol=tol)
+
+
+def flash_inputs(B, S, H, K, hd, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [both(rng.standard_normal(shape, dtype=np.float32), dtype)
+            for shape in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd))]
+
+
+@pytest.mark.parametrize("B,S,H,K,hd", [
+    (1, 128, 2, 2, 32),   # MHA
+    (1, 256, 8, 1, 64),   # MQA
+    (2, 128, 6, 3, 16),   # odd group
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_jax(B, S, H, K, hd, dtype, causal):
+    (jq, tq), (jk, tk), (jv, tv) = flash_inputs(B, S, H, K, hd, dtype)
+    got = tops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.shape == (B, S, H, hd) and got.dtype == tq.dtype
+    tol = TOL_F32 if dtype == "float32" else TOL_FLASH_BF16
+    assert_close(got, jops.flash_attention(jq, jk, jv, causal=causal), tol)
+    want = jref.mha_reference(jnp.swapaxes(jq, 1, 2), jnp.swapaxes(jk, 1, 2),
+                              jnp.swapaxes(jv, 1, 2), causal=causal)
+    assert_close(got, jnp.swapaxes(want, 1, 2), tol)
+
+
+@pytest.mark.parametrize("window", [32, 128])
+def test_flash_plain_windowed_matches_jax(window):
+    (jq, tq), (jk, tk), (jv, tv) = flash_inputs(1, 256, 4, 2, 32, "float32")
+    got = tops.flash_attention(tq, tk, tv, causal=True, window=window)
+    want = jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                block_q=64, block_k=64)
+    assert_close(got, want, TOL_F32)
+
+
+@pytest.mark.parametrize("S", [1, 77, 200])
+def test_flash_plain_ragged_matches_ref(S):
+    """Lengths that are no multiple of a tile (the Pallas wrapper asserts
+    divisibility, so the oracle alone is the reference here)."""
+    (jq, tq), (jk, tk), (jv, tv) = flash_inputs(2, S, 4, 2, 16, "float32", 3)
+    got = tfa.flash_attention(tq.transpose(1, 2), tk.transpose(1, 2),
+                              tv.transpose(1, 2), causal=True, window=50)
+    want = jref.mha_reference(jnp.swapaxes(jq, 1, 2), jnp.swapaxes(jk, 1, 2),
+                              jnp.swapaxes(jv, 1, 2), causal=True, window=50)
+    assert_close(got, want, TOL_F32)
+
+
+def paged_inputs(B, H, K, hd, page, nb, P, dtype, seed=1):
+    rng = np.random.default_rng(seed)
+    q = both(rng.standard_normal((B, H, hd), dtype=np.float32), dtype)
+    kp = both(rng.standard_normal((P, page, K, hd), dtype=np.float32), dtype)
+    vp = both(rng.standard_normal((P, page, K, hd), dtype=np.float32), dtype)
+    tables = rng.permutation(P)[:B * nb].reshape(B, nb).astype(np.int32)
+    lens = rng.integers(1, nb * page, size=B).astype(np.int32)
+    return q, kp, vp, tables, lens
+
+
+@pytest.mark.parametrize("B,H,K,hd,page,nb,P", [
+    (2, 4, 2, 64, 64, 4, 16),
+    (1, 8, 1, 32, 32, 8, 16),   # MQA
+    (4, 4, 4, 16, 16, 2, 32),   # MHA
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_plain_matches_jax(B, H, K, hd, page, nb, P, dtype):
+    """A permuted pool and ragged context lengths."""
+    (jq, tq), (jk, tk), (jv, tv), tables, lens = paged_inputs(
+        B, H, K, hd, page, nb, P, dtype)
+    got = tops.paged_attention(tq, tk, tv, torch.from_numpy(tables),
+                               torch.from_numpy(lens))
+    assert got.shape == (B, H, hd) and got.dtype == tq.dtype
+    tol = TOL_F32 if dtype == "float32" else TOL_PAGED_BF16
+    jt, jl = jnp.asarray(tables), jnp.asarray(lens)
+    assert_close(got, jops.paged_attention(jq, jk, jv, jt, jl), tol)
+    assert_close(got, jref.paged_attention_reference(jq, jk, jv, jt, jl), tol)
+
+
+def test_paged_plain_permutation_invariance():
+    """Where the pages lie in the pool does not change the result."""
+    B, H, K, hd, page, nb, P = 2, 4, 2, 32, 32, 4, 32
+    (_, q), (_, kp), (_, vp), _, _ = paged_inputs(B, H, K, hd, page, nb, P,
+                                                  "float32", seed=2)
+    tables = torch.arange(B * nb, dtype=torch.int32).reshape(B, nb)
+    lens = torch.full((B,), nb * page, dtype=torch.int32)
+    o1 = tops.paged_attention(q, kp, vp, tables, lens)
+    perm = torch.from_numpy(np.random.default_rng(5).permutation(P))
+    inv = torch.argsort(perm)
+    o2 = tops.paged_attention(q, kp[inv], vp[inv],
+                              perm[tables.long()].to(torch.int32), lens)
+    assert_close(o1, o2, TOL_F32)
+
+
+def test_paged_over_contiguous_cache_is_masked_attention():
+    """The decode view: a [B,S,K,hd] cache as pages with the identity
+    table equals attention over the first lens positions."""
+    B, S, K, G, hd, page = 2, 64, 2, 3, 16, 16
+    rng = np.random.default_rng(4)
+    cache_k = torch.from_numpy(rng.standard_normal((B, S, K, hd),
+                                                   dtype=np.float32))
+    cache_v = torch.from_numpy(rng.standard_normal((B, S, K, hd),
+                                                   dtype=np.float32))
+    q = torch.from_numpy(rng.standard_normal((B, K * G, hd),
+                                             dtype=np.float32))
+    lens = torch.tensor([5, 64], dtype=torch.int32)
+    nb = S // page
+    tables = torch.arange(B * nb, dtype=torch.int32).reshape(B, nb)
+    got = tops.paged_attention(q, cache_k.view(B * nb, page, K, hd),
+                               cache_v.view(B * nb, page, K, hd), tables,
+                               lens)
+    for b in range(B):
+        n = int(lens[b])
+        want = tref.mha_reference(
+            q[b:b + 1, :, None], cache_k[b:b + 1, :n].transpose(1, 2),
+            cache_v[b:b + 1, :n].transpose(1, 2), causal=False)[:, :, 0]
+        assert_close(got[b:b + 1], want, TOL_F32)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    q = torch.zeros(1, 4, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.launch(q, q[:, :2], q[:, :2])
+    with pytest.raises(ValueError, match="multiple"):
+        tfa.flash_attention(q, q[:, :3], q[:, :3])
+    with pytest.raises(ValueError, match="window"):
+        tfa.flash_attention(q, q[:, :2], q[:, :2], window=0)
+    qd = torch.zeros(2, 4, 16)
+    pages = torch.zeros(4, 8, 2, 16)
+    tables = torch.zeros(2, 2, dtype=torch.int32)
+    lens = torch.ones(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpa.launch(qd, pages, pages, tables, lens)
+    with pytest.raises(ValueError, match="tables"):
+        tpa.paged_attention(qd, pages, pages, tables[:1], lens)
+    with pytest.raises(ValueError, match="fit"):
+        tpa.paged_attention(qd, pages, pages[..., :8], tables, lens)
