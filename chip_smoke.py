@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, in
-parallel, and drives its two paths on the card:
+parallel, and drives its three paths on the card:
 
 - the simulator (phases 2-5): the ``mmu_step`` kernel against its plain
   PyTorch version, ``repro_torch.sim.runner.run_batch`` over all 11
@@ -16,7 +16,16 @@ parallel, and drives its two paths on the card:
   ``tests/golden/torch_granite_fullwidth.json``; then at full width and
   depth, 8 requests x 512 prompt tokens and 64 greedy decode steps,
   counted (one flash launch per layer per prefill, one paged launch per
-  layer per step), checked against the plain path and timed.
+  layer per step), checked against the plain path and timed;
+- serving mamba2-2.7b (phases 9-11): the ``ssd_intra`` kernel against its
+  plain version in both roundings at the JAX test's shapes, the smoke
+  config's and the full prefill's (B and C per group, x strided as the
+  model holds it); the model at full width, 2 layers, against the JAX
+  snapshot ``tests/golden/torch_mamba2_fullwidth.json``, and in float32
+  its chunked forward against the token-by-token recurrence; then at
+  full width and depth, 8 requests x 512 prompt tokens (one ssd_intra
+  launch per layer) and 64 greedy decode steps from ``init_cache``,
+  counted, checked against the plain path and timed.
 
 Any failed check raises, so the exit code is non-zero; no phase's
 failure is caught.  With no CUDA device, or without the repository around it, it
@@ -66,7 +75,7 @@ SYSTEMS = ("radix", "victima")
 CHECK_N = 2000      # accesses of the kernel-vs-plain check at Table 3
 UNIT_N = 512        # accesses of the timed kernel-vs-plain unit
 SOURCES = ("mmu_step", "load_latency", "flash_attention",
-           "paged_attention")  # csrc/*.cu, built side by side
+           "paged_attention", "ssd_scan")  # csrc/*.cu, built side by side
 FULL_N = 20_000     # main path against the JAX snapshot
 TIMED_N = 150_000   # main path at the runner's default length
 
@@ -551,6 +560,320 @@ def serving_path(dev):
     return {"launches": launches, "flash": flash, "paged": paged}
 
 
+# ---------------------------------------------------------------- mamba2
+
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}  # test_kernels_ssd.py
+# (T, q, G, r, p, n): tests/test_kernels_ssd.py's shapes (B and C per
+# head), mamba2-2.7b's smoke prefill (2 x 32 tokens), its full prefill
+SSD_SHAPES = [(2, 32, 4, 1, 16, 16), (1, 64, 2, 1, 32, 32),
+              (3, 16, 8, 1, 8, 16), (8, 8, 1, 8, 16, 16),
+              (32, 128, 1, 80, 64, 128)]
+# full-width logits against the JAX snapshot: bf16 logits of size ~4,
+# where a bf16 ulp is 3.1e-2 (the port's plain path on a CPU: 2.1e-2)
+SSM_SNAP_TOL = 5e-2
+SSM_RECURRENT_TOL = 1e-3  # float32 chunked vs recurrent (test_kernels_ssd.py:59)
+# kernel path against plain path, prefill logits at 64 layers.  float32:
+# the two roundings are one computation and the cumsum rounds alike, so
+# only the order of float32 sums differs.  bf16: the two round W to bf16
+# at the same places but sum CB in other orders, so a weight near a
+# rounding tie lands one ulp apart, and 64 random layers amplify that (a
+# CPU emulation, CB, y and S summed in float64 instead, at d_model 1024
+# and 64 layers moved logits of size ~4.3 by 0.17, 0.13 of this bound)
+SSM_SERVE_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.5e-1}
+SSM_B, SSM_PROMPT, SSM_STEPS = 8, 512, 64
+
+
+def ssd_inputs(T, q, G, r, p, n, dtype, dev, rng):
+    """The model's layout: x, B and C slices of one [T*q, conv_dim]
+    buffer (x's token stride is conv_dim); dt and dA float32 in Mamba-2's
+    ranges, so that decays pass the clip at -60."""
+    R = G * r
+    xbc = torch.from_numpy(rng.standard_normal(
+        (T * q, R * p + 2 * G * n), dtype=np.float32)).to(dev).to(dtype)
+    x = xbc[:, :R * p].view(T, q, R, p)
+    B = xbc[:, R * p:R * p + G * n].view(T, q, G, n)
+    C = xbc[:, R * p + G * n:].view(T, q, G, n)
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (T, q, R))) \
+        * rng.uniform(0.5, 20.0, (1, 1, R))
+    A = -rng.uniform(1.0, 16.0, R)
+    return (x, torch.from_numpy(dt.astype(np.float32)).to(dev),
+            torch.from_numpy((dt * A).astype(np.float32)).to(dev), B, C)
+
+
+def ssd_bound_ms(x, B, out_dtype):
+    """Least time of the intra-chunk block on these inputs: x, B, C, dt
+    and dA read once and y, S written once over the memory rate; or the
+    operations the causal block needs (CB's lower triangle per group, the
+    lower-triangular W @ x and B^T @ x per head) over the peak rate of the
+    dtype."""
+    T, q, R, p = x.shape
+    G, n = B.shape[2], B.shape[3]
+    tri = q * (q + 1) // 2
+    ops_ = 2 * T * (G * tri * n + R * tri * p + R * q * n * p)
+    out = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = (x.numel() * x.element_size() + 2 * T * q * G * n
+              * B.element_size() + 2 * 4 * T * q * R
+              + out * (T * q * R * p + T * R * n * p))
+    peak = BF16_TFLOPS if x.dtype == torch.bfloat16 else F32_TFLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def ssd_vs_plain(dev):
+    """Phase 9: the ssd_intra kernel against its plain version on the
+    card, both roundings, float32 and bf16.  Returns the max abs error."""
+    from repro_torch.kernels import ref, ssd_scan
+
+    rng = np.random.default_rng(2)
+    worst = 0.0
+    for T, q, G, r, p, n in SSD_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x, dtv, dA, B, C = ssd_inputs(T, q, G, r, p, n, dt, dev, rng)
+            for mode in ("pallas", "model"):
+                y, S = ssd_scan.ssd_intra(x, dtv, dA, B, C, mode=mode)
+                wy, wS = ref.ssd_intra_plain(x, dtv, dA, B, C, mode=mode)
+                what = f"ssd_intra {T, q, G, r, p, n} {str(dt)[6:]} {mode}"
+                err = max(close(y, wy, SSD_TOL[dt], what + " y"),
+                          close(S, wS, SSD_TOL[dt], what + " S"))
+                worst = max(worst, err)
+                print(f"{what}: max abs err {err:.3g} (tolerance "
+                      f"{SSD_TOL[dt]}; y {str(y.dtype)[6:]})")
+    return worst
+
+
+def mamba2_vs_snapshot(dev):
+    """Phase 10: mamba2-2.7b at full width, 2 layers, against the JAX
+    snapshot tests/golden/torch_mamba2_fullwidth.json (bf16), then in
+    float32 the chunked forward against the token-by-token recurrence."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    with open(os.path.join(ROOT, "tests", "golden",
+                           "torch_mamba2_fullwidth.json")) as f:
+        snap = json.load(f)
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"),
+                              n_layers=snap["n_layers"])
+    t0 = time.perf_counter()
+    tree = M.numpy_params(cfg, snap["seed"])
+    if M.tree_sha256(tree) != snap["weights_sha256"]:
+        raise AssertionError("the weights differ from the ones the snapshot "
+                             "was made from (numpy draws other numbers?)")
+    B, S = snap["batch"], snap["prompt_len"]
+    prompt = torch.from_numpy(np.random.default_rng(snap["seed"] + 1).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32))
+    if M.tree_sha256({}, prompt.numpy()) != snap["prompt_sha256"]:
+        raise AssertionError("the prompt differs from the snapshot's")
+    print(f"weights and prompt equal the snapshot's (sha256; "
+          f"{time.perf_counter() - t0:.1f} s to draw and digest)")
+    m = M.build(cfg, dev)
+    params = M.params_from_jax(tree, cfg, dev)
+    logits, _ = m.prefill(params, {"tokens": prompt})
+    cache = m.init_cache(B, S)
+    worst, compared = 0.0, 0
+    for i, st in enumerate(snap["steps"]):
+        if i:
+            tok = torch.tensor(snap["steps"][i - 1]["token"],
+                               dtype=torch.int32)[:, None]
+            logits, cache = m.decode_step(params, cache, tok, None)
+        lg = logits[:, -1].float()
+        top = torch.gather(lg, 1, torch.tensor(st["top_ids"], device=dev))
+        err = close(top, torch.tensor(st["top_logits"], device=dev),
+                    SSM_SNAP_TOL, f"step {i} top-{snap['top']} logits")
+        err = max(err, close(torch.logsumexp(lg, -1),
+                             torch.tensor(st["logsumexp"], device=dev),
+                             SSM_SNAP_TOL, f"step {i} logsumexp"))
+        worst = max(worst, err)
+        greedy = lg.argmax(-1).tolist()
+        for b in range(B):
+            if st["margin"][b] > SSM_SNAP_TOL:
+                compared += 1
+                if greedy[b] != st["token"][b]:
+                    raise AssertionError(f"step {i}, request {b}: greedy "
+                                         f"token {greedy[b]} != "
+                                         f"{st['token'][b]}")
+    print(f"prefill + {snap['decode_steps']} decode steps from init_cache, "
+          f"B={B}: max abs err {worst:.4g} on the top-{snap['top']} logits "
+          f"and logsumexp (tolerance {SSM_SNAP_TOL}); {compared} greedy "
+          f"tokens with a top-2 margin above it all equal the snapshot's")
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = M.build(cfg32, dev)
+    params = M.params_from_jax(tree, cfg32, dev)
+    del tree
+    want = m32.forward(params, {"tokens": prompt})
+    cache = m32.init_cache(B, S, torch.float32)
+    err = 0.0
+    for i in range(S):
+        lg, cache = m32.decode_step(params, cache, prompt[:, i:i + 1], None)
+        err = max(err, close(lg[:, 0], want[:, i], SSM_RECURRENT_TOL,
+                             f"float32 position {i}"))
+    print(f"float32: forward (chunked, through the kernel) == decode_step "
+          f"token by token from init_cache at all {S} positions of {B} "
+          f"requests: max abs err {err:.3g} on the logits (tolerance "
+          f"{SSM_RECURRENT_TOL})")
+    return worst
+
+
+def mamba2_dt_a_init(params, gen):
+    """Mamba-2's published init of A and dt in place of the reference's
+    zeros (A_log = log U[1, 16]; softplus(dt_bias) log-uniform in [1e-3,
+    1e-1]), drawn from `gen`: a chunk's decay then passes the clip."""
+    for lp in params.layers:
+        mx = lp.mixer
+        u = torch.rand(mx.A_log.shape, generator=gen, device=gen.device)
+        mx.A_log.copy_(torch.log(1.0 + 15.0 * u))
+        u = torch.rand(mx.dt_bias.shape, generator=gen, device=gen.device)
+        dt = torch.exp(np.log(1e-3) + u * (np.log(1e-1) - np.log(1e-3)))
+        mx.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+
+
+def mamba2_serving(dev):
+    """Phase 11: mamba2-2.7b at full width and depth serves SSM_B
+    requests: prefill of SSM_PROMPT tokens, then SSM_STEPS greedy decode
+    steps from init_cache (the reference's ssm prefill returns no
+    cache)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref, ssd_scan
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    cfg = get_config("mamba2-2.7b")
+    m = M.build(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = m.init(gen)
+    mamba2_dt_a_init(params, gen)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.ssm_heads} heads of {cfg.ssm_headdim}, state "
+          f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, {cfg.n_params() / 1e9:.2f}"
+          f" B parameters in {cfg.dtype}, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    prompt = M.dummy_batch(cfg, SSM_B, SSM_PROMPT, gen)
+
+    # the kernel path against the plain path on the same weights (only
+    # the prefill runs the kernel): the bf16 model, and the model in
+    # float32 on two of the requests
+    def kernel_vs_plain(model, weights, batch):
+        kern, _ = model.prefill(weights, batch)
+        saved = ssd_scan.ssd_intra
+        ssd_scan.ssd_intra = ref.ssd_intra_plain
+        try:
+            plain, _ = model.prefill(weights, batch)
+        finally:
+            ssd_scan.ssd_intra = saved
+        dt = L.dtype_of(model.cfg)
+        err = close(kern, plain, SSM_SERVE_TOL[dt], f"mamba2 {dt} prefill")
+        same = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+        print(f"kernel path == plain path (ssd_intra's plain version on the "
+              f"card), {str(dt)[6:]} prefill of {batch['tokens'].shape[0]} "
+              f"requests: max abs err {err:.4g} on the logits (tolerance "
+              f"{SSM_SERVE_TOL[dt]}), greedy tokens equal for {same:.0%}")
+
+    kernel_vs_plain(m, params, prompt)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = M.build(cfg32, dev)
+    gen32 = torch.Generator(device=dev).manual_seed(1)
+    p32 = m32.init(gen32)
+    mamba2_dt_a_init(p32, gen32)
+    kernel_vs_plain(m32, p32, {"tokens": prompt["tokens"][:2]})
+    del p32
+
+    # the main path, counted and timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    ssd_scan.LAUNCHES = 0
+    t0 = time.perf_counter()
+    lg, cache = m.prefill(params, prompt)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if ssd_scan.LAUNCHES != cfg.n_layers or cache is not None:
+        raise AssertionError(f"prefill launched ssd_intra "
+                             f"{ssd_scan.LAUNCHES} times")
+    finite &= torch.isfinite(lg).all()
+    cache = m.init_cache(SSM_B, SSM_PROMPT + SSM_STEPS)
+    t0 = time.perf_counter()
+    for i in range(SSM_STEPS):
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        lg, cache = m.decode_step(params, cache, tok, None)
+        finite &= torch.isfinite(lg).all()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / SSM_STEPS
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / SSM_STEPS
+    launches = ssd_scan.LAUNCHES
+    if launches != cfg.n_layers:
+        raise AssertionError(f"decode launched ssd_intra: {launches} in all")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not bool(finite):
+        raise AssertionError("non-finite logits on the mamba2 serving path")
+    print(f"main path: prefill {prefill_ms:.2f} ms ({SSM_B} x {SSM_PROMPT} "
+          f"tokens, {SSM_B * SSM_PROMPT * 1e3 / prefill_ms:,.0f} tokens/s), "
+          f"decode {decode_ms:.3f} ms per step, "
+          f"{SSM_B * 1e3 / decode_ms:,.0f} tokens/s over {SSM_STEPS} steps; "
+          f"ssd_intra launches {launches}; logits finite; peak device memory "
+          f"{peak:.2f} GiB")
+    print(f"decode: the host enqueued a step every {enqueue_ms:.3f} ms "
+          f"(the card then needed {SSM_STEPS * (decode_ms - enqueue_ms):.2f}"
+          f" ms more to finish all {SSM_STEPS})")
+
+    # device time by kernel under torch.profiler: one prefill, 4 steps
+    for what, steps in (("prefill", 0), ("decode", 4)):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if steps == 0:
+                m.prefill(params, prompt)
+            for _ in range(steps):
+                lg, cache = m.decode_step(params, cache, tok, None)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(r[1] for r in rows)
+        per = max(steps, 1)
+        print(f"profiled {what} ({per} call{'s' if per > 1 else ''}): wall "
+              f"{prof_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+              f"({busy_ms / prof_ms:.1%}; idle {1 - busy_ms / prof_ms:.1%} "
+              f"under the profiler)")
+        for key, ms_, n in sorted(rows, key=lambda r: -r[1])[:8]:
+            print(f"  {ms_ / per:8.3f} ms/call {n // per:5d} launches/call  "
+                  f"{key[:90]}")
+
+    # the kernel alone at the main path's shapes and layout (model
+    # rounding, as ssd_chunked calls it)
+    T, q = SSM_B * SSM_PROMPT // cfg.ssm_chunk, cfg.ssm_chunk
+    x, dtv, dA, B, C = ssd_inputs(T, q, cfg.ssm_groups,
+                                  cfg.ssm_heads // cfg.ssm_groups,
+                                  cfg.ssm_headdim, cfg.ssm_state,
+                                  torch.bfloat16, dev,
+                                  np.random.default_rng(3))
+    ssd = {
+        "ms": device_ms(lambda: ssd_scan.ssd_intra(x, dtv, dA, B, C,
+                                                   mode="model")),
+        "plain_ms": device_ms(lambda: ref.ssd_intra_plain(
+            x, dtv, dA, B, C, mode="model"), reps=5),
+        "library_ms": None}
+    ssd["bound_ms"], ssd["bound_by"] = ssd_bound_ms(x, B, torch.float32)
+    print(f"ssd_intra: {ssd['ms']:.4f} ms per launch, plain "
+          f"{ssd['plain_ms']:.4f} ms, bound {ssd['bound_ms']:.5f} ms "
+          f"({ssd['bound_by']}); no single PyTorch call computes it")
+    print(f"share: ssd_intra {cfg.n_layers * ssd['ms'] / prefill_ms:.1%} of "
+          f"the prefill")
+    return {"launches": launches, "ssd": ssd,
+            "unit": f"mamba2-2.7b prefill: T={T} chunks of {q}, R="
+                    f"{cfg.ssm_heads} heads of {cfg.ssm_headdim}, G="
+                    f"{cfg.ssm_groups}, n={cfg.ssm_state}, bf16, model "
+                    f"rounding (y, S in float32), x strided as in the model"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -793,6 +1116,25 @@ def main() -> int:
     serve = serving_path(dev)
     print(f"phase 8: {time.perf_counter() - t:.1f} s")
 
+    # ------------------------------------------------------------ 9
+    t = phase("9. ssd_intra kernel against its plain version, on the card")
+    ssd_err = ssd_vs_plain(dev)
+    print(f"phase 9: {time.perf_counter() - t:.1f} s")
+
+    # ------------------------------------------------------------ 10
+    t = phase("10. mamba2-2.7b at full width, 2 layers, against the JAX "
+              "snapshot; float32 chunked == recurrent")
+    mamba2_vs_snapshot(dev)
+    print(f"phase 10: {time.perf_counter() - t:.1f} s")
+
+    # ------------------------------------------------------------ 11
+    torch.cuda.empty_cache()
+    t = phase(f"11. serving path: mamba2-2.7b, full width and depth, "
+              f"{SSM_B} requests x {SSM_PROMPT} prompt tokens, {SSM_STEPS} "
+              f"decode steps")
+    mamba = mamba2_serving(dev)
+    print(f"phase 11: {time.perf_counter() - t:.1f} s")
+
     shape = {"flash_attention": f"granite-3-2b prefill: B={SERVE_B}, "
                                 f"S={SERVE_PROMPT}, H=32, K=8, hd=64, bf16, "
                                 f"causal",
@@ -824,7 +1166,12 @@ def main() -> int:
         "l1_hit_ns": l1_ns, "l2_hit_ns": l2_ns,
         "unit": f"victima, Table-3 defaults, first {UNIT_N} accesses x "
                 f"{W} lanes",
-        "matches_plain": True, "matches_reference": True}] + attn}))
+        "matches_plain": True, "matches_reference": True}] + attn + [{
+        "name": "ssd_intra", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:49",
+        "launches": mamba["launches"], "max_abs_err": ssd_err,
+        **mamba["ssd"], "unit": mamba["unit"], "matches_plain": True}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,8 @@
 """Config registry: one module per assigned architecture.
 
 The port's copy of ``repro.configs``: the same ``ARCHS`` list and
-lookups.  Only granite-3-2b's module is ported so far; the other names
-raise, naming the ROADMAP queue that brings them.
+lookups.  granite-3-2b's and mamba2-2.7b's modules are ported so far;
+the other names raise, naming the ROADMAP queue that brings them.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ ARCHS = [
     "qwen2-vl-7b",
 ]
 
-PORTED = ("granite-3-2b",)
+PORTED = ("granite-3-2b", "mamba2-2.7b")
 
 
 def _module(name: str):

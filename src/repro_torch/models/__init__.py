@@ -1,1 +1,2 @@
-"""Model families (the dense transformer so far) and their layers."""
+"""Model families (the dense transformer and mamba2 so far) and their
+layers."""

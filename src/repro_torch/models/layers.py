@@ -1,5 +1,5 @@
-"""Shared transformer building blocks; the port of ``repro.models.layers``
-for the dense family.
+"""Shared building blocks; the port of ``repro.models.layers`` for the
+dense and ssm families.
 
 Weights live in ``nn.Module``s (``Params`` subclasses) in the JAX
 package's ``[in, out]`` orientation (``x @ w``), under the JAX dict's
@@ -32,8 +32,16 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
+FAMILIES = ("dense", "ssm")  # the model families the port runs
+
+
 def check_ported(cfg: ModelConfig):
-    """Raise on the attention options the port does not run yet."""
+    """Raise on the families and attention options the port does not run
+    yet."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet "
+            f"(ROADMAP Queue 1, Models)")
     for what, on in (("qk_norm", cfg.qk_norm),
                      ("window", cfg.window is not None),
                      ("mrope_sections", cfg.mrope_sections is not None)):

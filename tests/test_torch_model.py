@@ -71,16 +71,18 @@ def both(a: np.ndarray, dtype: str):
 # ---------------------------------------------------------------- configs
 
 
-def test_config_copy_equals_the_reference():
-    j, t = jget_config(ARCH), tconfigs.get_config(ARCH)
+@pytest.mark.parametrize("arch", tconfigs.PORTED)
+def test_config_copy_equals_the_reference(arch):
+    j, t = jget_config(arch), tconfigs.get_config(arch)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
     assert (j.hd, j.padded_vocab, j.n_params()) == \
         (t.hd, t.padded_vocab, t.n_params())
-    assert dataclasses.asdict(jget_smoke(ARCH)) == \
-        dataclasses.asdict(tconfigs.get_smoke_config(ARCH))
+    assert dataclasses.asdict(jget_smoke(arch)) == \
+        dataclasses.asdict(tconfigs.get_smoke_config(arch))
 
 
-@pytest.mark.parametrize("arch", [a for a in tconfigs.ARCHS if a != ARCH])
+@pytest.mark.parametrize("arch", [a for a in tconfigs.ARCHS
+                                  if a not in tconfigs.PORTED])
 def test_unported_configs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tconfigs.get_config(arch)
