@@ -9,14 +9,18 @@ parallel, and drives its three paths on the card:
   PyTorch version, ``repro_torch.sim.runner.run_batch`` over all 11
   workloads (radix and Victima at the Table-3 defaults) against the JAX
   package's snapshot ``tests/golden/torch_fullsize_stats.json``, timed;
-- serving granite-3-2b (phases 6-8): the ``flash_attention`` (prefill)
-  and ``paged_attention`` (decode) kernels against their plain versions
-  at the JAX tests' shapes and granite's; the model at full width, 2
-  layers, against the JAX snapshot
-  ``tests/golden/torch_granite_fullwidth.json``; then at full width and
-  depth, 8 requests x 512 prompt tokens and 64 greedy decode steps,
-  counted (one flash launch per layer per prefill, one paged launch per
-  layer per step), checked against the plain path and timed;
+- serving granite-3-2b (phases 6-8): the ``flash_attention`` (prefill;
+  bf16 on the tensor cores, float32 on the CUDA cores, each call
+  checked to have taken its dtype's kernel) and ``paged_attention``
+  (decode) kernels against their plain versions at the JAX tests'
+  shapes, granite's, and bf16 at hd 128, with windows, ragged S != Sk
+  and the model's strided views; the model at full width, 2 layers,
+  against the JAX snapshot ``tests/golden/torch_granite_fullwidth.json``;
+  then at full width and depth, 8 requests x 512 prompt tokens and 64
+  greedy decode steps, counted (one flash launch per layer per prefill,
+  all on the bf16 tensor-core kernel; one paged launch per layer per
+  step), checked against the plain path and timed, with the flash
+  kernel's registers, shared memory and TFLOP/s;
 - serving mamba2-2.7b (phases 9-11): the ``ssd_intra`` kernel against its
   plain version in both roundings at the JAX test's shapes, the smoke
   config's and the full prefill's (B and C per group, x strided as the
@@ -193,6 +197,23 @@ FLASH_BF16_TOL, PAGED_BF16_TOL = 2e-2, 3e-2
 # tests/test_kernels_flash.py's shapes, then granite-3-2b's prefill
 FLASH_SHAPES = [(1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 256, 8, 1, 64),
                 (2, 128, 6, 3, 16), (8, 512, 32, 8, 64)]
+# bf16 only, where float32 has no kernel or no need: (B, S, Sk, H, K, hd,
+# causal, model layout) -- ragged S and Sk (no multiple of a tile, Sk !=
+# S), hd 128 (the width of the dense configs queued next), and the
+# model's [B,S,H,hd] views at hd 128
+FLASH_BF16_CASES = [(2, 77, 200, 4, 2, 64, True, False),
+                    (2, 77, 200, 4, 2, 64, False, False),
+                    (2, 200, 77, 4, 2, 64, True, False),
+                    (2, 320, 320, 8, 2, 128, True, False),
+                    (2, 320, 320, 8, 2, 128, False, False),
+                    (2, 512, 512, 32, 8, 128, True, True)]
+FLASH_KERNEL = {torch.float32: "fma_f32", torch.bfloat16: "mma_bf16"}
+# quoted, not measured by this script: the bf16 flash kernel's time at
+# granite's prefill when it ran on the CUDA cores, before the
+# tensor-core kernel (earlier runs of this script, NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md's kernel table); printed on a line of its own, never in
+# the kernels line, whose numbers are all this run's
+QUOTED_CUDA_CORE_FLASH_MS = 1.0821
 # tests/test_kernels_paged.py's shapes, then granite-3-2b's decode (a
 # cache of 1024 positions in pages of 128)
 PAGED_SHAPES = [(2, 4, 2, 64, 64, 4, 16), (1, 8, 1, 32, 32, 8, 16),
@@ -219,10 +240,10 @@ def close(got, want, tol, what):
     return float(diff.max())
 
 
-def flash_bound_ms(q, k, causal, window=None):
-    """Least time of flash attention on these inputs: q, k, v read once
-    and o written once over the memory rate, or 4*hd operations per
-    (query, key) pair the masks keep over the peak rate of the dtype."""
+def flash_ops(q, k, causal, window=None):
+    """Operations flash attention needs on these inputs: 4*hd per
+    (query, key) pair the masks keep (q.k and p.v, a multiply and an add
+    each)."""
     B, H, S, hd = q.shape
     Sk = k.shape[2]
     qpos = torch.arange(S)[:, None]
@@ -232,7 +253,14 @@ def flash_bound_ms(q, k, causal, window=None):
         keep &= qpos >= kpos
     if window is not None:
         keep &= qpos - kpos < window
-    ops_ = 4 * hd * B * H * int(keep.sum())
+    return 4 * hd * B * H * int(keep.sum())
+
+
+def flash_bound_ms(q, k, causal, window=None):
+    """Least time of flash attention on these inputs: q, k, v read once
+    and o written once over the memory rate, or the operations the masks
+    keep (flash_ops) over the peak rate of the dtype."""
+    ops_ = flash_ops(q, k, causal, window)
     nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
     peak = BF16_TFLOPS if q.dtype == torch.bfloat16 else F32_TFLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / peak
@@ -273,21 +301,36 @@ def attention_vs_plain(dev):
             shape, dtype=np.float32)).to(dev).to(dtype)
 
     errs = {"flash_attention": 0.0, "paged_attention": 0.0}
-    cases = [(s, dt, c, None) for s in FLASH_SHAPES
+    # (B, S, Sk, H, K, hd, dtype, causal, window, model layout)
+    cases = [(B, S, S, H, K, hd, dt, c, None, False)
+             for B, S, H, K, hd in FLASH_SHAPES
              for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
-    cases += [((1, 256, 4, 2, 32), dt, True, w)
+    cases += [(1, 256, 256, 4, 2, 32, dt, True, w, False)
               for dt in (torch.float32, torch.bfloat16) for w in (32, 128)]
-    for (B, S, H, K, hd), dt, causal, window in cases:
-        q, k, v = draw((B, H, S, hd), dt), draw((B, K, S, hd), dt), \
-            draw((B, K, S, hd), dt)
+    cases += [(B, S, Sk, H, K, hd, torch.bfloat16, c, None, lay)
+              for B, S, Sk, H, K, hd, c, lay in FLASH_BF16_CASES]
+    for B, S, Sk, H, K, hd, dt, causal, window, layout in cases:
+        if layout:   # [B,S,H,hd] tensors seen as [B,H,S,hd], as ops does
+            q = draw((B, S, H, hd), dt).transpose(1, 2)
+            k, v = (draw((B, Sk, K, hd), dt).transpose(1, 2)
+                    for _ in range(2))
+        else:
+            q, k, v = draw((B, H, S, hd), dt), draw((B, K, Sk, hd), dt), \
+                draw((B, K, Sk, hd), dt)
+        kern = FLASH_KERNEL[dt]
+        before = fa.LAUNCHES_BY_KERNEL[kern]
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        if fa.LAUNCHES_BY_KERNEL[kern] != before + 1:
+            raise AssertionError(f"flash {B, S, Sk, H, K, hd} {dt} did not "
+                                 f"launch {kern}")
         want = ref.mha_reference(q, k, v, causal=causal, window=window)
         tol = TOL.get(dt, FLASH_BF16_TOL)
-        err = close(got, want, tol, f"flash {B, S, H, K, hd}")
+        err = close(got, want, tol, f"flash {B, S, Sk, H, K, hd}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
-        print(f"flash B={B} S={S} H={H} K={K} hd={hd} {str(dt)[6:]} "
-              f"causal={causal} window={window}: max abs err {err:.3g} "
-              f"(tolerance {tol})")
+        print(f"flash {kern} B={B} S={S} Sk={Sk} H={H} K={K} hd={hd} "
+              f"{str(dt)[6:]} causal={causal} window={window}"
+              f"{' [B,S,H,hd] views' if layout else ''}: max abs err "
+              f"{err:.3g} (tolerance {tol})")
     for B, H, K, hd, page, nb, P in PAGED_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             q = draw((B, H, hd), dt)
@@ -389,10 +432,26 @@ def plain_attention():
     return restore
 
 
-def serving_path(dev):
+def ptxas_usage(log: str, entry: str) -> str:
+    """What ``nvcc -Xptxas -v`` reported for the kernel entry whose
+    mangled name contains `entry`: registers, stack and spills."""
+    cur, out = None, []
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1]
+        elif cur and entry in cur and ("spill" in ln or "Used" in ln):
+            out.append(ln.split(":", 1)[-1].strip() if "Used" in ln
+                       else ln.strip())
+    if not out:
+        raise AssertionError(f"no ptxas report for {entry} in the build log")
+    return "; ".join(out)
+
+
+def serving_path(dev, flash_log):
     """Phase 8: granite-3-2b at full width and depth serves SERVE_B
     requests: prefill of SERVE_PROMPT tokens, SERVE_STEPS greedy decode
-    steps over a cache of SERVE_CACHE positions."""
+    steps over a cache of SERVE_CACHE positions.  `flash_log` is the
+    flash_attention build's nvcc output."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -445,13 +504,19 @@ def serving_path(dev):
     cache = m.init_cache(SERVE_B, SERVE_CACHE)
     finite = torch.ones((), dtype=torch.bool, device=dev)
     fa.LAUNCHES = pa.LAUNCHES = 0
+    fa.LAUNCHES_BY_KERNEL.update(mma_bf16=0, fma_f32=0)
     t0 = time.perf_counter()
     lg, cache = m.prefill(params, prompt, cache)
+    prefill_enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     if (fa.LAUNCHES, pa.LAUNCHES) != (cfg.n_layers, 0):
         raise AssertionError(f"prefill launched flash {fa.LAUNCHES} and "
                              f"paged {pa.LAUNCHES} times")
+    if fa.LAUNCHES_BY_KERNEL != {"mma_bf16": cfg.n_layers, "fma_f32": 0}:
+        raise AssertionError(f"the bf16 prefill's flash launches went to "
+                             f"{fa.LAUNCHES_BY_KERNEL}, not all to mma_bf16")
+    print(f"prefill: flash launches by kernel {fa.LAUNCHES_BY_KERNEL}")
     finite &= torch.isfinite(lg).all()
     t0 = time.perf_counter()
     for i in range(SERVE_STEPS):
@@ -477,9 +542,35 @@ def serving_path(dev):
           f"{SERVE_B * 1e3 / decode_ms:,.0f} tokens/s over {SERVE_STEPS} "
           f"steps; launches {launches}; logits finite; peak device memory "
           f"{peak:.2f} GiB")
+    print(f"prefill: the host enqueued it in {prefill_enqueue_ms:.2f} ms "
+          f"(the card then needed {prefill_ms - prefill_enqueue_ms:.2f} ms "
+          f"more)")
     print(f"decode: the host enqueued a step every {enqueue_ms:.3f} ms "
           f"(the card then needed {SERVE_STEPS * (decode_ms - enqueue_ms):.2f}"
           f" ms more to finish all {SERVE_STEPS})")
+
+    def device_rows(prof):
+        """(kernel, device ms, calls) of the profiled window; an
+        operator's row repeats its kernels' time, so kernels only."""
+        return [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    # where the prefill's device time goes (torch.profiler, one prefill)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        m.prefill(params, prompt, m.init_cache(SERVE_B, SERVE_CACHE))
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    busy_ms = sum(r[1] for r in rows)
+    print(f"profiled prefill: wall {prof_ms:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms ({busy_ms / prof_ms:.1%}), "
+          f"{sum(r[2] for r in rows)} kernel launches")
+    for key, ms_, n in sorted(rows, key=lambda r: -r[1])[:10]:
+        print(f"  {ms_:8.3f} ms {n:5d} calls  {key[:90]}")
 
     # where a decode step's device time goes (torch.profiler, 4 steps)
     prof_steps = 4
@@ -493,10 +584,7 @@ def serving_path(dev):
             lg, cache = m.decode_step(params, cache, tok, pos)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
-    # the kernels' own rows: an operator's row repeats its kernels' time
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = device_rows(prof)
     busy_ms = sum(r[1] for r in rows)
     print(f"profiled {prof_steps} decode steps: wall {prof_ms:.2f} ms, "
           f"device busy {busy_ms:.2f} ms ({busy_ms / prof_ms:.1%}; idle "
@@ -526,6 +614,35 @@ def serving_path(dev):
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, kx, vx, is_causal=True))}
     flash["bound_ms"], flash["bound_by"] = flash_bound_ms(q, k, True)
+    flash["tflops"] = flash_ops(q, k, True) / (flash["ms"] * 1e-3) / 1e12
+    print(f"flash_attention (mma_bf16, hd {hd}): "
+          f"{ptxas_usage(flash_log, f'flash_mmaILi{hd}E')}; "
+          f"{fa.smem_bytes(torch.bfloat16, hd)} bytes of dynamic shared "
+          f"memory a block; {flash['tflops']:.1f} TFLOP/s on the "
+          f"{flash_ops(q, k, True) / 1e9:.2f} GFLOP the causal mask keeps, "
+          f"{flash['bound_ms'] / flash['ms']:.1%} of the bound "
+          f"({flash['bound_ms']:.5f} ms, {flash['bound_by']}); "
+          f"{flash['ms'] / flash['library_ms']:.2f}x SDPA")
+    print(f"flash_attention before the tensor-core kernel: "
+          f"{QUOTED_CUDA_CORE_FLASH_MS} ms on the CUDA cores, quoted from "
+          f"PERF.md (not measured here); this run is "
+          f"{QUOTED_CUDA_CORE_FLASH_MS / flash['ms']:.1f}x faster")
+    # the same prefill at hd 128, the width of the dense configs queued
+    # next (its own draws, so the inputs above and below stay as they are)
+    rng128 = np.random.default_rng(2)
+    q2, k2, v2 = (torch.from_numpy(rng128.standard_normal(
+        (SERVE_B, SERVE_PROMPT, n, 128), dtype=np.float32)).to(dev).to(
+        torch.bfloat16).transpose(1, 2) for n in (H, K, K))
+    kx2, vx2 = (x.repeat_interleave(H // K, dim=1) for x in (k2, v2))
+    ms128 = device_ms(lambda: fa.flash_attention(q2, k2, v2, causal=True))
+    sdpa128 = device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q2, kx2, vx2, is_causal=True))
+    print(f"flash_attention (mma_bf16, hd 128, same B, S, H, K): "
+          f"{ptxas_usage(flash_log, 'flash_mmaILi128E')}; {ms128:.4f} ms, "
+          f"SDPA {sdpa128:.4f} ms ({ms128 / sdpa128:.2f}x), "
+          f"{flash_ops(q2, k2, True) / (ms128 * 1e-3) / 1e12:.1f} TFLOP/s")
+    del q2, k2, v2, kx2, vx2
     nb = SERVE_CACHE // m.page
     kp = cache["k"][0].view(SERVE_B * nb, m.page, K, hd)
     vp = cache["v"][0].view(SERVE_B * nb, m.page, K, hd)
@@ -1113,7 +1230,7 @@ def main() -> int:
     t = phase(f"8. serving path: granite-3-2b, full width and depth, "
               f"{SERVE_B} requests x {SERVE_PROMPT} prompt tokens, "
               f"{SERVE_STEPS} decode steps")
-    serve = serving_path(dev)
+    serve = serving_path(dev, builds["flash_attention"]["log"])
     print(f"phase 8: {time.perf_counter() - t:.1f} s")
 
     # ------------------------------------------------------------ 9
@@ -1149,7 +1266,8 @@ def main() -> int:
              "ms": r["ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "library_ms": r["library_ms"], "unit": shape[name],
-             "matches_plain": True}
+             "matches_plain": True,
+             **{x: r[x] for x in ("tflops",) if x in r}}
             for name, line, r in (("flash_attention", 85, serve["flash"]),
                                   ("paged_attention", 73, serve["paged"]))]
     print(smi)

@@ -103,13 +103,26 @@ def rope_freqs(head_dim: int, theta: float, device=None):
                                           device=device) / head_dim)
 
 
-def apply_rope(x, positions, theta: float):
-    """x: [..., S, H, hd]; positions: [..., S] (broadcastable)."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                  # [hd/2]
+def rope_cos_sin(positions, head_dim: int, theta: float):
+    """cos and sin of the rotary angles, [..., S, 1, hd/2] float32: what
+    ``apply_rope`` needs for these positions.  The model makes them once
+    per forward or decode step and shares them between q and k and
+    across layers (eight launches fewer per call of apply_rope)."""
+    freqs = rope_freqs(head_dim, theta, positions.device)    # [hd/2]
     ang = positions[..., None].float() * freqs               # [..., S, hd/2]
     ang = ang[..., None, :]                                  # [..., S, 1, hd/2]
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, positions, theta: float, cos_sin=None):
+    """x: [..., S, H, hd]; positions: [..., S] (broadcastable).
+    ``cos_sin``: ``rope_cos_sin(positions, hd, theta)``.  Every model
+    caller passes it; the default, which makes it here, exists only for
+    the reference-shaped signatures the port's tests call (as do the
+    same defaults on ``attn_apply`` and ``attn_decode``)."""
+    if cos_sin is None:
+        cos_sin = rope_cos_sin(positions, x.shape[-1], theta)
+    cos, sin = cos_sin
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -132,9 +145,11 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> Attention:
                      wo=dense_init(gen, (H * hd, D), dtype=dt))
 
 
-def attn_apply(p, cfg: ModelConfig, x, positions, *, causal=True):
+def attn_apply(p, cfg: ModelConfig, x, positions, *, causal=True,
+               cos_sin=None):
     """Full-sequence self-attention (prefill): x [B,S,D], positions
-    [B,S].  Returns (out, (k, v)) with k, v [B,S,K,hd] for the cache.
+    [B,S] (``cos_sin``: their ``rope_cos_sin``, if the caller has it).
+    Returns (out, (k, v)) with k, v [B,S,K,hd] for the cache.
 
     The attention itself is ``ops.flash_attention`` at every size; the
     reference's switch between two forms of the same function
@@ -145,14 +160,14 @@ def attn_apply(p, cfg: ModelConfig, x, positions, *, causal=True):
     q = matmul(x, p.wq).reshape(B, S, H, hd)
     k = matmul(x, p.wk).reshape(B, S, K, hd)
     v = matmul(x, p.wv).reshape(B, S, K, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = apply_rope(q, positions, cfg.rope_theta, cos_sin)
+    k = apply_rope(k, positions, cfg.rope_theta, cos_sin)
     out = ops.flash_attention(q, k, v, causal=causal)
     return matmul(out.reshape(B, S, H * hd), p.wo), (k, v)
 
 
 def attn_decode(p, cfg: ModelConfig, x, pos, k_cache, v_cache, *,
-                page: int):
+                page: int, cos_sin=None):
     """Single-token decode against one layer's KV cache.
 
     x [B,1,D]; pos [B] current positions; caches [B,S,K,hd] with
@@ -171,8 +186,8 @@ def attn_decode(p, cfg: ModelConfig, x, pos, k_cache, v_cache, *,
     q = matmul(x, p.wq).reshape(B, 1, H, hd)
     k = matmul(x, p.wk).reshape(B, 1, K, hd)
     v = matmul(x, p.wv).reshape(B, 1, K, hd)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta, cos_sin)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta, cos_sin)
     bidx = torch.arange(B, device=x.device)
     pos_l = pos.long()
     k_cache[bidx, pos_l] = k[:, 0].to(k_cache.dtype)

@@ -52,9 +52,9 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> Transformer:
                        ln_f=L.rms_norm_init(cfg.d_model, gen.device))
 
 
-def _block(lp: Block, cfg: ModelConfig, x, positions):
+def _block(lp: Block, cfg: ModelConfig, x, positions, cos_sin):
     h = L.rms_norm(lp.ln1, x, cfg.norm_eps)
-    a, kv = L.attn_apply(lp.attn, cfg, h, positions)
+    a, kv = L.attn_apply(lp.attn, cfg, h, positions, cos_sin=cos_sin)
     x = x + a
     h = L.rms_norm(lp.ln2, x, cfg.norm_eps)
     return x + L.mlp_apply(lp.ffn, h), kv
@@ -70,8 +70,9 @@ def forward(params: Transformer, cfg: ModelConfig, tokens):
     """Full-sequence forward: tokens [B,S] -> logits [B,S,V] (float32)."""
     x = L.embed_apply(params.embed, tokens)
     positions = _positions(tokens)
+    cos_sin = L.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
     for lp in params.layers:
-        x, _ = _block(lp, cfg, x, positions)
+        x, _ = _block(lp, cfg, x, positions, cos_sin)
     x = L.rms_norm(params.ln_f, x, cfg.norm_eps)
     return L.logits_apply(params.embed, x)
 
@@ -102,8 +103,9 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, cache=None):
                          f"the prompt has {S}")
     x = L.embed_apply(params.embed, tokens)
     positions = _positions(tokens)
+    cos_sin = L.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
     for i, lp in enumerate(params.layers):
-        x, (k, v) = _block(lp, cfg, x, positions)
+        x, (k, v) = _block(lp, cfg, x, positions, cos_sin)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
     x = L.rms_norm(params.ln_f, x, cfg.norm_eps)
@@ -116,10 +118,11 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache, tokens, pos,
     """One decode step.  tokens [B,1]; pos [B].  Returns (logits [B,1,V]
     float32, cache), the cache updated in place at ``pos``."""
     x = L.embed_apply(params.embed, tokens)
+    cos_sin = L.rope_cos_sin(pos[:, None], cfg.hd, cfg.rope_theta)
     for i, lp in enumerate(params.layers):
         h = L.rms_norm(lp.ln1, x, cfg.norm_eps)
         a, _, _ = L.attn_decode(lp.attn, cfg, h, pos, cache["k"][i],
-                                cache["v"][i], page=page)
+                                cache["v"][i], page=page, cos_sin=cos_sin)
         x = x + a
         h = L.rms_norm(lp.ln2, x, cfg.norm_eps)
         x = x + L.mlp_apply(lp.ffn, h)

@@ -179,3 +179,39 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tpa.paged_attention(qd, pages, pages, tables[:1], lens)
     with pytest.raises(ValueError, match="fit"):
         tpa.paged_attention(qd, pages, pages[..., :8], tables, lens)
+
+
+ALIGNED = [64 * 512, 64, 32 * 64] * 4   # b, h, s strides of q, k, v, o
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_for_each_dtype_and_width(dtype, hd):
+    """bf16 runs on the tensor cores at every width; float32 on the CUDA
+    cores up to 64, and is refused at 128 (no fallback to either)."""
+    td = DTYPES[dtype][1]
+    if dtype == "float32" and hd == 128:
+        with pytest.raises(ValueError, match="fma_f32 kernel takes head "
+                                             "widths"):
+            tfa.kernel_for(td, hd, ALIGNED, [0] * 4)
+        return
+    want = "mma_bf16" if dtype == "bfloat16" else "fma_f32"
+    assert tfa.kernel_for(td, hd, ALIGNED, [0] * 4) == want
+
+
+def test_flash_kernel_for_refuses_what_the_mma_kernel_cannot_take():
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="mma_bf16 kernel takes head "
+                                         "widths"):
+        tfa.kernel_for(bf, 96, ALIGNED, [0] * 4)
+    odd = list(ALIGNED)
+    odd[5] = 66                         # k's s stride
+    with pytest.raises(ValueError, match="multiples of 8 elements, got "
+                                         r"\[66\]"):
+        tfa.kernel_for(bf, 64, odd, [0] * 4)
+    with pytest.raises(ValueError, match="16-byte aligned data pointers"):
+        tfa.kernel_for(bf, 64, ALIGNED, [0, 2, 0, 0])
+    with pytest.raises(TypeError, match="float16"):
+        tfa.kernel_for(torch.float16, 64, ALIGNED, [0] * 4)
+    # float32 copies no 16-byte rows: its kernel takes any such layout
+    assert tfa.kernel_for(torch.float32, 64, odd, [0, 4, 0, 0]) == "fma_f32"
