@@ -6,9 +6,13 @@ Builds the port's CUDA kernels from the sources in this checkout, in
 parallel, and drives its three paths on the card:
 
 - the simulator (phases 2-5): the ``mmu_step`` kernel against its plain
-  PyTorch version, ``repro_torch.sim.runner.run_batch`` over all 11
-  workloads (radix and Victima at the Table-3 defaults) against the JAX
-  package's snapshot ``tests/golden/torch_fullsize_stats.json``, timed;
+  PyTorch version in each placement of the lane's state (all in shared
+  memory at Table 3; the L2 cache, or the L2 TLB, in device memory),
+  ``repro_torch.sim.runner.run_batch`` over all 11 workloads (radix and
+  Victima at the Table-3 defaults, every launch in shared memory) against
+  the JAX package's snapshot ``tests/golden/torch_fullsize_stats.json``,
+  timed, with its latency floors and, from the kernel's profiled build,
+  its cycles per access by stage;
 - serving granite-3-2b (phases 6-8): the ``flash_attention`` (prefill;
   bf16 on the tensor cores, float32 on the CUDA cores, each call
   checked to have taken its dtype's kernel) and ``paged_attention``
@@ -77,9 +81,16 @@ def golden_trace(n: int = 6000, seed: int = 1234) -> dict:
 
 SYSTEMS = ("radix", "victima")
 CHECK_N = 2000      # accesses of the kernel-vs-plain check at Table 3
+# a system of each other placement (mmu_step.placement), checked at
+# PLACED_N accesses: the L2 cache, then the L2 TLB, in device memory
+PLACED = {"victima_l2_8m": "l2_device", "radix_l2_8m": "l2_device",
+          "l2tlb_128k": "l2tlb_device"}
+PLACED_N = 1000
 UNIT_N = 512        # accesses of the timed kernel-vs-plain unit
-SOURCES = ("mmu_step", "load_latency", "flash_attention",
-           "paged_attention", "ssd_scan")  # csrc/*.cu, built side by side
+# the libraries, built side by side: csrc/<name>.cu, and mmu_step_prof,
+# mmu_step.cu with its per-stage clock64() stamps (build.VARIANTS)
+LIBRARIES = ("mmu_step", "mmu_step_prof", "load_latency", "flash_attention",
+             "paged_attention", "ssd_scan")
 FULL_N = 20_000     # main path against the JAX snapshot
 TIMED_N = 150_000   # main path at the runner's default length
 
@@ -121,12 +132,15 @@ def device_ms(fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
-def load_latency_ns(lib, footprint: int, dev) -> float:
+def load_latency_ns(lib, footprint: int, dev, shared: bool = False) -> float:
     """Nanoseconds of one dependent load over a chain of 128-byte lines
-    spread at random over `footprint` bytes (csrc/load_latency.cu)."""
-    lines = footprint // 128
-    perm = np.random.default_rng(0).permutation(lines).astype(np.int64) * 32
-    nxt = np.zeros(lines * 32, np.int32)
+    spread at random over `footprint` bytes of device memory, or (shared)
+    of 4-byte words over `footprint` bytes of shared memory
+    (csrc/load_latency.cu)."""
+    stride = 1 if shared else 32
+    lines = footprint // (4 * stride)
+    perm = np.random.default_rng(0).permutation(lines).astype(np.int64) * stride
+    nxt = np.zeros(lines * stride, np.int32)
     nxt[perm] = np.roll(perm, -1)
     nxt_d = torch.from_numpy(nxt).to(dev)
     out = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -134,11 +148,19 @@ def load_latency_ns(lib, footprint: int, dev) -> float:
     lib.chase_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_longlong, ctypes.c_void_p,
                                  ctypes.c_void_p]
+    lib.chase_shared_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_longlong,
+                                        ctypes.c_void_p, ctypes.c_void_p]
     steps = 200_000
 
     def chase(n):
-        err = lib.chase_launch(nxt_d.data_ptr(), int(perm[0]), n,
-                               out.data_ptr(), stream)
+        if shared:
+            err = lib.chase_shared_launch(nxt_d.data_ptr(), len(nxt),
+                                          int(perm[0]), n, out.data_ptr(),
+                                          stream)
+        else:
+            err = lib.chase_launch(nxt_d.data_ptr(), int(perm[0]), n,
+                                   out.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"chase launch failed: CUDA error {err}")
 
@@ -149,20 +171,67 @@ def load_latency_ns(lib, footprint: int, dev) -> float:
     return ms * 1e6 / steps
 
 
-def latency_floor(cfg, st, l1_ns: float, l2_ns: float):
-    """Least time of the scan that left `st` under the dependent-load
-    model, from its Stats: (ms, rounds per access).
+def latency_floor(cfg, st, sm_ns: float, l1_ns: float, l2_ns: float):
+    """Least time of the scan that left `st`, under the dependent-round
+    model of csrc/mmu_step.cu, from its Stats: (ms, rounds per access).
 
-    Each access of csrc/mmu_step.cu is a chain of load rounds, each
-    issued after a __syncwarp or branch on the last one's result.  Rounds
-    on the lane's small structures (TLBs, PWCs, L1D tags) are charged
-    the L1-hit latency, rounds on the L2 and L3 rows and the PTW-CP
-    counters (too large for an SM's L1) the L2-hit latency.  Rounds
-    whose count the Stats do not hold (a Victima refill of a demand
-    walk's block, an L2 insert after a background line or a prefetch,
-    walk levels beyond one per walk or per L3 probe) are left out, so
-    this is a floor.  Lanes run side by side: the floor is the slowest
-    lane's.
+    Each access is a chain of rounds, each a row read whose tag compare
+    decides the next.  A round is charged the latency of the place that
+    holds its row under the launch's placement (mmu_step.placement):
+    shared memory, or in device memory the L1-hit latency where the
+    structure fits in the L1 left beside the shared memory, else the
+    L2-hit latency.  Rounds: the first of every access (the L1 TLBs, L2
+    TLB, L1D, PWCs and Victima probe rows, read together); per walk level
+    an L2-cache row, and an L3 row where the level misses the L2; per
+    background walk its PWC rows and the retag's L2 row; the two
+    background lines' L3 rows (read together); on an L1D miss the data
+    line's L2 row (the prefetch's is read with it), and on an L2 miss
+    its L3 row.  The instructions between the rounds, the rounds whose
+    count the Stats do not hold (walk levels beyond one a walk or one an
+    L3 probe, L2 inserts after a background line, a Victima retag of a
+    demand walk) and the counter reads (issued ahead of their use) are
+    left out, so this is a floor.  Lanes run side by side: the floor is
+    the slowest lane's.
+    """
+    from repro_torch.kernels import mmu_step
+    pl = mmu_step.placement(cfg)
+    l1_room = 256 * 1024 - pl.smem_bytes  # the SM's L1 beside the shared
+
+    def dev_ns(nbytes):
+        return l1_ns if nbytes <= l1_room else l2_ns
+
+    l2_place = sm_ns if pl.l2_shared else dev_ns(
+        6 * cfg.l2_sets * cfg.l2_ways)
+    tlb_place = sm_ns if pl.l2tlb_shared else dev_ns(
+        9 * cfg.l2tlb_sets * cfg.l2tlb_ways)
+    l3_place = dev_ns(9 * cfg.l3_sets * cfg.l3_ways)
+    first = max(tlb_place, l2_place if cfg.victima else sm_ns)
+    s, h = st.stats, st.hier
+    acc = s.n_access.double()
+    bgw = s.n_bg_ptw.double()
+    walks = s.n_demand_ptw.double() + bgw
+    levels = torch.maximum(walks, h.n_l3_trans.double())
+    l2m = h.n_l2_miss.double()
+    l2_rounds = levels + h.n_l2_access.double()
+    if cfg.victima:
+        l2_rounds = l2_rounds + bgw
+    l3_rounds = h.n_l3_trans.double() + acc + l2m
+    ns = (acc * first + bgw * sm_ns + l2_rounds * l2_place
+          + l3_rounds * l3_place)
+    return (float(ns.max()) / 1e6,
+            float(((acc + bgw + l2_rounds + l3_rounds) / acc).mean()))
+
+
+def latency_floor_device(cfg, st, l1_ns: float, l2_ns: float):
+    """The same floor for a kernel that keeps the whole state in device
+    memory and reads a row again for every probe, touch and insert (the
+    first CUDA version of the scan; kept for comparison with earlier
+    records): (ms, rounds per access).
+
+    Rounds on the lane's small structures (TLBs, PWCs, L1D tags) are
+    charged the L1-hit latency, rounds on the L2 and L3 rows and the
+    PTW-CP counters the L2-hit latency.  Rounds whose count the Stats do
+    not hold are left out, as above.
     """
     s, h = st.stats, st.hier
     acc = s.n_access.double()
@@ -1014,8 +1083,9 @@ def main() -> int:
     print(f"device {kind}, count {torch.cuda.device_count()}, torch "
           f"{torch.__version__}, cuda {torch.version.cuda}")
     print(smi)
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        builds = dict(zip(SOURCES, pool.map(build.compile_kernel, SOURCES)))
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        builds = dict(zip(LIBRARIES, pool.map(build.compile_kernel,
+                                              LIBRARIES)))
     for src, built in builds.items():
         print(f"built {src} in {built['seconds']:.2f} s")
         for ln in built["log"].splitlines():
@@ -1024,8 +1094,10 @@ def main() -> int:
     chase = build.load("load_latency")
     l1_ns = load_latency_ns(chase, 16 << 10, dev)
     l2_ns = load_latency_ns(chase, 16 << 20, dev)
+    sm_ns = load_latency_ns(chase, 16 << 10, dev, shared=True)
     print(f"dependent load: {l1_ns:.1f} ns at a 16 KiB footprint (L1 hit), "
-          f"{l2_ns:.1f} ns at 16 MiB (L2 hit)")
+          f"{l2_ns:.1f} ns at 16 MiB (L2 hit), {sm_ns:.1f} ns in shared "
+          f"memory")
     print(f"phase 1: {time.perf_counter() - t:.1f} s")
 
     def leaves(st):
@@ -1051,7 +1123,11 @@ def main() -> int:
         W = tr["vpn"].shape[1]
         stk, stp = make_state(cfg, W, dev), make_state(cfg, W, dev)
         ctr = on_card(tr)
+        want = mmu_step.placement(cfg).name
+        before = mmu_step.LAUNCHES_BY_PLACEMENT[want]
         mmu_step.launch(stk, ctr, cfg, names)
+        if mmu_step.LAUNCHES_BY_PLACEMENT[want] != before + 1:
+            raise AssertionError(f"the launch did not take placement {want}")
         mmu_step.plain_scan(mmu.make_step(cfg, names), stp, ctr)
         torch.cuda.synchronize()
         return leaves(stk), leaves(stp)
@@ -1082,6 +1158,21 @@ def main() -> int:
         print(f"{name} Table-3, rnd+bc, {CHECK_N} accesses: kernel == "
               f"plain on all {len(k)} leaves ({time.perf_counter() - t0:.1f}"
               f" s)")
+    for name, want in PLACED.items():
+        t0 = time.perf_counter()
+        cfg = systems.config(name)
+        got = mmu_step.placement(cfg)
+        if got.name != want:
+            raise AssertionError(f"{name}: placement {got.name}, want {want}")
+        k, p = run_both(cfg, {k: v[:PLACED_N] for k, v in check_tr.items()})
+        err = max_err(k, p)
+        worst = max(worst, err)
+        if err != 0.0:
+            raise AssertionError(f"{name}: kernel differs from the plain "
+                                 f"version (max abs err {err})")
+        print(f"{name} ({want}, {got.smem_bytes:,} bytes of shared "
+              f"memory), rnd+bc, {PLACED_N} accesses: kernel == plain on all "
+              f"{len(k)} leaves ({time.perf_counter() - t0:.1f} s)")
     with open(os.path.join(ROOT, "tests", "golden", "mmu_stats.json")) as f:
         golden = json.load(f)
     for name, over in GOLDEN_SYSTEMS.items():
@@ -1120,12 +1211,26 @@ def main() -> int:
             raise AssertionError(f"{w}: the port's trace differs from the "
                                  f"one the snapshot was made from")
     print("traces: all 11 equal the snapshot's (sha256)")
-    for name in SYSTEMS:
-        mmu_step.LAUNCHES = 0
-        out = runner.run_batch(name, n=FULL_N, seed=0, cache=False)
-        launches = mmu_step.LAUNCHES
-        if launches == 0:
+    def main_path_launches(name):
+        """Launches since the counts were set to 0; every one must have
+        kept the whole lane in shared memory (Table 3)."""
+        by = {k: v for k, v in mmu_step.LAUNCHES_BY_PLACEMENT.items() if v}
+        if mmu_step.LAUNCHES == 0:
             raise AssertionError(f"{name}: the main path launched no kernel")
+        if by != {"shared": mmu_step.LAUNCHES}:
+            raise AssertionError(f"{name}: main-path launches by placement "
+                                 f"{by}, want all in shared memory")
+        return mmu_step.LAUNCHES, by
+
+    def zero_counts():
+        mmu_step.LAUNCHES = 0
+        for k in mmu_step.LAUNCHES_BY_PLACEMENT:
+            mmu_step.LAUNCHES_BY_PLACEMENT[k] = 0
+
+    for name in SYSTEMS:
+        zero_counts()
+        out = runner.run_batch(name, n=FULL_N, seed=0, cache=False)
+        launches, _ = main_path_launches(name)
         for w in workloads:
             stats, extras, _ = out[w]
             want = snap["systems"][name][w]
@@ -1146,18 +1251,16 @@ def main() -> int:
     W = len(workloads)
     print(f"trace generation alone (11 workloads, generate_many): "
           f"{gen_s:.2f} s")
-    results, main_launches = {}, {}
+    results, main_launches, by_placement, main_ms = {}, {}, {}, {}
     for name in SYSTEMS:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        mmu_step.LAUNCHES = 0
+        zero_counts()
         t0 = time.perf_counter()
         results[name] = runner.run_batch(name, n=TIMED_N, seed=0,
                                          cache=False)
         wall = time.perf_counter() - t0
-        main_launches[name] = mmu_step.LAUNCHES
-        if main_launches[name] == 0:
-            raise AssertionError(f"{name}: the main path launched no kernel")
+        main_launches[name], by_placement[name] = main_path_launches(name)
         peak = torch.cuda.max_memory_allocated() / 2**20
         # the kernel alone on the same inputs, between CUDA events
         cfg = systems.config(name)
@@ -1165,8 +1268,10 @@ def main() -> int:
         ctr = on_card(main_tr)
         kms = cuda_time(lambda: mmu_step.launch(st, ctr, cfg,
                                                 default_stages(cfg)))
+        main_ms[name] = kms
         print(f"{name}: run_batch wall {wall:.2f} s, kernel {kms:.1f} ms "
-              f"({main_launches[name]} launches), "
+              f"({main_launches[name]} launches, by placement "
+              f"{by_placement[name]}), "
               f"{TIMED_N / kms * 1e3:,.0f} accesses/s per lane, "
               f"{TIMED_N * W / kms * 1e3:,.0f} accesses/s over {W} lanes, "
               f"peak device memory {peak:.0f} MiB")
@@ -1207,11 +1312,40 @@ def main() -> int:
     for a, b in zip(leaves(states[0]), leaves(make_state(cfg, W, dev))):
         nbytes += int((a != b).sum()) * a.itemsize
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    chain_ms, rounds = latency_floor(cfg, states[0], l1_ns, l2_ns)
+    pl = mmu_step.placement(cfg)
+    chain_ms, rounds = latency_floor(cfg, states[0], sm_ns, l1_ns, l2_ns)
+    dev_chain_ms, dev_rounds = latency_floor_device(cfg, states[0], l1_ns,
+                                                    l2_ns)
+    # the instantiation for this placement and the Victima composition
+    entry = "mmu_step_kernelILb{:d}ELb{:d}ELb1E".format(
+        *mmu_step.PLACEMENTS[pl.name])
     print(f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, max abs err "
-          f"{unit_err}; bytes bound {bound_ms:.5f} ms ({nbytes:,} bytes); "
-          f"latency floor {chain_ms:.3f} ms ({rounds:.1f} dependent load "
-          f"rounds per access, L1 {l1_ns:.1f} ns, L2 {l2_ns:.1f} ns)")
+          f"{unit_err}; bytes bound {bound_ms:.5f} ms ({nbytes:,} bytes)")
+    print(f"placement {pl.name}: {pl.smem_bytes:,} bytes of dynamic shared "
+          f"memory a block; ptxas: "
+          f"{ptxas_usage(builds['mmu_step']['log'], entry)}")
+    print(f"latency floor {chain_ms:.3f} ms ({rounds:.1f} dependent rounds "
+          f"per access, shared {sm_ns:.1f} ns, L1 {l1_ns:.1f} ns, L2 "
+          f"{l2_ns:.1f} ns); with the whole state in device memory "
+          f"{dev_chain_ms:.3f} ms ({dev_rounds:.1f} rounds per access, L1 "
+          f"{l1_ns:.1f} ns, L2 {l2_ns:.1f} ns)")
+    # the profiled build (clock64() stamps) on the same unit, both systems
+    breakdown = {}
+    for name in SYSTEMS:
+        c = systems.config(name)
+        prof = mmu_step.stage_cycles(make_state(c, W, dev), unit, c,
+                                     default_stages(c))
+        lanes = prof.cpu().numpy().astype(np.float64)
+        slow = int(np.argmax(lanes[:, 6]))
+        for what, p in ((f"mean over {W} lanes", lanes.sum(axis=0)),
+                        (f"slowest lane, {workloads[slow]}", lanes[slow])):
+            per = {s: p[k] / p[7] for k, s in enumerate(mmu_step.STAGES)}
+            per["loop"] = p[6] / p[7]
+            breakdown.setdefault(name, {})[what.split(",")[0]] = per
+            print(f"{name} cycles per access (profiled build, thread 0's "
+                  f"clock64, {what}): " + ", ".join(
+                      f"{s} {per[s]:.0f} ({per[s] / per['loop'] * 100:.1f}%)"
+                      for s in mmu_step.STAGES) + f"; loop {per['loop']:.0f}")
     print(f"phase 5: {time.perf_counter() - t:.1f} s")
 
     # ------------------------------------------------------------ 6
@@ -1277,11 +1411,15 @@ def main() -> int:
         "replaces": "src/repro/kernels/mmu_step.py:105",
         "launches": main_launches["victima"],
         "launches_by_system": main_launches,
+        "launches_by_placement": by_placement["victima"],
+        "placement": pl.name, "smem_bytes": pl.smem_bytes,
+        "main_path_ms": main_ms, "stage_cycles_per_access": breakdown,
         "max_abs_err": max(worst, unit_err),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes", "library_ms": None,
         "latency_floor_ms": chain_ms, "load_rounds_per_access": rounds,
-        "l1_hit_ns": l1_ns, "l2_hit_ns": l2_ns,
+        "latency_floor_device_ms": dev_chain_ms,
+        "shared_ns": sm_ns, "l1_hit_ns": l1_ns, "l2_hit_ns": l2_ns,
         "unit": f"victima, Table-3 defaults, first {UNIT_N} accesses x "
                 f"{W} lanes",
         "matches_plain": True, "matches_reference": True}] + attn + [{

@@ -27,9 +27,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the reference does, so it contracts no multiply-add into an FMA
 EXTRA_FLAGS = {"mmu_step": ("-fmad=false",)}
 
+# libraries built from another library's source with extra flags:
+# name -> (source, flags).  mmu_step_prof is the scan kernel with its
+# per-stage clock64() stamps compiled in (only chip_smoke.py loads it)
+VARIANTS = {"mmu_step_prof": ("mmu_step", ("-DMMU_PROFILE",))}
+
+
+def source(name: str) -> str:
+    """Path of the .cu file library ``name`` is compiled from."""
+    return os.path.join(CSRC, VARIANTS.get(name, (name,))[0] + ".cu")
+
 
 def flags(name: str) -> tuple:
-    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+    src, extra = VARIANTS.get(name, (name, ()))
+    return NVCC_FLAGS + EXTRA_FLAGS.get(src, ()) + extra
 
 
 def nvcc() -> str:
@@ -43,14 +54,15 @@ def nvcc() -> str:
 
 def library_path(name: str) -> str:
     h = hashlib.sha256(" ".join(flags(name)).encode())
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+    with open(source(name), "rb") as f:
         h.update(f.read())
     digest = h.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
 def compile_kernel(name: str) -> dict:
-    """Compile ``csrc/<name>.cu`` unconditionally.
+    """Compile library ``name`` (``csrc/<name>.cu``, or a variant's
+    source) unconditionally.
 
     Returns ``{"path", "seconds", "log"}``, where ``log`` is nvcc's
     output (``-Xptxas -v``: registers, shared memory and spills per
@@ -59,13 +71,13 @@ def compile_kernel(name: str) -> dict:
     out = library_path(name)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *flags(name), "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    cmd = [nvcc(), *flags(name), "-o", tmp, source(name)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu "
+        raise RuntimeError(f"nvcc failed on {name} "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
     return {"path": out, "seconds": seconds, "log": log}

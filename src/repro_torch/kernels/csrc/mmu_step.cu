@@ -13,36 +13,72 @@
 // bit for bit, so every operation follows that code's order; the
 // comments name the reference function each block mirrors.
 //
-// Design.  One warp (a block of 32 threads) per lane; thread w owns way w
-// of every row, so a 16-way row is one coalesced load, the first hit of
-// a row is a ballot (`__ffs`, 0 when no bit is set, like jnp.argmax of an
-// all-false mask) and argmin/argmax are shuffle reductions that keep the
-// lowest index on ties.  Scalars are computed redundantly by every
-// thread (all control flow is warp-uniform) and written by thread 0;
-// `__syncwarp` separates every write from the reads before and after
-// it.  An insert, touch or walk whose enable is false writes nothing in
-// the reference (every store is a `where(en, new, old)`), so it returns
-// early here.
-// The whole MMUState stays in device memory, in the tensors the wrapper
-// allocated (bools as bytes), and persists between launches; each launch
-// loops over trace rows [t0, t1).
+// Design.  One warp (a block of 32 threads) per lane, one block per SM;
+// thread w owns way w of every row.  The Pallas kernel kept the lane's
+// state resident in VMEM across its grid; here it stays resident in the
+// block's dynamic shared memory for the whole launch.  At launch start
+// the warp copies the lane's structures in, packing the L2 cache's
+// valid bit, block type and RRPV into one byte per way and its reuse
+// count into an 8-bit saturating shadow (the count is only ever read as
+// min(reuse, 21)); at launch end it unpacks them back into the state
+// tensors, which keep their layout between launches.  The exact int32
+// reuse stays in device memory, written by stores and by atomicAdds whose
+// result is unused, and never read during a launch.  The scalars (`now`,
+// the Stats, the hierarchy and live-block counts) live in registers for
+// the whole launch.  Where the structures go is the placement, a pure
+// function of the geometry (mmu_step.placement): the histograms and the
+// small LRU arrays (L1 TLBs, PWCs, L1D) always, then the L2 cache if it
+// fits in the 232,448 bytes a block may have, then the L2 TLB if it
+// still fits.  A structure that does not fit is used in device memory
+// (the L2 cache's packed bytes in a scratch tensor); the step code is one
+// template, instantiated per placement.  The L3 (288 KiB a lane at
+// Table 3) and the PTW-CP counters (4 MiB) always stay in device memory.
 //
-// Bound.  Each access is a chain of dependent loads: the L1-TLB rows, the
-// L2-TLB row, then for every walk level an L2-cache row, an L3 row and
-// the inserts they trigger, then the data access with its prefetch and
-// two background lines.  The next load's address depends on the last
-// one's tag compare, so a lane runs at the latency of that chain, not at
-// the card's memory or arithmetic rate: the kernel is latency-bound.
-// Lanes are independent, so the card is mostly idle at a few lanes.
-// chip_smoke.py's latency_floor counts the rounds of that chain from a
-// run's Stats and charges each the L1- or L2-hit latency it measures
-// (csrc/load_latency.cu).
-// Keeping the TLBs and PWCs in shared memory is later work.
+// Every row is read once into registers, one way a thread; a touch or an
+// insert on the same row works on those registers and stores only the
+// ways it changes, each by the thread that owns the way (the owner's
+// stores are predicated, not branched around).  Way w of a row is owned
+// by thread w, or by thread 16 + w while the row is the second of a pair
+// (below), and a histogram bucket by one fixed thread; a __syncwarp
+// separates the parts of an access whose owners differ (before the data
+// access, before its background lines, and at the end of the access,
+// after thread 0 wrote the PTW-CP counters that every thread reads).
+// Warp-uniform values travel by ballot, shuffle and redux.
+// argmin and argmax are one __reduce_{min,max}_sync, then
+// __ballot_sync(v == m) and __ffs for the lowest index, the reference's
+// tie rule.  Row loads have no branch around them (threads past a row's
+// ways read its last way and are masked out), so loads that nothing
+// upstream feeds are in flight together: the rows of the L1 TLBs, the L2
+// TLB, the L1D, the PWCs and the Victima probe at the start of the
+// access, the next trace row during this one, the PTW-CP counter entries
+// right after the L2-TLB lookup (Victima: the vpn's and the L2-TLB
+// victim's, whose way is fixed once the lookup has touched the row) or
+// at the start of the access (radix), the background lines' L3 rows at
+// the start of the data access, and each L3 row before the L2 insert
+// that goes with it.  Where two operations on different sets commute
+// (the two background lines; the data line's L2 insert and its
+// prefetch's) and the rows have at most 16 ways, each half-warp does
+// one, so both share their instructions.
+//
+// Bound.  Each access is still a chain of dependent steps: a row's tag
+// compare decides the next row.  A step on a shared-memory row costs a
+// shared load, a ballot or a redux and the arithmetic between them; a
+// step on an L3 row or a counter adds an L2-cache hit of the card.  With
+// one warp an SM there is nothing to hide either behind, so the kernel
+// is bound by the latency of that chain of loads and dependent
+// instructions; the card's bytes and operations are far from their
+// rates, and 121 of 132 SMs are idle at 11 lanes.  chip_smoke.py's
+// latency_floor counts the chain's load rounds from a run's Stats and
+// charges each the measured latency of the place that holds its row
+// under the launch's placement (shared memory, L1 or L2;
+// csrc/load_latency.cu); the instructions between them are not counted.
 //
 // Exactness.  int32 arithmetic that wraps in the reference (the
 // background-line hash) is done in uint32; float sums use __fadd_rn /
 // __fmul_rn in float (never double), one access at a time, and the file
-// is compiled with -fmad=false.
+// is compiled with -fmad=false.  The pack step __trap()s on an RRPV or a
+// block type outside 0..3 or a negative reuse count instead of
+// truncating it.
 
 #include <climits>
 #include <cstdint>
@@ -60,15 +96,14 @@ constexpr int PWC_LAT = 2;
 constexpr int FREQ_MAX = 7, COST_MAX = 15;
 constexpr int BOX_COST_LO = 1, BOX_COST_HI = 12;
 constexpr int BOX_FREQ_LO = 1, BOX_FREQ_HI = 7;
+// page-table lines: level l (0 = PML4 .. 3 = leaf) of a 4K vpn v is line
+// LINE_B + (3 - l) * LINE_W + ((v >> 9 * (3 - l)) >> 3)
 constexpr int LINE_B = 1 << 29, LINE_W = 1 << 22;
-constexpr int LEAF4_BASE = LINE_B + 0 * LINE_W;
-constexpr int PD_BASE = LINE_B + 1 * LINE_W;
-constexpr int PDP_BASE = LINE_B + 2 * LINE_W;
-constexpr int PML4_BASE = LINE_B + 3 * LINE_W;
 constexpr uint32_t BG_MUL = static_cast<uint32_t>(-1640531527);
 constexpr uint32_t BG_SALT0 = static_cast<uint32_t>(-1640531527);
 constexpr uint32_t BG_SALT1 = static_cast<uint32_t>(-2048144789);
 constexpr uint32_t BG_MASK = (1u << 26) - 1;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one block
 
 }  // namespace
 
@@ -121,345 +156,554 @@ struct Params {
   float pressure_mpki, bypass_l2mpki;
   int32_t l1tlb_lat, l2tlb_lat;
   int32_t lat_l1d, lat_l2, lat_l3, lat_dram;
+  int64_t* prof;     // [lanes, PROF_SLOTS] cycles, read only under MMU_PROFILE
+  uint8_t* l2_pack;  // [lanes, 2, sets * ways]: the L2 cache's packed bytes
+                     // and reuse shadow when it is not in shared memory
+  int32_t l2_shared, l2tlb_shared;  // the placement (1 = shared memory)
+  int32_t smem_bytes;               // its bytes, as mmu_step.placement says
+  int32_t pad;
 };
 
 namespace {
 
-// ------------------------------------------------------- lane views
-struct Assoc {
-  int32_t* tags;
-  uint8_t* valid;
-  int32_t* meta;
-  int sets, ways;
-};
-struct L2 {
-  int32_t* tags;
-  uint8_t* valid;
-  int32_t *rrpv, *btype, *reuse, *hist_data, *hist_tlb;
-  int32_t *n_tlb4, *n_tlb2, *n_ntlb;
-  int sets, ways;
-};
-struct Lane {
-  Assoc l1d4, l1d2, l2tlb, pml4, pdp, pd, l1d, l3;
-  L2 l2;
-  uint8_t *f4, *c4, *f2, *c2;
-  int n4, n2;
-  int32_t *n_l2_access, *n_l2_miss, *n_l3_access, *n_l3_trans;
-  bool tlb_aware;
-  int lat_l1d, lat_l2, lat_l3, lat_dram;
-};
+// per-access clock64() stamps, compiled in only under MMU_PROFILE: the
+// cycles of each stage, summed over the launch's accesses (thread 0's
+// clock), then the launch's loop cycles and its accesses
+enum { ST_TLB, ST_PROBE, ST_WALK, ST_FILL, ST_DATA, ST_STATS, PROF_SLOTS = 8 };
+#ifdef MMU_PROFILE
+#define PROF_BEGIN() \
+  long long prof_cyc[6] = {0, 0, 0, 0, 0, 0}; \
+  const long long prof_t0 = clock64(); \
+  long long prof_t = prof_t0
+#define PROF_STAMP(k) do { \
+    const long long c_ = clock64(); prof_cyc[k] += c_ - prof_t; prof_t = c_; \
+  } while (0)
+#define PROF_END(p, b, n) do { \
+    if (threadIdx.x == 0) { \
+      int64_t* o_ = (p).prof + static_cast<size_t>(b) * PROF_SLOTS; \
+      for (int k_ = 0; k_ < 6; ++k_) o_[k_] += prof_cyc[k_]; \
+      o_[6] += clock64() - prof_t0; \
+      o_[7] += (n); \
+    } \
+  } while (0)
+#else
+#define PROF_BEGIN() do { } while (0)
+#define PROF_STAMP(k) do { } while (0)
+#define PROF_END(p, b, n) do { } while (0)
+#endif
 
-__device__ Assoc view(const AssocP& a, int b) {
-  const size_t o = static_cast<size_t>(b) * a.sets * a.ways;
-  return {a.tags + o, a.valid + o, a.meta + o, a.sets, a.ways};
-}
-
-__device__ L2 view(const L2P& c, int b) {
-  const size_t o = static_cast<size_t>(b) * c.sets * c.ways;
-  const size_t h = static_cast<size_t>(b) * REUSE_BUCKETS;
-  return {c.tags + o, c.valid + o, c.rrpv + o, c.btype + o, c.reuse + o,
-          c.hist_data + h, c.hist_tlb + h, c.n_tlb4 + b, c.n_tlb2 + b,
-          c.n_ntlb + b, c.sets, c.ways};
-}
-
-__device__ __forceinline__ int tid() { return threadIdx.x; }
-__device__ __forceinline__ void sync() { __syncwarp(kFull); }
+__device__ __forceinline__ int lane() { return threadIdx.x; }
 
 // jnp.argmax of a bool row: the first set way, 0 when none is set
 __device__ __forceinline__ int first_way(unsigned m) {
   return m ? __ffs(m) - 1 : 0;
 }
 
-// lowest-index argmax / argmin and max over the row's ways
-__device__ int argmax_way(int v, int ways) {
-  int best = tid() < ways ? v : INT_MIN;
-  int idx = tid() < ways ? tid() : 32;
-  for (int off = 16; off > 0; off >>= 1) {
-    const int ov = __shfl_xor_sync(kFull, best, off);
-    const int oi = __shfl_xor_sync(kFull, idx, off);
-    if (ov > best || (ov == best && oi < idx)) {
-      best = ov;
-      idx = oi;
-    }
-  }
-  return idx;
+// lowest-index argmin over the active ways: one redux, one ballot
+__device__ __forceinline__ int argmin_way(int v, bool act) {
+  const int m = __reduce_min_sync(kFull, act ? v : INT_MAX);
+  return __ffs(__ballot_sync(kFull, act && v == m)) - 1;
 }
 
-__device__ int argmin_way(int v, int ways) {
-  int best = tid() < ways ? v : INT_MAX;
-  int idx = tid() < ways ? tid() : 32;
-  for (int off = 16; off > 0; off >>= 1) {
-    const int ov = __shfl_xor_sync(kFull, best, off);
-    const int oi = __shfl_xor_sync(kFull, idx, off);
-    if (ov < best || (ov == best && oi < idx)) {
-      best = ov;
-      idx = oi;
-    }
-  }
-  return idx;
-}
-
-__device__ int max_way(int v, int ways) {
-  int best = tid() < ways ? v : INT_MIN;
-  for (int off = 16; off > 0; off >>= 1)
-    best = max(best, __shfl_xor_sync(kFull, best, off));
-  return best;
-}
-
-struct Probe {
-  bool hit;
-  int set, way;
+// ------------------------------------------------------ LRU arrays
+// The L1 TLBs, the L2 TLB, the PWCs and the L1D: tag, LRU stamp and valid
+// per entry, in shared memory or (an L2 TLB too large for it) in the
+// state tensors themselves.
+struct Lru {
+  int32_t* tag;
+  int32_t* stamp;
+  uint8_t* valid;
+  int sets, ways;
 };
 
-// assoc.lookup
-__device__ Probe lookup(const Assoc& a, int key) {
-  const int s = key & (a.sets - 1);
-  bool h = false;
-  if (tid() < a.ways) {
-    const int i = s * a.ways + tid();
-    h = a.valid[i] && a.tags[i] == key;
-  }
-  const unsigned m = __ballot_sync(kFull, h);
-  return {m != 0, s, first_way(m)};
+// A row in registers: thread w holds way w.  Threads past the row's ways
+// read the last way too (no branch around a load, so the loads of several
+// rows are in flight together and nothing waits for them before their
+// first use) and are masked out by `act` wherever the row is used.
+__device__ __forceinline__ int row_index(int key, int sets, int ways) {
+  return (key & (sets - 1)) * ways + min(lane(), ways - 1);
 }
 
-// assoc.insert_lru; the evicted tag is reported even when disabled
-// (Victima's counter slot 1 is indexed by it either way)
-__device__ void insert_lru(const Assoc& a, int key, int now, bool en,
-                           int* ev_tag = nullptr, bool* ev_valid = nullptr) {
-  const int s = key & (a.sets - 1);
-  int stamp = 0;
-  if (tid() < a.ways) {
-    const int i = s * a.ways + tid();
-    stamp = a.valid[i] ? a.meta[i] : -1;
-  }
-  const int i = s * a.ways + argmin_way(stamp, a.ways);
-  if (ev_tag != nullptr) {
-    *ev_tag = a.tags[i];
-    *ev_valid = a.valid[i] && en;
-  }
-  sync();
-  if (en && tid() == 0) {
-    a.tags[i] = key;
-    a.valid[i] = 1;
-    a.meta[i] = now;
-  }
-  sync();
-}
-
-struct Srrip {
-  int aged;    // this thread's way, aged
-  int victim;  // the way to replace
+struct LruRow {
+  int i;  // this thread's entry
+  bool act;
+  int tag, stamp;
+  unsigned v;  // the valid byte as loaded
+  __device__ __forceinline__ bool valid() const { return act && v != 0; }
 };
 
-// assoc.srrip_age_and_pick
-__device__ Srrip srrip_age_and_pick(int rrpv, bool valid, int ways) {
-  const int eff = valid ? rrpv : RRIP_MAX + 1;
-  const int bump = max(RRIP_MAX - max_way(eff, ways), 0);
-  const int aged = valid ? rrpv + bump : rrpv;
-  return {aged, argmax_way(valid ? aged : RRIP_MAX + 1, ways)};
-}
-
-// assoc.srrip_victim_tlb_aware (paper Listing 1)
-__device__ Srrip srrip_victim_tlb_aware(int rrpv, bool valid, bool is_tlb,
-                                        bool pressure, int ways) {
-  Srrip r = srrip_age_and_pick(rrpv, valid, ways);
-  const bool alt = tid() < ways && valid && !is_tlb && r.aged >= RRIP_MAX;
-  const unsigned m = __ballot_sync(kFull, alt);
-  const bool v0_valid = __shfl_sync(kFull, static_cast<int>(valid), r.victim);
-  const bool v0_tlb = __shfl_sync(kFull, static_cast<int>(is_tlb), r.victim);
-  if (pressure && v0_valid && v0_tlb && m != 0) r.victim = first_way(m);
+__device__ __forceinline__ LruRow load_row(const Lru& a, int key) {
+  LruRow r;
+  r.act = lane() < a.ways;
+  r.i = row_index(key, a.sets, a.ways);
+  r.tag = a.tag[r.i];
+  r.stamp = a.stamp[r.i];
+  r.v = a.valid[r.i];
   return r;
 }
 
-// caches.l2_lookup
-__device__ Probe l2_lookup(const L2& c, int key, int bt) {
-  const int s = key & (c.sets - 1);
-  bool h = false;
-  if (tid() < c.ways) {
-    const int i = s * c.ways + tid();
-    h = c.valid[i] && c.tags[i] == key && c.btype[i] == bt;
+// assoc.lookup: the ways that hold `key`
+__device__ __forceinline__ unsigned hits(const LruRow& r, int key) {
+  return __ballot_sync(kFull, r.valid() & (r.tag == key));
+}
+
+// assoc.touch: stamp way `w`
+__device__ __forceinline__ void touch(const Lru& a, LruRow& r, int w,
+                                      int now) {
+  if (lane() == w) {
+    r.stamp = now;
+    a.stamp[r.i] = now;
   }
-  const unsigned m = __ballot_sync(kFull, h);
-  return {m != 0, s, first_way(m)};
 }
 
-// caches.l2_touch
-__device__ void l2_touch(const L2& c, const Probe& p, bool pressure,
-                         bool tlb_aware, bool en) {
-  if (!en) return;
-  sync();
-  if (tid() == 0) {
-    const int i = p.set * c.ways + p.way;
-    const int dec = (c.btype[i] != BT_DATA && pressure && tlb_aware) ? 3 : 1;
-    c.rrpv[i] = max(c.rrpv[i] - dec, 0);
-    c.reuse[i] += 1;
+// assoc.insert_lru's victim: the first way of least stamp (invalid = -1)
+__device__ __forceinline__ int lru_victim(const LruRow& r) {
+  return argmin_way(r.valid() ? r.stamp : -1, r.act);
+}
+
+__device__ __forceinline__ void fill(const Lru& a, LruRow& r, int w, int key,
+                                     int now) {
+  if (lane() == w) {
+    r.tag = key;
+    r.v = 1;
+    r.stamp = now;
+    a.tag[r.i] = key;
+    a.valid[r.i] = 1;
+    a.stamp[r.i] = now;
   }
-  sync();
 }
 
-__device__ void live_add(const L2& c, int bt, int d) {
-  if (bt == BT_TLB4) *c.n_tlb4 += d;
-  else if (bt == BT_TLB2) *c.n_tlb2 += d;
-  else if (bt == BT_NTLB) *c.n_ntlb += d;
+// assoc.insert_lru
+__device__ __forceinline__ void insert_lru(const Lru& a, LruRow& r, int key,
+                                           int now, bool en) {
+  if (en) fill(a, r, lru_victim(r), key, now);
 }
 
-// caches.l2_insert (+ _account_evict on the row read before the insert)
-__device__ void l2_insert(const L2& c, int key, int bt, bool pressure,
-                          bool tlb_aware, bool en) {
-  if (!en) return;
-  const int s = key & (c.sets - 1);
-  const bool act = tid() < c.ways;
-  const int i = s * c.ways + tid();
-  const int rr = act ? c.rrpv[i] : 0;
-  const bool v = act && c.valid[i];
-  const bool is_tlb = act && c.btype[i] != BT_DATA;
-  const Srrip r = tlb_aware
-      ? srrip_victim_tlb_aware(rr, v, is_tlb, pressure, c.ways)
-      : srrip_age_and_pick(rr, v, c.ways);
-  sync();
-  const int ins_rrpv =
-      (bt != BT_DATA && pressure && tlb_aware) ? 0 : RRIP_MAX - 1;
-  if (act) c.rrpv[i] = tid() == r.victim ? ins_rrpv : r.aged;
-  if (tid() == 0) {
-    const int iw = s * c.ways + r.victim;
-    if (c.valid[iw]) {
-      const int bucket = min(c.reuse[iw], REUSE_BUCKETS - 1);
-      if (c.btype[iw] == BT_DATA) c.hist_data[bucket] += 1;
-      else c.hist_tlb[bucket] += 1;
-      live_add(c, c.btype[iw], -1);
-    }
-    c.tags[iw] = key;
-    c.valid[iw] = 1;
-    c.btype[iw] = bt;
-    c.reuse[iw] = 0;
-    live_add(c, bt, 1);
+// --------------------------------------------------------- L2 cache
+// pk: valid (bit 0), btype (bits 1-2), rrpv (bits 3-4); r8: min(reuse,
+// 255).  tag, pk and r8 in shared memory or (a large L2) in device memory;
+// reuse, the exact count, always in device memory.
+struct L2c {
+  int32_t* tag;
+  uint8_t* pk;
+  uint8_t* r8;
+  int32_t* reuse;
+  int32_t* hist_data;  // shared memory; bucket b owned by thread b
+  int32_t* hist_tlb;
+  int sets, ways;
+};
+
+struct L2Row {
+  int i;
+  bool act;
+  int tag;
+  unsigned pk, r8;
+};
+
+__device__ __forceinline__ unsigned pack(bool valid, int bt, int rrpv) {
+  return static_cast<unsigned>(valid) | (bt << 1) | (rrpv << 3);
+}
+
+// A pair of rows, one a half-warp (ways <= 16): thread 16h + w holds way
+// w of the row of keys[h].
+__device__ __forceinline__ int half() { return lane() >> 4; }
+
+__device__ __forceinline__ int pair_index(int key, int sets, int ways) {
+  return (key & (sets - 1)) * ways + min(lane() & 15, ways - 1);
+}
+
+__device__ __forceinline__ L2Row load_row(const L2c& c, int key,
+                                          bool paired = false) {
+  L2Row r;
+  r.act = (paired ? lane() & 15 : lane()) < c.ways;
+  r.i = paired ? pair_index(key, c.sets, c.ways)
+               : row_index(key, c.sets, c.ways);
+  r.tag = c.tag[r.i];
+  r.pk = c.pk[r.i];
+  r.r8 = c.r8[r.i];
+  return r;
+}
+
+// caches.l2_lookup: the ways that hold (`key`, `bt`)
+__device__ __forceinline__ unsigned hits(const L2Row& r, int key, int bt) {
+  return __ballot_sync(kFull, r.act & (r.tag == key) &
+                                  ((r.pk & 7u) == pack(true, bt, 0)));
+}
+
+// caches.l2_touch of way `w`
+__device__ __forceinline__ void l2_touch(const L2c& c, L2Row& r, int w,
+                                         bool pressure, bool tlb_aware) {
+  if (lane() == w) {
+    const int bt = (r.pk >> 1) & 3;
+    const int dec = (bt != BT_DATA && pressure && tlb_aware) ? 3 : 1;
+    const int rr = max(static_cast<int>(r.pk >> 3) - dec, 0);
+    r.pk = (r.pk & 7u) | (rr << 3);
+    r.r8 = min(r.r8 + 1, 255u);
+    c.pk[r.i] = r.pk;
+    c.r8[r.i] = r.r8;
+    atomicAdd(c.reuse + r.i, 1);  // result unused: a fire-and-forget RED
   }
-  sync();
 }
 
-// caches.l2_retag_to_tlb
-__device__ void l2_retag_to_tlb(const L2& c, int key, int bt, bool pressure,
-                                bool tlb_aware, bool en) {
-  if (!en) return;
-  const bool exists = l2_lookup(c, key, bt).hit;
-  l2_insert(c, key, bt, pressure, tlb_aware, !exists);
+struct Live {
+  int n4, n2, nn;
+  __device__ __forceinline__ void add(int bt, int d) {
+    n4 += bt == BT_TLB4 ? d : 0;
+    n2 += bt == BT_TLB2 ? d : 0;
+    nn += bt == BT_NTLB ? d : 0;
+  }
+};
+
+// caches.l2_insert (+ _account_evict on the row read before the insert),
+// with assoc.srrip_age_and_pick and srrip_victim_tlb_aware (paper
+// Listing 1).  The lowest way of largest (valid ? aged : RRIP_MAX + 1) is
+// the victim; that largest value is max(mx, RRIP_MAX) for mx the largest
+// (valid ? rrpv : RRIP_MAX + 1), so one redux finds both.
+__device__ __forceinline__ void l2_insert(const L2c& c, L2Row& r, int key,
+                                          int bt, bool pressure,
+                                          bool tlb_aware, Live& live) {
+  const bool v = r.act && (r.pk & 1u);
+  const int btype = (r.pk >> 1) & 3;
+  const int rr = r.pk >> 3;
+  const int mx = __reduce_max_sync(kFull, r.act ? (v ? rr : RRIP_MAX + 1)
+                                                : INT_MIN);
+  const int aged = v ? rr + max(RRIP_MAX - mx, 0) : rr;
+  int w = __ffs(__ballot_sync(kFull, r.act && (v ? aged : RRIP_MAX + 1) ==
+                                         max(mx, RRIP_MAX))) - 1;
+  if (tlb_aware) {
+    // Listing 1: under pressure, a valid TLB victim gives way to the
+    // first valid data block at RRIP_MAX
+    const unsigned alt =
+        __ballot_sync(kFull, v && btype == BT_DATA && aged >= RRIP_MAX);
+    const unsigned vt = __ballot_sync(kFull, v && btype != BT_DATA);
+    if (pressure && ((vt >> w) & 1u) && alt != 0) w = __ffs(alt) - 1;
+  }
+  // the evicted way's fields, for its histogram bucket (owned by thread
+  // `bucket`) and the live counts; then the stores, each predicated on
+  // the thread that owns the way
+  const unsigned old = __shfl_sync(kFull, r.pk | (r.r8 << 8), w);
+  const bool evict = old & 1u;
+  const int obt = (old >> 1) & 3;
+  const int bucket = min(static_cast<int>(old >> 8), REUSE_BUCKETS - 1);
+  int32_t* const hist = obt == BT_DATA ? c.hist_data : c.hist_tlb;
+  if (evict && lane() == bucket) hist[bucket] += 1;
+  live.add(obt, evict ? -1 : 0);
+  live.add(bt, 1);
+  const int ins = (bt != BT_DATA && pressure && tlb_aware) ? 0 : RRIP_MAX - 1;
+  const bool me = lane() == w;
+  const unsigned pk = me ? pack(true, bt, ins) : (r.pk & 7u) | (aged << 3);
+  if (me || (r.act && aged != rr)) c.pk[r.i] = pk;
+  if (me) c.tag[r.i] = key;
+  if (me) c.r8[r.i] = 0;
+  if (me) c.reuse[r.i] = 0;
 }
 
-// caches.l3_access: promote on a hit; on a miss age the row and insert
-__device__ bool l3_access(const Assoc& a, int key, bool en) {
-  const Probe p = lookup(a, key);
-  if (!en) return p.hit;
-  if (p.hit) {
-    sync();
-    if (tid() == 0) a.meta[p.set * a.ways + p.way] = 0;
-    sync();
+// ------------------------------------------------------------- L3
+// SRRIP in device memory: tag, valid, meta = RRPV
+struct L3c {
+  int32_t* tag;
+  uint8_t* valid;
+  int32_t* meta;
+  int sets, ways;
+};
+
+struct L3Row {
+  int i;
+  bool act;
+  int tag, meta;
+  unsigned v;  // the valid byte as loaded
+  __device__ __forceinline__ bool valid() const { return act && v != 0; }
+};
+
+__device__ __forceinline__ L3Row load_row(const L3c& a, int key,
+                                          bool paired = false) {
+  L3Row r;
+  r.act = (paired ? lane() & 15 : lane()) < a.ways;
+  r.i = paired ? pair_index(key, a.sets, a.ways)
+               : row_index(key, a.sets, a.ways);
+  r.tag = a.tag[r.i];
+  r.meta = a.meta[r.i];
+  r.v = a.valid[r.i];
+  return r;
+}
+
+// caches.l3_access, enabled: promote on a hit; on a miss age the row and
+// insert (victim as in l2_insert)
+__device__ __forceinline__ bool l3_access(const L3c& a, L3Row& r, int key) {
+  const bool valid = r.valid();
+  const unsigned m = __ballot_sync(kFull, valid & (r.tag == key));
+  if (m != 0) {
+    if (lane() == __ffs(m) - 1 && r.meta != 0) a.meta[r.i] = 0;
     return true;
   }
-  const bool act = tid() < a.ways;
-  const int i = p.set * a.ways + tid();
-  const int m = act ? a.meta[i] : 0;
-  const bool v = act && a.valid[i];
-  const Srrip r = srrip_age_and_pick(m, v, a.ways);
-  sync();
-  if (act) a.meta[i] = tid() == r.victim ? RRIP_MAX - 1 : r.aged;
-  if (tid() == 0) {
-    const int iv = p.set * a.ways + r.victim;
-    a.tags[iv] = key;
-    a.valid[iv] = 1;
-  }
-  sync();
+  const int mx = __reduce_max_sync(kFull, r.act ? (valid ? r.meta
+                                                         : RRIP_MAX + 1)
+                                                : INT_MIN);
+  const int aged = valid ? r.meta + max(RRIP_MAX - mx, 0) : r.meta;
+  const int w = __ffs(__ballot_sync(
+      kFull, r.act && (valid ? aged : RRIP_MAX + 1) == max(mx, RRIP_MAX))) - 1;
+  const bool me = lane() == w;
+  if (me || (r.act && aged != r.meta))
+    a.meta[r.i] = me ? RRIP_MAX - 1 : aged;
+  if (me) a.tag[r.i] = key;
+  if (me) a.valid[r.i] = 1;
   return false;
 }
 
-__device__ int miss_cycles(const Lane& L, bool hit2, bool hit3) {
+// ------------------------------------------------------ paired rows
+// Two operations on rows of different sets commute: the two background
+// lines of an access (an L3 access each, then an L2 insert where it
+// missed), and the data line's L2 insert and its prefetch's.  With at
+// most 16 ways a row, each half-warp does one, and the reductions of both
+// rows share their instructions.  `key` is this half's line.
+
+// caches.l3_access of both lines: bit h of the result is line h's hit
+__device__ __forceinline__ unsigned l3_access_pair(const L3c& a, L3Row& r,
+                                                   int key) {
+  const int hs = 16 * half(), w = lane() & 15;
+  const bool valid = r.valid();
+  const unsigned m = __ballot_sync(kFull, valid & (r.tag == key));
+  const unsigned mh = (m >> hs) & 0xffffu;
+  const unsigned hit = ((m & 0xffffu) != 0) | (((m >> 16) != 0) << 1);
+  if (mh != 0 && w == __ffs(mh) - 1 && r.meta != 0) a.meta[r.i] = 0;
+  if (hit == 3) return hit;
+  const int eff = r.act ? (valid ? r.meta : RRIP_MAX + 1) : INT_MIN;
+  const int mx0 = __reduce_max_sync(kFull, hs == 0 ? eff : INT_MIN);
+  const int mx1 = __reduce_max_sync(kFull, hs != 0 ? eff : INT_MIN);
+  const int mx = hs ? mx1 : mx0;
+  const int aged = valid ? r.meta + max(RRIP_MAX - mx, 0) : r.meta;
+  const unsigned c = __ballot_sync(
+      kFull, r.act & ((valid ? aged : RRIP_MAX + 1) == max(mx, RRIP_MAX)));
+  const bool miss = mh == 0;
+  const bool me = miss && w == __ffs((c >> hs) & 0xffffu) - 1;
+  if (me || (miss && r.act && aged != r.meta))
+    a.meta[r.i] = me ? RRIP_MAX - 1 : aged;
+  if (me) a.tag[r.i] = key;
+  if (me) a.valid[r.i] = 1;
+  return hit;
+}
+
+// caches.l2_insert of a data block for line h, for each bit h in `en`.
+// The packed RRPVs lie in 0..3, so one OR-reduction of one-hot bits (a
+// byte a half) gives both rows' largest (valid ? rrpv : RRIP_MAX + 1).
+__device__ __forceinline__ void l2_insert_pair(const L2c& c, L2Row& r,
+                                               int key, unsigned en,
+                                               bool pressure, bool tlb_aware,
+                                               Live& live) {
+  const int h = half(), hs = 16 * h;
+  const bool v = r.act && (r.pk & 1u);
+  const int btype = (r.pk >> 1) & 3;
+  const int rr = r.pk >> 3;
+  const unsigned bits = __reduce_or_sync(
+      kFull, r.act ? (1u << (v ? rr : RRIP_MAX + 1)) << (8 * h) : 0u);
+  const int mx = 31 - __clz((bits >> (8 * h)) & 0xffu);
+  const int aged = v ? rr + max(RRIP_MAX - mx, 0) : rr;
+  const unsigned cand = __ballot_sync(
+      kFull, r.act & ((v ? aged : RRIP_MAX + 1) == max(mx, RRIP_MAX)));
+  int w0 = __ffs(cand & 0xffffu) - 1, w1 = __ffs(cand >> 16) - 1;
+  if (tlb_aware) {
+    const unsigned alt =
+        __ballot_sync(kFull, v && btype == BT_DATA && aged >= RRIP_MAX);
+    const unsigned vt = __ballot_sync(kFull, v && btype != BT_DATA);
+    if (pressure && ((vt >> w0) & 1u) && (alt & 0xffffu) != 0)
+      w0 = __ffs(alt & 0xffffu) - 1;
+    if (pressure && ((vt >> (16 + w1)) & 1u) && (alt >> 16) != 0)
+      w1 = __ffs(alt >> 16) - 1;
+  }
+  const unsigned x = r.pk | (r.r8 << 8);
+  const unsigned old[2] = {__shfl_sync(kFull, x, w0),
+                           __shfl_sync(kFull, x, 16 + w1)};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const bool evict = ((en >> k) & 1u) && (old[k] & 1u);
+    const int obt = (old[k] >> 1) & 3;
+    const int bucket = min(static_cast<int>(old[k] >> 8), REUSE_BUCKETS - 1);
+    int32_t* const hist = obt == BT_DATA ? c.hist_data : c.hist_tlb;
+    if (evict && lane() == bucket) hist[bucket] += 1;
+    live.add(obt, evict ? -1 : 0);
+  }
+  const bool mine = (en >> h) & 1u;
+  const bool me = mine && (lane() & 15) == (h ? w1 : w0);
+  const unsigned pk = me ? pack(true, BT_DATA, RRIP_MAX - 1)
+                         : (r.pk & 7u) | (aged << 3);
+  if (me || (mine && r.act && aged != rr)) c.pk[r.i] = pk;
+  if (me) c.tag[r.i] = key;
+  if (me) c.r8[r.i] = 0;
+  if (me) c.reuse[r.i] = 0;
+}
+
+// ------------------------------------------------------------ lane
+struct Lane {
+  Lru l1d4, l1d2, l2tlb, pml4, pdp, pd, l1d;
+  L2c l2;
+  L3c l3;
+  int32_t* hist_walk;  // shared memory; bucket b owned by thread b % 32
+  uint8_t *f4, *c4, *f2, *c2;
+  int n4, n2;
+  bool tlb_aware;
+  int lat_l1d, lat_l2, lat_l3, lat_dram;
+  // registers for the whole launch
+  Live live;
+  int n_l2_access, n_l2_miss, n_l3_access, n_l3_trans;
+};
+
+__device__ __forceinline__ int miss_cycles(const Lane& L, bool hit2,
+                                           bool hit3) {
   return hit2 ? L.lat_l2 : hit3 ? L.lat_l3 : L.lat_l3 + L.lat_dram;
 }
 
-// caches.access_pte
-__device__ int access_pte(const Lane& L, int line, bool pressure, bool en,
-                          bool* dram) {
-  *dram = false;
-  if (!en) return 0;
-  const Probe p2 = l2_lookup(L.l2, line, BT_DATA);
-  l2_touch(L.l2, p2, pressure, L.tlb_aware, p2.hit);
-  const bool go_l3 = !p2.hit;
-  const bool hit3 = l3_access(L.l3, line, go_l3);
-  l2_insert(L.l2, line, BT_DATA, pressure, L.tlb_aware, go_l3);
-  *dram = go_l3 && !hit3;
-  if (go_l3 && tid() == 0) {
-    *L.n_l3_access += 1;
-    *L.n_l3_trans += 1;
+// caches.access_pte, enabled: the L3 row is loaded before the L2 insert,
+// which does not need it
+__device__ __forceinline__ int access_pte(Lane& L, int line, bool pressure,
+                                          bool* dram) {
+  L2Row r = load_row(L.l2, line);
+  const unsigned m = hits(r, line, BT_DATA);
+  if (m != 0) {
+    l2_touch(L.l2, r, __ffs(m) - 1, pressure, L.tlb_aware);
+    *dram = false;
+    return L.lat_l2;
   }
-  sync();
-  return miss_cycles(L, p2.hit, hit3);
+  L3Row r3 = load_row(L.l3, line);
+  l2_insert(L.l2, r, line, BT_DATA, pressure, L.tlb_aware, L.live);
+  const bool hit3 = l3_access(L.l3, r3, line);
+  L.n_l3_access += 1;
+  L.n_l3_trans += 1;
+  *dram = !hit3;
+  return miss_cycles(L, false, hit3);
 }
 
-// page_table.walk: PWCs probed before the walk, `start` fixed before fills
-__device__ int walk(const Lane& L, int vpn4k, bool is2m, int now,
-                    bool pressure, bool en, int* n_dram) {
-  *n_dram = 0;
-  if (!en) return 0;
-  const int vpn2 = vpn4k >> 9;
-  const int lines[4] = {
-      is2m ? PML4_BASE + ((vpn2 >> 18) >> 3) : PML4_BASE + ((vpn4k >> 27) >> 3),
-      is2m ? PDP_BASE + ((vpn2 >> 9) >> 3) : PDP_BASE + ((vpn4k >> 18) >> 3),
-      is2m ? PD_BASE + (vpn2 >> 3) : PD_BASE + ((vpn4k >> 9) >> 3),
-      LEAF4_BASE + (vpn4k >> 3)};
-  const int n_levels = is2m ? 3 : 4;
-  const int k_pml4 = is2m ? vpn2 >> 18 : vpn4k >> 27;
-  const int k_pdp = is2m ? vpn2 >> 9 : vpn4k >> 18;
-  const int k_pd = vpn4k >> 9;
-  const bool hit4 = lookup(L.pml4, k_pml4).hit;
-  const bool hit3 = lookup(L.pdp, k_pdp).hit;
-  const bool hit2 = lookup(L.pd, k_pd).hit && !is2m;
+// the PWC rows of a walk of 4K vpn `vpn4k` (a 2M page's is its first 4K
+// vpn): the keys are vpn4k >> 27, >> 18 and >> 9 at either size
+struct PwcRows {
+  LruRow r4, r3, r2;
+};
+
+__device__ __forceinline__ PwcRows pwc_rows(const Lane& L, int vpn4k) {
+  return {load_row(L.pml4, vpn4k >> 27), load_row(L.pdp, vpn4k >> 18),
+          load_row(L.pd, vpn4k >> 9)};
+}
+
+// page_table.walk, enabled: PWCs probed before the walk, `start` fixed
+// before the fills
+__device__ __forceinline__ int walk(Lane& L, PwcRows& w, int vpn4k,
+                                    bool is2m, int now, bool pressure,
+                                    int* n_dram) {
+  const int k4 = vpn4k >> 27, k3 = vpn4k >> 18, k2 = vpn4k >> 9;
+  const bool hit4 = hits(w.r4, k4) != 0;
+  const bool hit3 = hits(w.r3, k3) != 0;
+  const bool hit2 = hits(w.r2, k2) != 0 && !is2m;
   int start = hit2 ? 3 : hit3 ? 2 : hit4 ? 1 : 0;
   if (is2m) start = min(start, 2);
+  const int n_levels = is2m ? 3 : 4;
   int cycles = PWC_LAT;
+  *n_dram = 0;
 #pragma unroll
-  for (int slot = 0; slot < 4; ++slot) {
-    bool d;
-    cycles += access_pte(L, lines[slot], pressure,
-                         slot >= start && slot < n_levels, &d);
-    *n_dram += d;
+  for (int lv = 0; lv < 4; ++lv) {
+    if (lv >= start && lv < n_levels) {
+      const int up = 3 - lv;
+      bool d;
+      cycles += access_pte(
+          L, LINE_B + up * LINE_W + ((vpn4k >> 9 * up) >> 3), pressure, &d);
+      *n_dram += d;
+    }
   }
-  insert_lru(L.pml4, k_pml4, now, start <= 0);
-  insert_lru(L.pdp, k_pdp, now, start <= 1);
-  insert_lru(L.pd, k_pd, now, start <= 2 && !is2m);
+  insert_lru(L.pml4, w.r4, k4, now, start <= 0);
+  insert_lru(L.pdp, w.r3, k3, now, start <= 1);
+  insert_lru(L.pd, w.r2, k2, now, start <= 2 && !is2m);
   return cycles;
 }
 
-// caches.access_data
-__device__ int access_data(const Lane& L, int line, int now, bool pressure) {
-  const Probe p1 = lookup(L.l1d, line);
-  // the L1D is touched unconditionally: a miss stamps way 0
-  sync();
-  if (tid() == 0) L.l1d.meta[p1.set * L.l1d.ways + p1.way] = now;
-  sync();
-  const Probe p2 = l2_lookup(L.l2, line, BT_DATA);
-  const bool go_l2 = !p1.hit;
-  l2_touch(L.l2, p2, pressure, L.tlb_aware, go_l2 && p2.hit);
-  const bool go_l3 = go_l2 && !p2.hit;
-  const bool hit3 = l3_access(L.l3, line, go_l3);
-  l2_insert(L.l2, line, BT_DATA, pressure, L.tlb_aware, go_l3);
-  const int nxt = line + 1;
-  const bool pf_hit = l2_lookup(L.l2, nxt, BT_DATA).hit;
-  l2_insert(L.l2, nxt, BT_DATA, pressure, L.tlb_aware, go_l3 && !pf_hit);
-  insert_lru(L.l1d, line, now, go_l2);
-  // two background lines; int32 wraparound of the reference as uint32
+// caches.l2_retag_to_tlb, enabled
+__device__ __forceinline__ void retag_to_tlb(Lane& L, int key, int bt,
+                                             bool pressure) {
+  L2Row r = load_row(L.l2, key);
+  if (hits(r, key, bt) == 0)
+    l2_insert(L.l2, r, key, bt, pressure, L.tlb_aware, L.live);
+}
+
+// caches.access_data; `r1` is the L1D row of `line`, loaded at the start
+// of the access (nothing before this touches the L1D)
+__device__ __forceinline__ int access_data(Lane& L, LruRow& r1, int line,
+                                           int now, bool pressure) {
+  // the two background lines (int32 wraparound of the reference as
+  // uint32); when they can be paired (see l3_access_pair) their L3 rows
+  // are loaded first, and again if the data line's L3 access changed one
+  __syncwarp(kFull);  // rows below are owned by half-warps too
   const uint32_t h = static_cast<uint32_t>(now) * BG_MUL;
-  for (const uint32_t salt : {BG_SALT0, BG_SALT1}) {
-    const int bg = static_cast<int>((h ^ salt) & BG_MASK);
-    const bool bg_hit3 = l3_access(L.l3, bg, true);
-    l2_insert(L.l2, bg, BT_DATA, pressure, L.tlb_aware, !bg_hit3);
+  const int bg0 = static_cast<int>((h ^ BG_SALT0) & BG_MASK);
+  const int bg1 = static_cast<int>((h ^ BG_SALT1) & BG_MASK);
+  const int smask = L.l3.sets - 1;
+  const bool paired = L.l3.ways <= 16 && L.l2.ways <= 16 &&
+                      ((bg0 ^ bg1) & smask) != 0 &&
+                      ((bg0 ^ bg1) & (L.l2.sets - 1)) != 0;
+  const int bgh = half() ? bg1 : bg0;  // this half-warp's line
+  L3Row rb;
+  if (paired) rb = load_row(L.l3, bgh, true);
+  const unsigned m1 = hits(r1, line);
+  const bool hit1 = m1 != 0;
+  // the L1D is touched unconditionally: a miss stamps way 0
+  touch(L.l1d, r1, first_way(m1), now);
+  bool hit2 = false, hit3 = false;
+  int l3_set = -1;  // the L3 set the data line's access changed
+  const int nxt = line + 1;  // the next-line prefetch
+  if (!hit1 && L.l2.ways <= 16 && L.l2.sets > 1) {
+    // the line's row and the prefetch's (another set) as a pair: the
+    // line's insert does not change the prefetch's row, so both inserts
+    // share their instructions
+    const int key = half() ? nxt : line;
+    L2Row r2 = load_row(L.l2, key, true);
+    const unsigned m2 = hits(r2, key, BT_DATA);
+    hit2 = (m2 & 0xffffu) != 0;
+    if (hit2) {
+      l2_touch(L.l2, r2, __ffs(m2) - 1, pressure, L.tlb_aware);
+    } else {
+      L3Row r3 = load_row(L.l3, line);
+      l2_insert_pair(L.l2, r2, key, 1u | ((m2 >> 16) == 0) << 1, pressure,
+                     L.tlb_aware, L.live);
+      hit3 = l3_access(L.l3, r3, line);
+      l3_set = line & smask;
+    }
+  } else if (!hit1) {
+    L2Row r2 = load_row(L.l2, line);
+    const unsigned m2 = hits(r2, line, BT_DATA);
+    hit2 = m2 != 0;
+    if (hit2) {
+      l2_touch(L.l2, r2, __ffs(m2) - 1, pressure, L.tlb_aware);
+    } else {
+      L3Row r3 = load_row(L.l3, line);
+      l2_insert(L.l2, r2, line, BT_DATA, pressure, L.tlb_aware, L.live);
+      hit3 = l3_access(L.l3, r3, line);
+      l3_set = line & smask;
+      L2Row rp = load_row(L.l2, nxt);
+      if (hits(rp, nxt, BT_DATA) == 0)
+        l2_insert(L.l2, rp, nxt, BT_DATA, pressure, L.tlb_aware, L.live);
+    }
   }
-  if (tid() == 0) {
-    *L.n_l2_access += go_l2;
-    *L.n_l2_miss += go_l3;
-    *L.n_l3_access += go_l3;
+  insert_lru(L.l1d, r1, line, now, !hit1);
+  __syncwarp(kFull);  // the line's rows, by either half, are written
+  if (paired) {
+    if (l3_set == (bg0 & smask) || l3_set == (bg1 & smask))
+      rb = load_row(L.l3, bgh, true);
+    const unsigned hit = l3_access_pair(L.l3, rb, bgh);
+    if (hit != 3) {
+      L2Row r = load_row(L.l2, bgh, true);
+      l2_insert_pair(L.l2, r, bgh, ~hit & 3u, pressure, L.tlb_aware, L.live);
+    }
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < 2; ++k) {
+      const int bg = k ? bg1 : bg0;
+      L3Row r3 = load_row(L.l3, bg);
+      if (!l3_access(L.l3, r3, bg)) {
+        L2Row r = load_row(L.l2, bg);
+        l2_insert(L.l2, r, bg, BT_DATA, pressure, L.tlb_aware, L.live);
+      }
+    }
   }
-  sync();
-  return p1.hit ? L.lat_l1d : miss_cycles(L, p2.hit, hit3);
+  L.n_l2_access += !hit1;
+  L.n_l2_miss += !hit1 && !hit2;
+  L.n_l3_access += !hit1 && !hit2;
+  return hit1 ? L.lat_l1d : miss_cycles(L, hit2, hit3);
 }
 
 __device__ __forceinline__ bool predict(int f, int c) {
@@ -467,125 +711,394 @@ __device__ __forceinline__ bool predict(int f, int c) {
          f <= BOX_FREQ_HI;
 }
 
-__global__ void __launch_bounds__(32) mmu_step_kernel(const Params p) {
+// ------------------------------------------------ shared-memory plan
+// Offsets in bytes into the block's dynamic shared memory: the int32
+// arrays first (histograms, LRU tags and stamps, L2 tags), then the
+// bytes (LRU valid, L2 packed and reuse shadow).  The host computes the
+// same total in smem_bytes(); mmu_step.placement computes it in Python.
+struct Plan {
+  int hist, lru_i32[7], l2_tag, lru_u8[7], l2_pk, l2_r8, total;
+};
+
+__host__ __device__ inline int entries(const AssocP& a) {
+  return a.sets * a.ways;
+}
+
+// the seven LRU arrays in plan order; the L2 TLB is the last
+__host__ __device__ inline const AssocP& lru_param(const Params& p, int k) {
+  switch (k) {
+    case 0: return p.l1d4;
+    case 1: return p.l1d2;
+    case 2: return p.pml4;
+    case 3: return p.pdp;
+    case 4: return p.pd;
+    case 5: return p.l1d;
+    default: return p.l2tlb;
+  }
+}
+
+__host__ __device__ inline Plan plan(const Params& p) {
+  Plan s;
+  int o = 0;
+  s.hist = o;
+  o += 4 * (WALK_HIST_BUCKETS + 2 * REUSE_BUCKETS);
+  const int n_lru = p.l2tlb_shared ? 7 : 6;
+  for (int k = 0; k < 7; ++k) {
+    s.lru_i32[k] = o;
+    if (k < n_lru) o += 8 * entries(lru_param(p, k));
+  }
+  const int n2 = p.l2.sets * p.l2.ways;
+  s.l2_tag = o;
+  if (p.l2_shared) o += 4 * n2;
+  for (int k = 0; k < 7; ++k) {
+    s.lru_u8[k] = o;
+    if (k < n_lru) o += entries(lru_param(p, k));
+  }
+  s.l2_pk = o;
+  s.l2_r8 = o + n2;
+  if (p.l2_shared) o += 2 * n2;
+  s.total = o;
+  return s;
+}
+
+// ------------------------------------------------ load and write back
+// The copies at launch start and end go in batches of COPY_U elements a
+// thread, every load of a batch issued before its first store.
+constexpr int COPY_U = 8;
+
+// store(i, load(i)) for this thread's i < n (lane, lane + 32, ...), in
+// batches of COPY_U: every load of a batch before its first store.
+template <typename Load, typename Store>
+__device__ __forceinline__ void batched(size_t n, Load load, Store store) {
+  for (size_t i0 = lane(); i0 < n; i0 += 32 * COPY_U) {
+    decltype(load(i0)) v[COPY_U];
+#pragma unroll
+    for (int u = 0; u < COPY_U; ++u)
+      if (i0 + 32 * u < n) v[u] = load(i0 + 32 * u);
+#pragma unroll
+    for (int u = 0; u < COPY_U; ++u)
+      if (i0 + 32 * u < n) store(i0 + 32 * u, v[u]);
+  }
+}
+
+struct Entry {  // one entry of an LRU array, or of the L2 cache
+  int32_t tag, meta, rrpv, btype, reuse;
+  uint8_t valid, pk;
+};
+
+struct Quad {  // four consecutive L2-cache entries
+  int4 tag, rrpv, btype, reuse;
+  uchar4 valid;
+};
+
+__device__ __forceinline__ bool aligned(const void* q, size_t a) {
+  return (reinterpret_cast<uintptr_t>(q) & (a - 1)) == 0;
+}
+
+// the pack step of one L2-cache entry: exact, or a trap
+__device__ __forceinline__ uint8_t pack_checked(int valid, int bt, int rr,
+                                                int reuse, uint8_t* r8) {
+  if (rr < 0 || rr > RRIP_MAX || bt < 0 || bt > BT_NTLB || reuse < 0)
+    __trap();
+  *r8 = min(reuse, 255);
+  return pack(valid != 0, bt, rr);
+}
+
+// A lane's LRU array as the kernel uses it: in shared memory (copied in
+// here) or, for an L2 TLB placed in device memory, the state tensors.
+__device__ Lru lru_in(const AssocP& a, int b, bool shared, char* smem,
+                      int o32, int o8) {
+  const size_t o = static_cast<size_t>(b) * a.sets * a.ways;
+  Lru l = {a.tags + o, a.meta + o, a.valid + o, a.sets, a.ways};
+  if (!shared) return l;
+  Lru s = {reinterpret_cast<int32_t*>(smem + o32),
+           reinterpret_cast<int32_t*>(smem + o32) + entries(a),
+           reinterpret_cast<uint8_t*>(smem + o8), a.sets, a.ways};
+  batched(
+      entries(a),
+      [&](size_t i) {
+        return Entry{l.tag[i], l.stamp[i], 0, 0, 0, l.valid[i], 0};
+      },
+      [&](size_t i, const Entry& e) {
+        s.tag[i] = e.tag;
+        s.stamp[i] = e.meta;
+        s.valid[i] = e.valid;
+      });
+  return s;
+}
+
+__device__ void lru_out(const AssocP& a, int b, const Lru& s) {
+  const size_t o = static_cast<size_t>(b) * a.sets * a.ways;
+  batched(
+      entries(a),
+      [&](size_t i) {
+        return Entry{s.tag[i], s.stamp[i], 0, 0, 0, s.valid[i], 0};
+      },
+      [&](size_t i, const Entry& e) {
+        a.tags[o + i] = e.tag;
+        a.meta[o + i] = e.meta;
+        a.valid[o + i] = e.valid;
+      });
+}
+
+template <bool L2S, bool TS, bool VICTIMA>
+__global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
+  extern __shared__ __align__(16) char smem[];
   const int b = blockIdx.x;
-  const size_t n4o = static_cast<size_t>(b) * p.pc4.n;
-  const size_t n2o = static_cast<size_t>(b) * p.pc2.n;
-  const Lane L = {view(p.l1d4, b), view(p.l1d2, b), view(p.l2tlb, b),
-                  view(p.pml4, b), view(p.pdp, b), view(p.pd, b),
-                  view(p.l1d, b), view(p.l3, b), view(p.l2, b),
-                  p.pc4.freq + n4o, p.pc4.cost + n4o,
-                  p.pc2.freq + n2o, p.pc2.cost + n2o, p.pc4.n, p.pc2.n,
-                  p.hier.n_l2_access + b, p.hier.n_l2_miss + b,
-                  p.hier.n_l3_access + b, p.hier.n_l3_trans + b,
-                  p.tlb_aware != 0, p.lat_l1d, p.lat_l2, p.lat_l3,
-                  p.lat_dram};
+  const Plan pl = plan(p);
+  const size_t n2 = static_cast<size_t>(p.l2.sets) * p.l2.ways;
+  const size_t o2 = b * n2;
+  int32_t* const hist = reinterpret_cast<int32_t*>(smem + pl.hist);
+
+  Lane L;
+  L.l1d4 = lru_in(p.l1d4, b, true, smem, pl.lru_i32[0], pl.lru_u8[0]);
+  L.l1d2 = lru_in(p.l1d2, b, true, smem, pl.lru_i32[1], pl.lru_u8[1]);
+  L.pml4 = lru_in(p.pml4, b, true, smem, pl.lru_i32[2], pl.lru_u8[2]);
+  L.pdp = lru_in(p.pdp, b, true, smem, pl.lru_i32[3], pl.lru_u8[3]);
+  L.pd = lru_in(p.pd, b, true, smem, pl.lru_i32[4], pl.lru_u8[4]);
+  L.l1d = lru_in(p.l1d, b, true, smem, pl.lru_i32[5], pl.lru_u8[5]);
+  L.l2tlb = lru_in(p.l2tlb, b, TS, smem, pl.lru_i32[6], pl.lru_u8[6]);
+  L.l2 = {L2S ? reinterpret_cast<int32_t*>(smem + pl.l2_tag)
+              : p.l2.tags + o2,
+          L2S ? reinterpret_cast<uint8_t*>(smem + pl.l2_pk)
+              : p.l2_pack + 2 * o2,
+          L2S ? reinterpret_cast<uint8_t*>(smem + pl.l2_r8)
+              : p.l2_pack + 2 * o2 + n2,
+          p.l2.reuse + o2, hist + WALK_HIST_BUCKETS,
+          hist + WALK_HIST_BUCKETS + REUSE_BUCKETS, p.l2.sets, p.l2.ways};
+  {
+    const size_t o3 = static_cast<size_t>(b) * p.l3.sets * p.l3.ways;
+    L.l3 = {p.l3.tags + o3, p.l3.valid + o3, p.l3.meta + o3, p.l3.sets,
+            p.l3.ways};
+  }
+  L.hist_walk = hist;
+  for (int i = lane(); i < WALK_HIST_BUCKETS; i += 32)
+    hist[i] = p.stats.hist_walk[b * WALK_HIST_BUCKETS + i];
+  for (int i = lane(); i < REUSE_BUCKETS; i += 32) {
+    L.l2.hist_data[i] = p.l2.hist_data[b * REUSE_BUCKETS + i];
+    L.l2.hist_tlb[i] = p.l2.hist_tlb[b * REUSE_BUCKETS + i];
+  }
+  // pack the L2 cache (into shared memory, or the scratch tensor): four
+  // entries a load where the row count and the addresses allow
+  const bool quads = n2 % 4 == 0 && aligned(p.l2.tags + o2, 16) &&
+                     aligned(p.l2.rrpv + o2, 16) &&
+                     aligned(p.l2.btype + o2, 16) &&
+                     aligned(p.l2.reuse + o2, 16) &&
+                     aligned(p.l2.valid + o2, 4) && aligned(L.l2.tag, 16) &&
+                     aligned(L.l2.pk, 4) && aligned(L.l2.r8, 4);
+  if (quads) {
+    batched(
+        n2 / 4,
+        [&](size_t q) {
+          const size_t g = o2 / 4 + q;
+          return Quad{L2S ? reinterpret_cast<const int4*>(p.l2.tags)[g]
+                          : int4{},
+                      reinterpret_cast<const int4*>(p.l2.rrpv)[g],
+                      reinterpret_cast<const int4*>(p.l2.btype)[g],
+                      reinterpret_cast<const int4*>(p.l2.reuse)[g],
+                      reinterpret_cast<const uchar4*>(p.l2.valid)[g]};
+        },
+        [&](size_t q, const Quad& e) {
+          uchar4 pk, r8;
+          pk.x = pack_checked(e.valid.x, e.btype.x, e.rrpv.x, e.reuse.x, &r8.x);
+          pk.y = pack_checked(e.valid.y, e.btype.y, e.rrpv.y, e.reuse.y, &r8.y);
+          pk.z = pack_checked(e.valid.z, e.btype.z, e.rrpv.z, e.reuse.z, &r8.z);
+          pk.w = pack_checked(e.valid.w, e.btype.w, e.rrpv.w, e.reuse.w, &r8.w);
+          if (L2S) reinterpret_cast<int4*>(L.l2.tag)[q] = e.tag;
+          reinterpret_cast<uchar4*>(L.l2.pk)[q] = pk;
+          reinterpret_cast<uchar4*>(L.l2.r8)[q] = r8;
+        });
+  } else {
+    batched(
+        n2,
+        [&](size_t i) {
+          const size_t g = o2 + i;
+          return Entry{L2S ? p.l2.tags[g] : 0, 0, p.l2.rrpv[g], p.l2.btype[g],
+                       p.l2.reuse[g], p.l2.valid[g], 0};
+        },
+        [&](size_t i, const Entry& e) {
+          if (L2S) L.l2.tag[i] = e.tag;
+          L.l2.pk[i] = pack_checked(e.valid, e.btype, e.rrpv, e.reuse,
+                                    L.l2.r8 + i);
+        });
+  }
+  {
+    const size_t n4o = static_cast<size_t>(b) * p.pc4.n;
+    const size_t n2o = static_cast<size_t>(b) * p.pc2.n;
+    L.f4 = p.pc4.freq + n4o;
+    L.c4 = p.pc4.cost + n4o;
+    L.f2 = p.pc2.freq + n2o;
+    L.c2 = p.pc2.cost + n2o;
+  }
+  L.n4 = p.pc4.n;
+  L.n2 = p.pc2.n;
+  L.tlb_aware = p.tlb_aware != 0;
+  L.lat_l1d = p.lat_l1d;
+  L.lat_l2 = p.lat_l2;
+  L.lat_l3 = p.lat_l3;
+  L.lat_dram = p.lat_dram;
+  L.live = {p.l2.n_tlb4[b], p.l2.n_tlb2[b], p.l2.n_ntlb[b]};
+  L.n_l2_access = p.hier.n_l2_access[b];
+  L.n_l2_miss = p.hier.n_l2_miss[b];
+  L.n_l3_access = p.hier.n_l3_access[b];
+  L.n_l3_trans = p.hier.n_l3_trans[b];
+
   const StatsP& S = p.stats;
-  int32_t* const now_p = p.now + b;
-  const bool victima = p.victima != 0;
+  int now = p.now[b];
+  int n_access = S.n_access[b], n_l1tlb_hit = S.n_l1tlb_hit[b];
+  int n_l2tlb_hit = S.n_l2tlb_hit[b], n_l2tlb_miss = S.n_l2tlb_miss[b];
+  int n_victima_hit = S.n_victima_hit[b], n_demand_ptw = S.n_demand_ptw[b];
+  int n_bg_ptw = S.n_bg_ptw[b];
+  float sum_trans = S.sum_trans_cyc[b], sum_l2miss = S.sum_l2miss_cyc[b];
+  float sum_data = S.sum_data_cyc[b], sum_walk = S.sum_walk_cyc[b];
+  float sum_tlb4 = S.sum_tlb4_live[b], sum_tlb2 = S.sum_tlb2_live[b];
+  constexpr bool victima = VICTIMA;
   const bool tlb_aware = L.tlb_aware;
+  __syncwarp(kFull);  // the copies in are done: each word has one owner
+
+  // the trace row of the next access is loaded during this one (the last
+  // access loads its own row again: no branch around the loads)
+  const int32_t* tr_vpn = p.trace.vpn + b;
+  const uint8_t* tr_is2m = p.trace.is2m + b;
+  const int32_t* tr_line = p.trace.line + b;
+  const float* tr_ipa = p.trace.ipa + b;
+  size_t ti = static_cast<size_t>(min(p.t0, max(p.t1 - 1, 0))) * p.lanes;
+  int nx_vpn = tr_vpn[ti], nx_line = tr_line[ti];
+  unsigned nx_is2m = tr_is2m[ti];
+  float nx_ipa = tr_ipa[ti];
+  PROF_BEGIN();
 
   for (int t = p.t0; t < p.t1; ++t) {
-    const size_t ti = static_cast<size_t>(t) * p.lanes + b;
-    const int vpn = p.trace.vpn[ti];
-    const bool is2m = p.trace.is2m[ti] != 0;
-    const int line = p.trace.line[ti];
-    const float ipa = p.trace.ipa[ti];
+    const int vpn = nx_vpn, line = nx_line;
+    const bool is2m = nx_is2m != 0;
+    const float ipa = nx_ipa;
+    ti = static_cast<size_t>(min(t + 1, p.t1 - 1)) * p.lanes;
+    nx_vpn = tr_vpn[ti];
+    nx_is2m = tr_is2m[ti];
+    nx_line = tr_line[ti];
+    nx_ipa = tr_ipa[ti];
 
     // mmu.make_step: the step's signals read the stats before the access
-    const int now = *now_p + 1;
+    now += 1;
     const float instrs =
-        __fmul_rn(fmaxf(__int2float_rn(S.n_access[b]), 1.0f), ipa);
-    const bool pressure =
-        __fmul_rn(__int2float_rn(S.n_l2tlb_miss[b]), 1000.0f) >
-        __fmul_rn(p.pressure_mpki, instrs);
-    const bool bypass = __fmul_rn(__int2float_rn(*L.n_l2_miss), 1000.0f) >=
+        __fmul_rn(fmaxf(__int2float_rn(n_access), 1.0f), ipa);
+    const bool pressure = __fmul_rn(__int2float_rn(n_l2tlb_miss), 1000.0f) >
+                          __fmul_rn(p.pressure_mpki, instrs);
+    const bool bypass = __fmul_rn(__int2float_rn(L.n_l2_miss), 1000.0f) >=
                         __fmul_rn(p.bypass_l2mpki, instrs);
-    sync();
-    if (tid() == 0) *now_p = now;
-    sync();
     const int vpn2 = vpn >> 9;
     const int vpn_sz = is2m ? vpn2 : vpn;
     const int key2 = (vpn_sz << 1) | static_cast<int>(is2m);
+    const int vkey = is2m ? vpn2 >> 3 : vpn >> 3;
+    const int vbt = is2m ? BT_TLB2 : BT_TLB4;
+
+    // every row that nothing before its use changes, in one round
+    LruRow q4 = load_row(L.l1d4, vpn);
+    LruRow q2 = load_row(L.l1d2, vpn2);
+    LruRow qt = load_row(L.l2tlb, key2);
+    LruRow r1 = load_row(L.l1d, line);
+    PwcRows pw = pwc_rows(L, vpn);
+    L2Row qv;
+    if (victima) qv = load_row(L.l2, vkey);
+    // radix: the PTW-CP counter entry of this access
+    const int ci = is2m ? vpn2 & (L.n2 - 1) : vpn & (L.n4 - 1);
+    int cf = 0, cc = 0;
+    if (!victima) {
+      cf = (is2m ? L.f2 : L.f4)[ci];
+      cc = (is2m ? L.c2 : L.c4)[ci];
+    }
 
     // stages.l1_tlb lookup
-    const Probe q4 = lookup(L.l1d4, vpn);
-    const Probe q2 = lookup(L.l1d2, vpn2);
-    const bool hit1 = is2m ? q2.hit : q4.hit;
-    sync();
-    if (tid() == 0) {
-      if (q4.hit && !is2m) L.l1d4.meta[q4.set * L.l1d4.ways + q4.way] = now;
-      if (q2.hit && is2m) L.l1d2.meta[q2.set * L.l1d2.ways + q2.way] = now;
-    }
-    sync();
+    const unsigned m4 = hits(q4, vpn), m2 = hits(q2, vpn2);
+    const bool hit1 = is2m ? m2 != 0 : m4 != 0;
+    if (m4 != 0 && !is2m) touch(L.l1d4, q4, __ffs(m4) - 1, now);
+    if (m2 != 0 && is2m) touch(L.l1d2, q2, __ffs(m2) - 1, now);
     const bool miss1 = !hit1;
     int trans = p.l1tlb_lat;
 
     // stages.l2_tlb lookup
-    const Probe qt = lookup(L.l2tlb, key2);
-    const bool l2hit = miss1 && qt.hit;
-    sync();
-    if (l2hit && tid() == 0) L.l2tlb.meta[qt.set * L.l2tlb.ways + qt.way] = now;
-    sync();
+    const unsigned mt = hits(qt, key2);
+    const bool l2hit = miss1 && mt != 0;
+    if (l2hit) touch(L.l2tlb, qt, __ffs(mt) - 1, now);
     trans += miss1 ? p.l2tlb_lat : 0;
     const bool miss2 = miss1 && !l2hit;
     bool need = miss2;
     int past = 0;
 
+    // Victima: the L2-TLB victim is fixed now (nothing below touches the
+    // L2 TLB before its fill), so both counter slots are known: they are
+    // loaded here and used after the walk
+    int tv = 0, ev_tag = 0;
+    bool ev_valid = false;
+    int i4[2] = {0, 0}, i2[2] = {0, 0};
+    int f4[2] = {0, 0}, c4[2] = {0, 0}, f2[2] = {0, 0}, c2[2] = {0, 0};
+    if (victima) {
+      tv = lru_victim(qt);
+      ev_tag = __shfl_sync(kFull, qt.tag, tv);
+      ev_valid = (__ballot_sync(kFull, qt.valid()) >> tv) & 1u;
+      const int ev_vpn = ev_tag >> 1;
+      const int bg_vpn4 = (ev_tag & 1) ? ev_vpn << 9 : ev_vpn;
+      i4[0] = vpn & (L.n4 - 1);
+      i4[1] = bg_vpn4 & (L.n4 - 1);
+      i2[0] = vpn2 & (L.n2 - 1);
+      i2[1] = ev_vpn & (L.n2 - 1);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        f4[k] = L.f4[i4[k]];
+        c4[k] = L.c4[i4[k]];
+        f2[k] = L.f2[i2[k]];
+        c2[k] = L.c2[i2[k]];
+      }
+    }
+    PROF_STAMP(ST_TLB);
+
     // stages.victima lookup
     bool vhit = false;
-    int vkey = 0, vbt = BT_TLB4;
     if (victima) {
-      vkey = is2m ? vpn2 >> 3 : vpn >> 3;
-      vbt = is2m ? BT_TLB2 : BT_TLB4;
-      const Probe qv = l2_lookup(L.l2, vkey, vbt);
-      vhit = need && qv.hit;
-      l2_touch(L.l2, qv, pressure, tlb_aware, vhit);
+      const unsigned mv = hits(qv, vkey, vbt);
+      vhit = need && mv != 0;
+      if (vhit) l2_touch(L.l2, qv, __ffs(mv) - 1, pressure, tlb_aware);
       past += vhit ? L.lat_l2 : 0;
       need = need && !vhit;
     }
+    PROF_STAMP(ST_PROBE);
 
     // stages.ptw lookup: the demand walk
     const bool walk_en = need;
-    int ndram;
-    const int wcyc = walk(L, vpn, is2m, now, pressure, walk_en, &ndram);
+    int ndram = 0, wcyc = 0;
+    if (walk_en) wcyc = walk(L, pw, vpn, is2m, now, pressure, &ndram);
     past += wcyc;
+    PROF_STAMP(ST_WALK);
 
     bool bg = false;
     if (victima) {
       // stages.l2_tlb fill
-      int ev_tag;
-      bool ev_valid;
-      insert_lru(L.l2tlb, key2, now, miss2, &ev_tag, &ev_valid);
-      // stages.victima fill: counters read once, before the walks
+      if (miss2) fill(L.l2tlb, qt, tv, key2, now);
+      ev_valid = ev_valid && miss2;
+      // stages.victima fill: the counters read once, before the walks
       const int ev_vpn = ev_tag >> 1;
       const bool ev2m = (ev_tag & 1) != 0;
-      const int bg_vpn4 = ev2m ? ev_vpn << 9 : ev_vpn;
-      const int i4[2] = {vpn & (L.n4 - 1), bg_vpn4 & (L.n4 - 1)};
-      const int i2[2] = {vpn2 & (L.n2 - 1), ev_vpn & (L.n2 - 1)};
-      const int f4[2] = {L.f4[i4[0]], L.f4[i4[1]]};
-      const int c4[2] = {L.c4[i4[0]], L.c4[i4[1]]};
-      const int f2[2] = {L.f2[i2[0]], L.f2[i2[1]]};
-      const int c2[2] = {L.c2[i2[0]], L.c2[i2[1]]};
       const int fpost = (is2m ? f2[0] : f4[0]) + walk_en;
       const int cpost = (is2m ? c2[0] : c4[0]) + (walk_en && ndram >= 1);
       const bool pred = !p.use_ptwcp ||
                         predict(min(fpost, FREQ_MAX), min(cpost, COST_MAX));
-      l2_retag_to_tlb(L.l2, vkey, vbt, pressure, tlb_aware,
-                      walk_en && (pred || bypass));
       const bool epred = !p.use_ptwcp ||
                          predict(ev2m ? f2[1] : f4[1], ev2m ? c2[1] : c4[1]);
+      if (walk_en && (pred || bypass)) retag_to_tlb(L, vkey, vbt, pressure);
       bg = miss2 && ev_valid && (epred || bypass);
-      int bdram;
-      walk(L, bg_vpn4, ev2m, now, pressure, bg, &bdram);
-      l2_retag_to_tlb(L.l2, ev_vpn >> 3, ev2m ? BT_TLB2 : BT_TLB4, pressure,
-                      tlb_aware, bg);
+      int bdram = 0;
+      if (bg) {
+        const int bg_vpn4 = ev2m ? ev_vpn << 9 : ev_vpn;
+        PwcRows bw = pwc_rows(L, bg_vpn4);
+        walk(L, bw, bg_vpn4, ev2m, now, pressure, &bdram);
+        retag_to_tlb(L, ev_vpn >> 3, ev2m ? BT_TLB2 : BT_TLB4, pressure);
+      }
       // fused counter writeback: slot 0 then slot 1 (slot 1 wins a tie)
-      sync();
-      if (tid() == 0) {
+      if (lane() == 0) {
         const bool en4[2] = {walk_en && !is2m, bg && !ev2m};
         const bool en2[2] = {walk_en && is2m, bg && ev2m};
         const bool dr[2] = {ndram >= 1, bdram >= 1};
+#pragma unroll
         for (int k = 0; k < 2; ++k) {
           L.f4[i4[k]] = static_cast<uint8_t>(min(f4[k] + en4[k], FREQ_MAX));
           L.c4[i4[k]] =
@@ -595,52 +1108,141 @@ __global__ void __launch_bounds__(32) mmu_step_kernel(const Params p) {
               static_cast<uint8_t>(min(c2[k] + (en2[k] && dr[k]), COST_MAX));
         }
       }
-      sync();
     } else {
       // stages.ptw fill (fill_walk_counters), then stages.l2_tlb fill
-      if (walk_en && tid() == 0) {
-        uint8_t* f = is2m ? L.f2 : L.f4;
-        uint8_t* c = is2m ? L.c2 : L.c4;
-        const int i = is2m ? vpn2 & (L.n2 - 1) : vpn & (L.n4 - 1);
-        f[i] = static_cast<uint8_t>(min(f[i] + 1, FREQ_MAX));
-        c[i] = static_cast<uint8_t>(min(c[i] + (ndram >= 1), COST_MAX));
+      if (walk_en && lane() == 0) {
+        (is2m ? L.f2 : L.f4)[ci] = static_cast<uint8_t>(min(cf + 1, FREQ_MAX));
+        (is2m ? L.c2 : L.c4)[ci] =
+            static_cast<uint8_t>(min(cc + (ndram >= 1), COST_MAX));
       }
-      sync();
-      insert_lru(L.l2tlb, key2, now, miss2);
+      insert_lru(L.l2tlb, qt, key2, now, miss2);
     }
+    PROF_STAMP(ST_FILL);
     // stages.l1_tlb fill
-    insert_lru(L.l1d4, vpn, now, miss1 && !is2m);
-    insert_lru(L.l1d2, vpn2, now, miss1 && is2m);
+    insert_lru(L.l1d4, q4, vpn, now, miss1 && !is2m);
+    insert_lru(L.l1d2, q2, vpn2, now, miss1 && is2m);
     trans += past;
+    PROF_STAMP(ST_TLB);
 
-    const int dcyc = access_data(L, line, now, pressure);
+    const int dcyc = access_data(L, r1, line, now, pressure);
+    PROF_STAMP(ST_DATA);
 
     // stages.fold.accum_stats, in the reference's order
-    sync();
-    if (tid() == 0) {
-      S.n_access[b] += 1;
-      S.n_l1tlb_hit[b] += hit1;
-      S.n_l2tlb_hit[b] += l2hit;
-      S.n_l2tlb_miss[b] += miss2;
-      S.n_victima_hit[b] += vhit;
-      S.n_demand_ptw[b] += walk_en;
-      S.n_bg_ptw[b] += bg;
-      S.sum_trans_cyc[b] = __fadd_rn(S.sum_trans_cyc[b], __int2float_rn(trans));
-      S.sum_l2miss_cyc[b] =
-          __fadd_rn(S.sum_l2miss_cyc[b], __int2float_rn(miss2 ? past : 0));
-      S.sum_data_cyc[b] = __fadd_rn(S.sum_data_cyc[b], __int2float_rn(dcyc));
-      S.sum_walk_cyc[b] =
-          __fadd_rn(S.sum_walk_cyc[b], __int2float_rn(walk_en ? wcyc : 0));
-      S.hist_walk[b * WALK_HIST_BUCKETS +
-                  min(wcyc / 10, WALK_HIST_BUCKETS - 1)] += walk_en;
-      S.sum_tlb4_live[b] =
-          __fadd_rn(S.sum_tlb4_live[b], __int2float_rn(*L.l2.n_tlb4));
-      S.sum_tlb2_live[b] =
-          __fadd_rn(S.sum_tlb2_live[b], __int2float_rn(*L.l2.n_tlb2));
+    n_access += 1;
+    n_l1tlb_hit += hit1;
+    n_l2tlb_hit += l2hit;
+    n_l2tlb_miss += miss2;
+    n_victima_hit += vhit;
+    n_demand_ptw += walk_en;
+    n_bg_ptw += bg;
+    sum_trans = __fadd_rn(sum_trans, __int2float_rn(trans));
+    sum_l2miss = __fadd_rn(sum_l2miss, __int2float_rn(miss2 ? past : 0));
+    sum_data = __fadd_rn(sum_data, __int2float_rn(dcyc));
+    sum_walk = __fadd_rn(sum_walk, __int2float_rn(walk_en ? wcyc : 0));
+    if (walk_en) {
+      const int hb = min(wcyc / 10, WALK_HIST_BUCKETS - 1);
+      if (lane() == (hb & 31)) L.hist_walk[hb] += 1;
     }
-    sync();
+    sum_tlb4 = __fadd_rn(sum_tlb4, __int2float_rn(L.live.n4));
+    sum_tlb2 = __fadd_rn(sum_tlb2, __int2float_rn(L.live.n2));
+    // the counters thread 0 wrote are read by every thread next access,
+    // and a row half 1 of a pair wrote may be thread w's next access
+    __syncwarp(kFull);
+    PROF_STAMP(ST_STATS);
+  }
+  PROF_END(p, b, p.t1 - p.t0);
+
+  // write back: the scalars, then every copied or packed array
+  __syncwarp(kFull);
+  if (lane() == 0) {
+    p.now[b] = now;
+    S.n_access[b] = n_access;
+    S.n_l1tlb_hit[b] = n_l1tlb_hit;
+    S.n_l2tlb_hit[b] = n_l2tlb_hit;
+    S.n_l2tlb_miss[b] = n_l2tlb_miss;
+    S.n_victima_hit[b] = n_victima_hit;
+    S.n_demand_ptw[b] = n_demand_ptw;
+    S.n_bg_ptw[b] = n_bg_ptw;
+    S.sum_trans_cyc[b] = sum_trans;
+    S.sum_l2miss_cyc[b] = sum_l2miss;
+    S.sum_data_cyc[b] = sum_data;
+    S.sum_walk_cyc[b] = sum_walk;
+    S.sum_tlb4_live[b] = sum_tlb4;
+    S.sum_tlb2_live[b] = sum_tlb2;
+    p.l2.n_tlb4[b] = L.live.n4;
+    p.l2.n_tlb2[b] = L.live.n2;
+    p.l2.n_ntlb[b] = L.live.nn;
+    p.hier.n_l2_access[b] = L.n_l2_access;
+    p.hier.n_l2_miss[b] = L.n_l2_miss;
+    p.hier.n_l3_access[b] = L.n_l3_access;
+    p.hier.n_l3_trans[b] = L.n_l3_trans;
+  }
+  for (int i = lane(); i < WALK_HIST_BUCKETS; i += 32)
+    p.stats.hist_walk[b * WALK_HIST_BUCKETS + i] = hist[i];
+  for (int i = lane(); i < REUSE_BUCKETS; i += 32) {
+    p.l2.hist_data[b * REUSE_BUCKETS + i] = L.l2.hist_data[i];
+    p.l2.hist_tlb[b * REUSE_BUCKETS + i] = L.l2.hist_tlb[i];
+  }
+  lru_out(p.l1d4, b, L.l1d4);
+  lru_out(p.l1d2, b, L.l1d2);
+  lru_out(p.pml4, b, L.pml4);
+  lru_out(p.pdp, b, L.pdp);
+  lru_out(p.pd, b, L.pd);
+  lru_out(p.l1d, b, L.l1d);
+  if (TS) lru_out(p.l2tlb, b, L.l2tlb);
+  if (quads) {
+    batched(
+        n2 / 4,
+        [&](size_t q) {
+          const uchar4 pk = reinterpret_cast<const uchar4*>(L.l2.pk)[q];
+          return Quad{L2S ? reinterpret_cast<const int4*>(L.l2.tag)[q]
+                          : int4{},
+                      {}, {}, {}, pk};
+        },
+        [&](size_t q, const Quad& e) {
+          const size_t g = o2 / 4 + q;
+          const uchar4 k = e.valid;  // the packed bytes
+          if (L2S) reinterpret_cast<int4*>(p.l2.tags)[g] = e.tag;
+          reinterpret_cast<uchar4*>(p.l2.valid)[g] =
+              make_uchar4(k.x & 1, k.y & 1, k.z & 1, k.w & 1);
+          reinterpret_cast<int4*>(p.l2.btype)[g] =
+              make_int4((k.x >> 1) & 3, (k.y >> 1) & 3, (k.z >> 1) & 3,
+                        (k.w >> 1) & 3);
+          reinterpret_cast<int4*>(p.l2.rrpv)[g] =
+              make_int4(k.x >> 3, k.y >> 3, k.z >> 3, k.w >> 3);
+        });
+  } else {
+    batched(
+        n2,
+        [&](size_t i) {
+          return Entry{L2S ? L.l2.tag[i] : 0, 0, 0, 0, 0, 0, L.l2.pk[i]};
+        },
+        [&](size_t i, const Entry& e) {
+          const size_t g = o2 + i;
+          if (L2S) p.l2.tags[g] = e.tag;
+          p.l2.valid[g] = e.pk & 1u;
+          p.l2.btype[g] = (e.pk >> 1) & 3;
+          p.l2.rrpv[g] = e.pk >> 3;
+        });
   }
 }
+
+using KernelFn = void (*)(const Params);
+
+template <bool V>
+KernelFn kernel_for(const Params& p) {
+  if (p.l2_shared) return p.l2tlb_shared ? mmu_step_kernel<true, true, V>
+                                         : mmu_step_kernel<true, false, V>;
+  return p.l2tlb_shared ? mmu_step_kernel<false, true, V>
+                        : mmu_step_kernel<false, false, V>;
+}
+
+// the instantiation of a launch: placement and composition
+KernelFn kernel_for(const Params& p) {
+  return p.victima ? kernel_for<true>(p) : kernel_for<false>(p);
+}
+
+constexpr int kMaxDevices = 64;
 
 }  // namespace
 
@@ -650,13 +1252,34 @@ int mmu_step_params_size(void) { return static_cast<int>(sizeof(Params)); }
 
 // Launch one block of 32 threads per lane over trace rows [t0, t1) on
 // `stream`, on the calling thread's current device (the wrapper sets it
-// to the state's); returns cudaGetLastError() (0 = launched).
+// to the state's); returns cudaGetLastError() (0 = launched), or -1 when
+// p.smem_bytes disagrees with the plan or exceeds a block's limit.
 int mmu_step_launch(Params p, void* stream) {
-  mmu_step_kernel<<<p.lanes, 32, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  const int bytes = plan(p).total;
+  if (bytes != p.smem_bytes || bytes > SMEM_LIMIT) return -1;
+  const KernelFn k = kernel_for(p);
+  // each instantiation's limit is raised to a block's most, once a device
+  static bool raised[8][kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  bool& done = raised[4 * (p.victima != 0) + 2 * (p.l2_shared != 0) +
+                     (p.l2tlb_shared != 0)][dev];
+  if (!done) {
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_LIMIT);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    done = true;
+  }
+  k<<<p.lanes, 32, bytes, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 const char* mmu_step_error_string(int err) {
+  if (err == -1)
+    return "shared-memory bytes of the launch disagree with the kernel's "
+           "plan, or exceed a block's 232,448";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -97,6 +97,36 @@ def test_kernel_matches_plain_at_table3(cuda, system):
                         run(cfg, tr, cuda, kernel=True))
 
 
+# one system of each placement the registry reaches: everything in shared
+# memory (Table 3), the L2 cache in device memory (8 MB), the L2 TLB in
+# device memory (128k entries)
+PLACED = {"radix": "shared", "victima": "shared",
+          "victima_l2_8m": "l2_device", "radix_l2_8m": "l2_device",
+          "l2tlb_128k": "l2tlb_device"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("system", sorted(PLACED))
+def test_kernel_matches_plain_in_every_placement(cuda, system):
+    cfg = systems.config(system)
+    tr = workload_traces(["rnd", "bc"], 1000)
+    before = mmu_step.LAUNCHES_BY_PLACEMENT[PLACED[system]]
+    got = run(cfg, tr, cuda, kernel=True)
+    assert mmu_step.LAUNCHES_BY_PLACEMENT[PLACED[system]] == before + 1
+    assert_leaves_equal(run(cfg, tr, cuda, kernel=False), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("system", ["victima", "victima_l2_8m"])
+def test_state_survives_launch_boundaries_at_full_size(cuda, system):
+    """97-row launches (each packs the L2 cache and its reuse shadow in
+    and unpacks it out) equal one launch."""
+    cfg = systems.config(system)
+    tr = workload_traces(["rnd", "bc"], 600)
+    assert_leaves_equal(run(cfg, tr, cuda, kernel=True),
+                        run(cfg, tr, cuda, kernel=True, block=97))
+
+
 @pytest.mark.gpu
 def test_kernel_result_does_not_depend_on_block(cuda):
     cfg = systems.get("victima").config(SimConfig(**TINY))
@@ -121,6 +151,70 @@ def test_launches_are_counted(cuda):
 
 # ------------------------------------------ wrapper checks (on the CPU)
 
+# every system the port simulates -> its placement; Table 3 takes 217,200
+# bytes of shared memory, l2tlb_3k 231,024
+WANT_PLACEMENT = {
+    **dict.fromkeys(["radix", "victima", "victima_agnostic",
+                     "victima_noptwcp", "l2tlb_3k", "victima_l2_1m",
+                     "radix_l2_1m"], "shared"),
+    **dict.fromkeys([f"l2tlb_{n}" for n in ("8k", "16k", "32k", "64k",
+                                            "128k")]
+                    + [f"l2tlb_{n}_real" for n in ("8k", "16k", "32k",
+                                                   "64k")],
+                    "l2tlb_device"),
+    **dict.fromkeys(["victima_l2_4m", "radix_l2_4m", "victima_l2_8m",
+                     "radix_l2_8m"], "l2_device")}
+
+
+def test_placement_of_every_system():
+    assert sorted(WANT_PLACEMENT) == sorted(systems.names())
+    for name, want in WANT_PLACEMENT.items():
+        pl = mmu_step.placement(systems.config(name))
+        assert pl.name == want, name
+        assert (pl.l2_shared, pl.l2tlb_shared) == mmu_step.PLACEMENTS[want]
+        assert 0 < pl.smem_bytes <= mmu_step.SMEM_LIMIT == 232_448, name
+    assert mmu_step.placement(systems.config("victima")).smem_bytes == 217_200
+    assert mmu_step.placement(systems.config("l2tlb_3k")).smem_bytes == \
+        231_024
+
+
+def test_placement_is_a_function_of_the_geometry():
+    assert mmu_step.placement(SimConfig(**TINY)).name == "shared"
+    cfg = SimConfig(l2_sets=4096, l2tlb_sets=8192, l2tlb_ways=16)
+    assert mmu_step.placement(cfg) == ("device", False, False, 6768)
+    with pytest.raises(ValueError, match="L1 TLBs, PWCs and L1D"):
+        mmu_step.placement(SimConfig(l1_sets=1 << 15))
+
+
+def test_params_carry_the_placement():
+    p = mmu_step._params(*cpu_args())
+    assert (p.placement, p.l2_shared, p.l2tlb_shared, p.l2_pack) == \
+        ("shared", 1, 1, None)
+    assert p.smem_bytes == mmu_step.placement(SimConfig(**TINY)).smem_bytes
+    cfg = SimConfig(**dict(TINY, l2_sets=1 << 14))
+    p = mmu_step._params(*cpu_args(cfg))
+    assert (p.placement, p.l2_shared) == ("l2_device", 0)
+    assert p.scratch.shape == (2, 2, (1 << 14) * 8)
+    assert p.l2_pack == p.scratch.data_ptr()
+
+
+@pytest.mark.parametrize("system", ["radix", "victima", "victima_agnostic"])
+def test_plain_run_keeps_what_the_packing_relies_on(system):
+    """The kernel packs an L2 way's RRPV and block type into 2 bits each
+    and its reuse count into a saturating byte read as min(reuse, 21):
+    exact only while RRPV and btype lie in 0..3 and reuse is >= 0."""
+    cfg = systems.get(system).config(SimConfig(**TINY))
+    st = make_state(cfg, 2)
+    tr = {k: torch.from_numpy(v) for k, v in mixed_traces(300, 2).items()}
+    mmu_step.plain_scan(mmu.make_step(cfg, default_stages(cfg)), st, tr)
+    l2 = st.hier.l2
+    assert int(l2.valid.sum()) > 0 and int(l2.reuse.max()) > 0
+    for leaf in (l2.rrpv, l2.btype):
+        assert 0 <= int(leaf.min()) and int(leaf.max()) <= 3
+    assert int(l2.reuse.min()) >= 0
+    if cfg.victima:
+        assert int(l2.btype.max()) > 0  # TLB blocks were inserted
+
 def cpu_args(cfg=None, lanes=2, n=5):
     cfg = cfg or SimConfig(**TINY)
     st = make_state(cfg, lanes)
@@ -131,6 +225,21 @@ def cpu_args(cfg=None, lanes=2, n=5):
 def test_launch_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         mmu_step.launch(*cpu_args())
+
+
+def test_profiled_launch_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mmu_step.stage_cycles(*cpu_args())
+
+
+def test_profiled_build_is_the_same_source_with_its_stamps():
+    from repro_torch.kernels import build
+    assert build.source("mmu_step_prof") == build.source("mmu_step")
+    assert build.flags("mmu_step_prof") == \
+        build.flags("mmu_step") + ("-DMMU_PROFILE",)
+    assert "-fmad=false" in build.flags("mmu_step")
+    assert build.library_path("mmu_step_prof") != \
+        build.library_path("mmu_step")
 
 
 def test_params_accept_a_consistent_state():
