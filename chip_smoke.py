@@ -25,15 +25,19 @@ parallel, and drives its three paths on the card:
   all on the bf16 tensor-core kernel; one paged launch per layer per
   step), checked against the plain path and timed, with the flash
   kernel's registers, shared memory and TFLOP/s;
-- serving mamba2-2.7b (phases 9-11): the ``ssd_intra`` kernel against its
-  plain version in both roundings at the JAX test's shapes, the smoke
-  config's and the full prefill's (B and C per group, x strided as the
-  model holds it); the model at full width, 2 layers, against the JAX
+- serving mamba2-2.7b (phases 9-11): the ``ssd_intra`` kernels (bf16 in
+  ``model`` rounding on the tensor cores, every other call on the CUDA
+  cores; each call checked to have taken its route) against their plain
+  version in both roundings at the JAX test's shapes, the smoke config's,
+  the tensor-core kernel's edges and the full prefill's (B and C per
+  group, x strided as the model holds it); the model at full width, 2
+  layers, against the JAX
   snapshot ``tests/golden/torch_mamba2_fullwidth.json``, and in float32
   its chunked forward against the token-by-token recurrence; then at
   full width and depth, 8 requests x 512 prompt tokens (one ssd_intra
-  launch per layer) and 64 greedy decode steps from ``init_cache``,
-  counted, checked against the plain path and timed.
+  launch per layer, all on the tensor-core kernel) and 64 greedy decode
+  steps from ``init_cache``, counted, checked against the plain path and
+  timed, with the kernel's registers, shared memory and TFLOP/s.
 
 Any failed check raises, so the exit code is non-zero; no phase's
 failure is caught.  With no CUDA device, or without the repository around it, it
@@ -750,9 +754,12 @@ def serving_path(dev, flash_log):
 
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}  # test_kernels_ssd.py
 # (T, q, G, r, p, n): tests/test_kernels_ssd.py's shapes (B and C per
-# head), mamba2-2.7b's smoke prefill (2 x 32 tokens), its full prefill
+# head), mamba2-2.7b's smoke prefill (2 x 32 tokens), a shape off the
+# tensor-core kernel's 8-element chunks (bf16 `model` on the CUDA cores),
+# one at that kernel's edges (13 heads, 2 groups), the full prefill
 SSD_SHAPES = [(2, 32, 4, 1, 16, 16), (1, 64, 2, 1, 32, 32),
               (3, 16, 8, 1, 8, 16), (8, 8, 1, 8, 16, 16),
+              (2, 40, 2, 5, 20, 36), (3, 128, 2, 13, 64, 128),
               (32, 128, 1, 80, 64, 128)]
 # full-width logits against the JAX snapshot: bf16 logits of size ~4,
 # where a bf16 ulp is 3.1e-2 (the port's plain path on a CPU: 2.1e-2)
@@ -786,16 +793,32 @@ def ssd_inputs(T, q, G, r, p, n, dtype, dev, rng):
             torch.from_numpy((dt * A).astype(np.float32)).to(dev), B, C)
 
 
-def ssd_bound_ms(x, B, out_dtype):
-    """Least time of the intra-chunk block on these inputs: x, B, C, dt
-    and dA read once and y, S written once over the memory rate; or the
-    operations the causal block needs (CB's lower triangle per group, the
-    lower-triangular W @ x and B^T @ x per head) over the peak rate of the
-    dtype."""
+def ssd_route(dtype, mode, n, p):
+    """The kernel a call should run (the rule ssd_scan.kernel_for
+    documents): bf16 `model` with n and p in whole 8-element chunks on the
+    tensor cores, everything else on the CUDA cores."""
+    if dtype == torch.bfloat16 and mode == "model" and n % 8 == 0 \
+            and p % 8 == 0:
+        return "mma_bf16"
+    return "fma_f32"
+
+
+def ssd_ops(x, B):
+    """Operations the causal block needs: CB's lower triangle per group,
+    the lower-triangular W @ x and B^T @ x per head."""
     T, q, R, p = x.shape
     G, n = B.shape[2], B.shape[3]
     tri = q * (q + 1) // 2
-    ops_ = 2 * T * (G * tri * n + R * tri * p + R * q * n * p)
+    return 2 * T * (G * tri * n + R * tri * p + R * q * n * p)
+
+
+def ssd_bound_ms(x, B, out_dtype):
+    """Least time of the intra-chunk block on these inputs: x, B, C, dt
+    and dA read once and y, S written once over the memory rate; or
+    ssd_ops over the peak rate of the dtype."""
+    T, q, R, p = x.shape
+    G, n = B.shape[2], B.shape[3]
+    ops_ = ssd_ops(x, B)
     out = torch.empty((), dtype=out_dtype).element_size()
     nbytes = (x.numel() * x.element_size() + 2 * T * q * G * n
               * B.element_size() + 2 * 4 * T * q * R
@@ -807,24 +830,34 @@ def ssd_bound_ms(x, B, out_dtype):
 
 
 def ssd_vs_plain(dev):
-    """Phase 9: the ssd_intra kernel against its plain version on the
-    card, both roundings, float32 and bf16.  Returns the max abs error."""
+    """Phase 9: the ssd_intra kernels against their plain version on the
+    card, both roundings, float32 and bf16, each call checked to have run
+    the kernel of its route.  Returns the max abs error."""
     from repro_torch.kernels import ref, ssd_scan
 
     rng = np.random.default_rng(2)
     worst = 0.0
+    routes = {k: 0 for k in ssd_scan.LAUNCHES_BY_KERNEL}
     for T, q, G, r, p, n in SSD_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             x, dtv, dA, B, C = ssd_inputs(T, q, G, r, p, n, dt, dev, rng)
             for mode in ("pallas", "model"):
+                before = dict(ssd_scan.LAUNCHES_BY_KERNEL)
                 y, S = ssd_scan.ssd_intra(x, dtv, dA, B, C, mode=mode)
-                wy, wS = ref.ssd_intra_plain(x, dtv, dA, B, C, mode=mode)
+                ran = [k for k, v in ssd_scan.LAUNCHES_BY_KERNEL.items()
+                       if v != before[k]]
+                want = ssd_route(dt, mode, n, p)
                 what = f"ssd_intra {T, q, G, r, p, n} {str(dt)[6:]} {mode}"
+                if ran != [want]:
+                    raise AssertionError(f"{what} ran {ran}, not {want}")
+                routes[want] += 1
+                wy, wS = ref.ssd_intra_plain(x, dtv, dA, B, C, mode=mode)
                 err = max(close(y, wy, SSD_TOL[dt], what + " y"),
                           close(S, wS, SSD_TOL[dt], what + " S"))
                 worst = max(worst, err)
-                print(f"{what}: max abs err {err:.3g} (tolerance "
+                print(f"{what} [{want}]: max abs err {err:.3g} (tolerance "
                       f"{SSD_TOL[dt]}; y {str(y.dtype)[6:]})")
+    print(f"calls by kernel: {routes}")
     return worst
 
 
@@ -916,11 +949,11 @@ def mamba2_dt_a_init(params, gen):
         mx.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
 
 
-def mamba2_serving(dev):
+def mamba2_serving(dev, ssd_log):
     """Phase 11: mamba2-2.7b at full width and depth serves SSM_B
     requests: prefill of SSM_PROMPT tokens, then SSM_STEPS greedy decode
     steps from init_cache (the reference's ssm prefill returns no
-    cache)."""
+    cache).  `ssd_log` is the ssd_scan build's nvcc output."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -975,13 +1008,19 @@ def mamba2_serving(dev):
     torch.cuda.reset_peak_memory_stats()
     finite = torch.ones((), dtype=torch.bool, device=dev)
     ssd_scan.LAUNCHES = 0
+    for k in ssd_scan.LAUNCHES_BY_KERNEL:
+        ssd_scan.LAUNCHES_BY_KERNEL[k] = 0
     t0 = time.perf_counter()
     lg, cache = m.prefill(params, prompt)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = dict(ssd_scan.LAUNCHES_BY_KERNEL)
     if ssd_scan.LAUNCHES != cfg.n_layers or cache is not None:
         raise AssertionError(f"prefill launched ssd_intra "
                              f"{ssd_scan.LAUNCHES} times")
+    if by_kernel != {"mma_bf16": cfg.n_layers, "fma_f32": 0}:
+        raise AssertionError(f"prefill launches by kernel: {by_kernel}, "
+                             f"not all {cfg.n_layers} on mma_bf16")
     finite &= torch.isfinite(lg).all()
     cache = m.init_cache(SSM_B, SSM_PROMPT + SSM_STEPS)
     t0 = time.perf_counter()
@@ -1002,7 +1041,8 @@ def mamba2_serving(dev):
           f"tokens, {SSM_B * SSM_PROMPT * 1e3 / prefill_ms:,.0f} tokens/s), "
           f"decode {decode_ms:.3f} ms per step, "
           f"{SSM_B * 1e3 / decode_ms:,.0f} tokens/s over {SSM_STEPS} steps; "
-          f"ssd_intra launches {launches}; logits finite; peak device memory "
+          f"ssd_intra launches {launches} {by_kernel}; logits finite; peak "
+          f"device memory "
           f"{peak:.2f} GiB")
     print(f"decode: the host enqueued a step every {enqueue_ms:.3f} ms "
           f"(the card then needed {SSM_STEPS * (decode_ms - enqueue_ms):.2f}"
@@ -1048,12 +1088,21 @@ def mamba2_serving(dev):
             x, dtv, dA, B, C, mode="model"), reps=5),
         "library_ms": None}
     ssd["bound_ms"], ssd["bound_by"] = ssd_bound_ms(x, B, torch.float32)
+    ssd["tflops"] = ssd_ops(x, B) / (ssd["ms"] * 1e-3) / 1e12
     print(f"ssd_intra: {ssd['ms']:.4f} ms per launch, plain "
           f"{ssd['plain_ms']:.4f} ms, bound {ssd['bound_ms']:.5f} ms "
           f"({ssd['bound_by']}); no single PyTorch call computes it")
+    print(f"ssd_intra (mma_bf16): {ptxas_usage(ssd_log, 'ssd_mma')}; "
+          f"{ssd_scan.smem_bytes('mma_bf16', q, cfg.ssm_state, cfg.ssm_headdim)}"
+          f" bytes of dynamic shared memory a block, "
+          f"{ssd_scan.HEADS_PER_BLOCK['mma_bf16']} heads a block; "
+          f"{ssd['tflops']:.1f} TFLOP/s on the {ssd_ops(x, B) / 1e9:.2f} "
+          f"GFLOP of causal work, {ssd['bound_ms'] / ssd['ms']:.1%} of the "
+          f"bound")
     print(f"share: ssd_intra {cfg.n_layers * ssd['ms'] / prefill_ms:.1%} of "
           f"the prefill")
-    return {"launches": launches, "ssd": ssd,
+    return {"launches": launches, "launches_by_kernel": by_kernel,
+            "ssd": ssd,
             "unit": f"mamba2-2.7b prefill: T={T} chunks of {q}, R="
                     f"{cfg.ssm_heads} heads of {cfg.ssm_headdim}, G="
                     f"{cfg.ssm_groups}, n={cfg.ssm_state}, bf16, model "
@@ -1368,7 +1417,8 @@ def main() -> int:
     print(f"phase 8: {time.perf_counter() - t:.1f} s")
 
     # ------------------------------------------------------------ 9
-    t = phase("9. ssd_intra kernel against its plain version, on the card")
+    t = phase("9. ssd_intra kernels against their plain version, on the "
+              "card")
     ssd_err = ssd_vs_plain(dev)
     print(f"phase 9: {time.perf_counter() - t:.1f} s")
 
@@ -1383,7 +1433,7 @@ def main() -> int:
     t = phase(f"11. serving path: mamba2-2.7b, full width and depth, "
               f"{SSM_B} requests x {SSM_PROMPT} prompt tokens, {SSM_STEPS} "
               f"decode steps")
-    mamba = mamba2_serving(dev)
+    mamba = mamba2_serving(dev, builds["ssd_scan"]["log"])
     print(f"phase 11: {time.perf_counter() - t:.1f} s")
 
     shape = {"flash_attention": f"granite-3-2b prefill: B={SERVE_B}, "
@@ -1426,7 +1476,9 @@ def main() -> int:
         "name": "ssd_intra", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:49",
-        "launches": mamba["launches"], "max_abs_err": ssd_err,
+        "launches": mamba["launches"],
+        "launches_by_kernel": mamba["launches_by_kernel"],
+        "max_abs_err": ssd_err,
         **mamba["ssd"], "unit": mamba["unit"], "matches_plain": True}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

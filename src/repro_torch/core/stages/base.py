@@ -36,16 +36,17 @@ WALK_HIST_BUCKETS = 64  # 10-cycle buckets for the Fig.4 PTW latency CDF
 
 # SimConfig values this slice simulates; anything else names the ROADMAP
 # queue item that ports it
+_STAGES = "Queue 1, the stages the paper's figures need"
 _SUPPORTED = {
-    "l3tlb_sets": (0, "Queue 1 item 4 (the other stages)"),
-    "pom": (False, "Queue 1 item 4 (the other stages)"),
-    "utopia": (False, "Queue 1 item 4 (the other stages)"),
-    "revelator": (False, "Queue 1 item 4 (the other stages)"),
-    "virt": (False, "Queue 1 item 4 (the other stages)"),
-    "n_cores": (1, "Queue 1 item 4 (multicore)"),
-    "shared_tier_stats": (False, "Queue 1 item 4 (multicore)"),
-    "dram_cache_sets": (0, "Queue 1 item 4 (the DRAM-cache gate)"),
-    "collect": (False, "Queue 1 item 4 (collect_feats)"),
+    "l3tlb_sets": (0, _STAGES + " (l3_tlb)"),
+    "pom": (False, _STAGES + " (pom)"),
+    "utopia": (False, "Queue 1, Utopia and Revelator"),
+    "revelator": (False, "Queue 1, Utopia and Revelator"),
+    "virt": (False, _STAGES + " (nested)"),
+    "n_cores": (1, "Queue 1, Multicore"),
+    "shared_tier_stats": (False, "Queue 1, Multicore"),
+    "dram_cache_sets": (0, "Queue 1, Multicore (the DRAM-cache gate)"),
+    "collect": (False, _STAGES + " (collect_feats)"),
 }
 
 

@@ -37,19 +37,20 @@ REGISTRY: dict[str, System] = {}
 
 # reference systems not simulated here yet -> the ROADMAP.md item that
 # ports them
-_LATER_STAGES = "Queue 1 item 4 (the other stages)"
-_LATER_MULTICORE = "Queue 1 item 4 (multicore and the DRAM-cache gate)"
+_LATER_STAGES = "Queue 1, the stages the paper's figures need"
+_LATER_UR = "Queue 1, Utopia and Revelator"
+_LATER_MULTICORE = "Queue 1, Multicore"
 LATER: dict[str, str] = {
     "pom": _LATER_STAGES,
     "l3tlb_64k_15": _LATER_STAGES, "l3tlb_64k_24": _LATER_STAGES,
     "l3tlb_64k_39": _LATER_STAGES,
-    "radix_collect": "Queue 1 item 4 (collect_feats)",
-    "utopia": _LATER_STAGES, "utopia_victima": _LATER_STAGES,
-    "utopia_rs8": _LATER_STAGES, "utopia_rs32": _LATER_STAGES,
-    "revelator": _LATER_STAGES, "revelator_victima": _LATER_STAGES,
+    "radix_collect": _LATER_STAGES + " (collect_feats)",
+    "utopia": _LATER_UR, "utopia_victima": _LATER_UR,
+    "utopia_rs8": _LATER_UR, "utopia_rs32": _LATER_UR,
+    "revelator": _LATER_UR, "revelator_victima": _LATER_UR,
     "np": _LATER_STAGES, "victima_virt": _LATER_STAGES,
-    "pom_virt": _LATER_STAGES, "utopia_virt": _LATER_STAGES,
-    "revelator_virt": _LATER_STAGES, "isp": _LATER_STAGES,
+    "pom_virt": _LATER_STAGES, "utopia_virt": _LATER_UR,
+    "revelator_virt": _LATER_UR, "isp": _LATER_STAGES,
     **{f"{k}_{c}c": _LATER_MULTICORE
        for k in ("radix", "victima", "pom", "victima_dramc")
        for c in (1, 2, 4)},

@@ -24,6 +24,9 @@ Tolerances:
 - The full-width snapshot (bf16 logits of size ~4, where a bf16 ulp is
   3.1e-2): 5e-2 on the top-8 logits and the logsumexp; 2.1e-2 measured
   for the port's plain path on a CPU.
+- The tensor-core kernel's split of B * w into two bf16 (hi, lo): exact;
+  S summed through it against the plain version's: the float32
+  summation bound 4 q 2^-24 sum_j |B w| |x|.
 """
 import dataclasses
 import json
@@ -166,6 +169,150 @@ def test_ssd_intra_refuses_what_it_cannot_take():
         ssd_scan.ssd_intra(x, dt, dA, B, C, mode="tpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
         ssd_scan.launch(x, dt, dA, B, C)
+
+
+def _mamba2_operands(T=1, dtype=torch.bfloat16):
+    """x, B and C as ``ssm_apply`` views them in mamba2-2.7b's convolution
+    output (token stride conv_dim), and the y and S the wrapper makes."""
+    cfg = tconfigs.get_config(ARCH)
+    G, N, H, P, q = (cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads,
+                     cfg.ssm_headdim, cfg.ssm_chunk)
+    di = cfg.d_inner
+    xbc = torch.zeros((1, T * q, di + 2 * G * N), dtype=dtype)
+    x, B, C = torch.split(xbc, [di, G * N, G * N], dim=-1)
+    x = x.view(1, T * q, G, H // G, P).view(T, q, H, P)
+    B, C = B.view(T, q, G, N), C.view(T, q, G, N)
+    y = torch.empty((T, q, H, P))
+    S = torch.empty((T, H, N, P))
+    return x, B, C, y, S
+
+
+def _route(x, B, C, y, S, mode="model", ptr_shift=0):
+    T, q, R, p = x.shape
+    return ssd_scan.kernel_for(
+        x.dtype, mode, q, B.shape[3], p,
+        [t.stride(d) for t in (x, B, C, y, S) for d in (0, 1, 2)],
+        [(t.data_ptr() + ptr_shift) % 16 for t in (x, B, C, y, S)])
+
+
+@pytest.mark.parametrize("dtype,mode,want", [
+    (torch.bfloat16, "model", "mma_bf16"),   # the mamba2 prefill's call
+    (torch.bfloat16, "pallas", "fma_f32"),   # float32 weights
+    (torch.float32, "model", "fma_f32"),
+    (torch.float32, "pallas", "fma_f32")])
+def test_kernel_for_routes_mamba2s_call(dtype, mode, want):
+    x, B, C, y, S = _mamba2_operands(dtype=dtype)
+    assert x.stride(1) == B.stride(1) == 5376  # conv_dim: 16-byte rows
+    assert _route(x, B, C, y, S, mode) == want
+
+
+@pytest.mark.parametrize("q,n,p,want", [
+    (128, 128, 64, "mma_bf16"), (100, 40, 24, "mma_bf16"),
+    (8, 16, 16, "mma_bf16"), (1, 8, 8, "mma_bf16"),
+    (40, 36, 20, "fma_f32"), (64, 128, 20, "fma_f32"),
+    (64, 36, 64, "fma_f32")])
+def test_kernel_for_routes_shapes(q, n, p, want):
+    """bf16 ``model`` calls go to the tensor cores while n and p are whole
+    8-element chunks (any q: the tiles are zero-filled), else to the FMA
+    kernel."""
+    R = 2
+    x = torch.zeros((1, q, R, p), dtype=torch.bfloat16)
+    B = C = torch.zeros((1, q, 1, n), dtype=torch.bfloat16)
+    y, S = torch.empty((1, q, R, p)), torch.empty((1, R, n, p))
+    assert _route(x, B, C, y, S) == want
+
+
+def test_kernel_for_refuses_what_neither_kernel_takes():
+    x, B, C, y, S = _mamba2_operands()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _route(x, B, C, y, S, ptr_shift=2)
+    xbc = torch.zeros((1, 128, 5377), dtype=torch.bfloat16)
+    xo = xbc[..., :5120].view(1, 128, 80, 64)
+    Bo, Co = (xbc[..., k:k + 128].view(1, 128, 1, 128) for k in (5120, 5248))
+    with pytest.raises(ValueError, match="16-byte units"):
+        _route(xo, Bo, Co, y[:1], S[:1])
+    # the FMA kernel reads element by element: any stride, any pointer
+    assert _route(xo.float(), Bo.float(), Co.float(), y[:1], S[:1]) \
+        == "fma_f32"
+    with pytest.raises(TypeError, match="takes"):
+        ssd_scan.kernel_for(torch.float16, "model", 128, 128, 64, [8] * 15,
+                            [0] * 5)
+    with pytest.raises(ValueError, match="q <= 128"):
+        ssd_scan.kernel_for(torch.bfloat16, "model", 256, 128, 64,
+                            [8] * 15, [0] * 5)
+    with pytest.raises(ValueError, match="mode"):
+        ssd_scan.kernel_for(torch.bfloat16, "tpu", 128, 128, 64, [8] * 15,
+                            [0] * 5)
+
+
+def _mamba2_ranges(T, q, R, rng):
+    """dt and dA in Mamba-2's ranges (dt log-uniform in [1e-3, 1e-1] times
+    a head's [0.5, 20], A in [-16, -1]), so that the decays reach the clip
+    at exp(-60); as the card tests draw them."""
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (T, q, R))) \
+        * rng.uniform(0.5, 20.0, (1, 1, R))
+    A = -rng.uniform(1.0, 16.0, R)
+    return dt.astype(np.float32), (dt * A).astype(np.float32)
+
+
+def _split(v):
+    """v (float32) as hi + lo, both bf16: the mma kernel's split of B * w."""
+    hi = v.bfloat16()
+    return hi, (v - hi.float()).bfloat16()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bw_split_into_two_bf16_is_exact(seed):
+    """B * w, a product of two bf16 (w = rnd(decay_end * dt)), has at most
+    16 significant bits, so hi = bf16(B * w) and lo = bf16(B * w - hi)
+    hold it exactly; one bf16 would not.  Decays from 1 down to the clip
+    at exp(-60), dt over Mamba-2's range, B over six decades."""
+    rng = np.random.default_rng(seed)
+    m = 1 << 14
+    decay = np.exp(-np.concatenate([[60.0, 0.0], rng.uniform(0, 60, m - 2)]))
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), m)) \
+        * rng.uniform(0.5, 20.0, m)
+    w = torch.from_numpy((decay * dt).astype(np.float32)).bfloat16()
+    B = torch.from_numpy((rng.standard_normal(m) * 10.0 ** rng.uniform(
+        -3, 3, m)).astype(np.float32)).bfloat16()
+    v = B.float() * w.float()
+    assert torch.equal(v.double(), B.double() * w.double())  # exact product
+    hi, lo = _split(v)
+    assert torch.equal(lo.float(), v - hi.float())
+    assert torch.equal(hi.float() + lo.float(), v)
+    assert bool((hi.float() != v).any())
+
+
+@pytest.mark.parametrize("T,q,G,r,p,n", [(2, 128, 1, 3, 64, 128),
+                                         (3, 48, 2, 2, 16, 32)])
+def test_model_state_through_the_bw_split(T, q, G, r, p, n):
+    """S in ``model`` rounding summed as the mma kernel sums it, hi^T x +
+    lo^T x into one float32 sum, equals ``ref.ssd_intra_plain``'s S
+    within float32 sum-order error: |err| <= 4 q 2^-24 sum_j |B w| |x|
+    (the plain q-term sum and the split's 2q-term sum, each within
+    gamma_2q of that magnitude)."""
+    rng = np.random.default_rng(3)
+    R = G * r
+    x = torch.from_numpy(rng.standard_normal((T, q, R, p), dtype=np.float32)
+                         ).bfloat16()
+    B, C = (torch.from_numpy(rng.standard_normal(
+        (T, q, G, n), dtype=np.float32)).bfloat16() for _ in range(2))
+    dt, dA = (torch.from_numpy(a) for a in _mamba2_ranges(T, q, R, rng))
+    _, want = tref.ssd_intra_plain(x, dt, dA, B, C, mode="model")
+    cs = torch.cumsum(dA, 1)
+    w = (torch.exp(torch.clamp(cs[:, -1:] - cs, -60.0, 0.0)) * dt
+         ).bfloat16().float()                                   # [T,q,R]
+    assert float(w.min()) < 1e-20  # decays at the clip
+    Bw = B.float().repeat_interleave(r, dim=2) * w[..., None]   # [T,q,R,n]
+    hi, lo = _split(Bw)
+    xf = x.float()
+    got = torch.einsum("tqrn,tqrp->trnp", torch.cat([hi.float(), lo.float()],
+                                                    1),
+                       torch.cat([xf, xf], 1))
+    bound = 4 * q * 2.0 ** -24 * torch.einsum("tqrn,tqrp->trnp", Bw.abs(),
+                                              xf.abs())
+    assert bool(((got - want).abs() <= bound).all())
+    assert not torch.equal(hi.float(), Bw)  # the split mattered
 
 
 # ---------------------------------------------------------------- the mixer
