@@ -16,15 +16,20 @@ parallel, and drives its three paths on the card:
 - serving granite-3-2b (phases 6-8): the ``flash_attention`` (prefill;
   bf16 on the tensor cores, float32 on the CUDA cores, each call
   checked to have taken its dtype's kernel) and ``paged_attention``
-  (decode) kernels against their plain versions at the JAX tests'
-  shapes, granite's, and bf16 at hd 128, with windows, ragged S != Sk
-  and the model's strided views; the model at full width, 2 layers,
+  (decode; each case in the form its plan picks and in the other) kernels
+  against their plain versions at the JAX tests' shapes, granite's, and
+  bf16 at hd 128, with windows, ragged S != Sk and the model's strided
+  views, the paged kernel also at hd 128 and 256, ragged clusters and
+  qwen3-32b's 4096-token geometry; the model at full width, 2 layers,
   against the JAX snapshot ``tests/golden/torch_granite_fullwidth.json``;
   then at full width and depth, 8 requests x 512 prompt tokens and 64
   greedy decode steps, counted (one flash launch per layer per prefill,
   all on the bf16 tensor-core kernel; one paged launch per layer per
-  step), checked against the plain path and timed, with the flash
-  kernel's registers, shared memory and TFLOP/s;
+  step, all in its plan's form), checked against the plain path and
+  timed, with the flash kernel's registers, shared memory and TFLOP/s,
+  and the paged kernel's warm, rotated over the 40 layers' caches, in
+  its other form, and at qwen3-32b's and recurrentgemma-2b's decode
+  geometries beside SDPA;
 - serving mamba2-2.7b (phases 9-11): the ``ssd_intra`` kernels (bf16 in
   ``model`` rounding on the tensor cores, every other call on the CUDA
   cores; each call checked to have taken its route) against their plain
@@ -287,10 +292,26 @@ FLASH_KERNEL = {torch.float32: "fma_f32", torch.bfloat16: "mma_bf16"}
 # 700 W; PERF.md's kernel table); printed on a line of its own, never in
 # the kernels line, whose numbers are all this run's
 QUOTED_CUDA_CORE_FLASH_MS = 1.0821
-# tests/test_kernels_paged.py's shapes, then granite-3-2b's decode (a
-# cache of 1024 positions in pages of 128)
-PAGED_SHAPES = [(2, 4, 2, 64, 64, 4, 16), (1, 8, 1, 32, 32, 8, 16),
-                (4, 4, 4, 16, 16, 2, 32), (8, 32, 8, 64, 128, 8, 64)]
+# (B, H, K, hd, page, nb, P, lens): tests/test_kernels_paged.py's
+# shapes, granite-3-2b's decode (a cache of 1024 positions in pages of
+# 128), hd 128 at G 7 (qwen2-vl-7b) and G 8, hd 256 at G 10 on one kv head
+# (recurrentgemma-2b), a ragged batch whose lens leave whole CTAs of a
+# 16-CTA cluster empty, lens == nb * page, and qwen3-32b's decode
+# geometry at 4096 tokens; lens None draws them in [1, nb * page)
+PAGED_SHAPES = [(2, 4, 2, 64, 64, 4, 16, None), (1, 8, 1, 32, 32, 8, 16, None),
+                (4, 4, 4, 16, 16, 2, 32, None),
+                (8, 32, 8, 64, 128, 8, 64, None),
+                (2, 14, 2, 128, 64, 4, 16, None),
+                (2, 16, 2, 128, 64, 4, 16, None),
+                (4, 10, 1, 256, 64, 8, 32, None),
+                (4, 8, 2, 64, 64, 16, 64, (1, 65, 130, 1000)),
+                (2, 8, 2, 64, 64, 4, 8, (256, 256)),
+                (8, 64, 8, 128, 128, 32, 256, (4096,) * 8)]
+# decode geometries of the dense configs the paged kernel now takes,
+# timed in phase 8 beside SDPA: (name, B, H, K, hd, page, nb, lens)
+PAGED_LONG = [("qwen3-32b", 8, 64, 8, 128, 128, 32, 4096),
+              ("recurrentgemma-2b", 8, 10, 1, 256, 128, 16, 2048)]
+FORM = {True: "cluster", False: "two_pass"}   # plan().clustered -> name
 SNAP_TOL = 2e-2        # full-width logits against the JAX snapshot
 # kernel path against plain path, bf16 logits at full depth: the flash
 # kernel rounds p to bf16 where the plain version does not, and 40 layers
@@ -404,22 +425,50 @@ def attention_vs_plain(dev):
               f"{str(dt)[6:]} causal={causal} window={window}"
               f"{' [B,S,H,hd] views' if layout else ''}: max abs err "
               f"{err:.3g} (tolerance {tol})")
-    for B, H, K, hd, page, nb, P in PAGED_SHAPES:
+    # the cluster slots the planner assumes, against the card's own count
+    for hd in (64, 128):
+        card = pa.clusters_on_card(hd)
+        if any(card[s] < n for s, n in pa.CLUSTER_SLOTS.items()):
+            raise AssertionError(f"the card holds {card} clusters of each "
+                                 f"size at hd {hd}, the plan assumes "
+                                 f"{pa.CLUSTER_SLOTS}")
+        print(f"paged clusters held at once (cudaOccupancyMaxActiveClusters, "
+              f"bf16, hd {hd}), by CTAs a cluster: {card}; the plan assumes "
+              f"{pa.CLUSTER_SLOTS}")
+    for B, H, K, hd, page, nb, P, given in PAGED_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             q = draw((B, H, hd), dt)
             kp, vp = draw((P, page, K, hd), dt), draw((P, page, K, hd), dt)
             tables = torch.from_numpy(rng.permutation(P)[:B * nb].reshape(
                 B, nb).astype(np.int32)).to(dev)
-            lens = torch.from_numpy(rng.integers(1, nb * page, size=B).astype(
-                np.int32)).to(dev)
+            lens = rng.integers(1, nb * page, size=B) if given is None \
+                else np.asarray(given)
+            lens = torch.from_numpy(lens.astype(np.int32)).to(dev)
+            pl = pa.plan(B, K, nb, page, hd, H // K, dt)
+            form = FORM[pl.clustered]
+            before, by = pa.LAUNCHES, pa.LAUNCHES_BY_FORM[form]
             got = pa.paged_attention(q, kp, vp, tables, lens)
+            if pa.LAUNCHES != before + 1 \
+                    or pa.LAUNCHES_BY_FORM[form] != by + 1:
+                raise AssertionError(f"paged {B, H, K, hd} did not launch "
+                                     f"the {form} form")
             want = ref.paged_attention_reference(q, kp, vp, tables, lens)
             tol = TOL.get(dt, PAGED_BF16_TOL)
             err = close(got, want, tol, f"paged {B, H, K, hd, page, nb, P}")
-            errs["paged_attention"] = max(errs["paged_attention"], err)
+            # the other form, forced (the comparison phase 8 times)
+            other = close(pa.launch(q, kp, vp, tables, lens,
+                                    clustered=not pl.clustered), want, tol,
+                          f"paged {B, H, K, hd, page, nb, P} "
+                          f"{FORM[not pl.clustered]}")
+            errs["paged_attention"] = max(errs["paged_attention"], err,
+                                          other)
             print(f"paged B={B} H={H} K={K} hd={hd} page={page} nb={nb} "
                   f"P={P} {str(dt)[6:]}, permuted pool, lens "
-                  f"{lens.tolist()}: max abs err {err:.3g} (tolerance {tol})")
+                  f"{lens.tolist()}; plan {form} form, {pl.splits} CTAs a "
+                  f"(request, kv head), {B * K * pl.splits} CTAs of "
+                  f"{pl.smem_bytes} bytes of shared memory: max abs err "
+                  f"{err:.3g}, the {FORM[not pl.clustered]} form's "
+                  f"{other:.3g} (tolerance {tol})")
     return errs
 
 
@@ -520,11 +569,17 @@ def ptxas_usage(log: str, entry: str) -> str:
     return "; ".join(out)
 
 
-def serving_path(dev, flash_log):
+def paged_entry(hd: int, clustered: bool) -> str:
+    """The mangled-name part of the bf16 paged kernel at width hd in the
+    form ``clustered`` picks (``ptxas_usage``'s entry)."""
+    return f"paged_kernelI13__nv_bfloat16S1_Li{hd}ELb{int(not clustered)}E"
+
+
+def serving_path(dev, flash_log, paged_log):
     """Phase 8: granite-3-2b at full width and depth serves SERVE_B
     requests: prefill of SERVE_PROMPT tokens, SERVE_STEPS greedy decode
-    steps over a cache of SERVE_CACHE positions.  `flash_log` is the
-    flash_attention build's nvcc output."""
+    steps over a cache of SERVE_CACHE positions.  `flash_log` and
+    `paged_log` are the two attention builds' nvcc output."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -578,6 +633,7 @@ def serving_path(dev, flash_log):
     finite = torch.ones((), dtype=torch.bool, device=dev)
     fa.LAUNCHES = pa.LAUNCHES = 0
     fa.LAUNCHES_BY_KERNEL.update(mma_bf16=0, fma_f32=0)
+    pa.LAUNCHES_BY_FORM.update(cluster=0, two_pass=0)
     t0 = time.perf_counter()
     lg, cache = m.prefill(params, prompt, cache)
     prefill_enqueue_ms = (time.perf_counter() - t0) * 1e3
@@ -607,6 +663,15 @@ def serving_path(dev, flash_log):
     decode_ms = (time.perf_counter() - t0) * 1e3 / SERVE_STEPS
     launches = {"flash_attention": fa.LAUNCHES,
                 "paged_attention": pa.LAUNCHES}
+    plan = pa.plan(SERVE_B, cfg.n_kv_heads, SERVE_CACHE // m.page, m.page,
+                   cfg.hd, cfg.n_heads // cfg.n_kv_heads)
+    want = {"cluster": 0, "two_pass": 0}
+    want[FORM[plan.clustered]] = pa.LAUNCHES
+    if pa.LAUNCHES_BY_FORM != want:
+        raise AssertionError(f"decode's paged launches went to "
+                             f"{pa.LAUNCHES_BY_FORM}, not all to the "
+                             f"plan's {FORM[plan.clustered]} form")
+    print(f"decode: paged launches by form {pa.LAUNCHES_BY_FORM}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not bool(finite):
         raise AssertionError("non-finite logits on the serving path")
@@ -740,6 +805,96 @@ def serving_path(dev, flash_log):
                 qd[:, :, None], kg, vg, attn_mask=mask))}
     paged["bound_ms"], paged["bound_by"] = paged_bound_ms(qd, kp, tables,
                                                           lens)
+    pl = pa.plan(SERVE_B, K, nb, m.page, hd, H // K)
+    paged["plan"] = {"form": FORM[pl.clustered], "splits": pl.splits,
+                     "ctas": SERVE_B * K * pl.splits,
+                     "smem_bytes": pl.smem_bytes}
+    # the same launch over each layer's cache in turn, as a decode step
+    # makes it: 40 x 9.4 MB of K/V rows, past the 50 MB L2
+    layer_pages = [(cache["k"][i].view(SERVE_B * nb, m.page, K, hd),
+                    cache["v"][i].view(SERVE_B * nb, m.page, K, hd))
+                   for i in range(cfg.n_layers)]
+    turn = [0]
+
+    def rotated():
+        kp_, vp_ = layer_pages[turn[0] % cfg.n_layers]
+        turn[0] += 1
+        return pa.paged_attention(qd, kp_, vp_, tables, lens)
+    paged["rotated_ms"] = device_ms(rotated, reps=4 * cfg.n_layers)
+    # the other form of the merge on the same inputs: the design
+    # comparison (cluster: one launch, merged in distributed shared
+    # memory; two-pass: partials through device memory, a second kernel)
+    other = FORM[not pl.clustered]
+    paged[f"{other}_ms"] = device_ms(lambda: pa.launch(
+        qd, kp, vp, tables, lens, clustered=not pl.clustered))
+
+    def rotated_other():
+        kp_, vp_ = layer_pages[turn[0] % cfg.n_layers]
+        turn[0] += 1
+        return pa.launch(qd, kp_, vp_, tables, lens,
+                         clustered=not pl.clustered)
+    paged[f"{other}_rotated_ms"] = device_ms(rotated_other,
+                                             reps=4 * cfg.n_layers)
+    del kg, vg, layer_pages
+    print(f"paged_attention (hd {hd}, bf16): plan {FORM[pl.clustered]} "
+          f"form, {pl.splits} CTAs a (request, kv head), "
+          f"{paged['plan']['ctas']} CTAs of {pl.smem_bytes} bytes of shared "
+          f"memory; ptxas: "
+          f"{ptxas_usage(paged_log, paged_entry(hd, pl.clustered))}"
+          f"; warm (one layer's cache) {paged['ms']:.4f} ms, rotated over "
+          f"the {cfg.n_layers} layers' caches {paged['rotated_ms']:.4f} ms "
+          f"a launch; {paged['bound_ms'] / paged['ms']:.1%} of the bound "
+          f"warm; the {other} form {paged[f'{other}_ms']:.4f} ms warm, "
+          f"{paged[f'{other}_rotated_ms']:.4f} ms rotated")
+    # the decode geometries of the dense configs the kernel now takes, on
+    # pools drawn here (permuted tables, every request at `n` tokens)
+    paged["long_context"] = {}
+    for name, B, Hx, Kx, hdx, page, nbx, n in PAGED_LONG:
+        g = np.random.default_rng(3)
+        P = B * nbx
+
+        def draw_x(shape):
+            return torch.from_numpy(g.standard_normal(
+                shape, dtype=np.float32)).to(dev).to(torch.bfloat16)
+        qx = draw_x((B, Hx, hdx))
+        kx, vx = draw_x((P, page, Kx, hdx)), draw_x((P, page, Kx, hdx))
+        tab = torch.from_numpy(g.permutation(P).reshape(B, nbx).astype(
+            np.int32)).to(dev)
+        lx = torch.full((B,), n, dtype=torch.int32, device=dev)
+        kgx, vgx = (x[tab.long()].reshape(B, nbx * page, Kx, hdx).transpose(
+            1, 2).repeat_interleave(Hx // Kx, dim=1) for x in (kx, vx))
+        mx = (torch.arange(nbx * page, device=dev)[None, :]
+              < lx[:, None])[:, None, None, :]
+        plx = pa.plan(B, Kx, nbx, page, hdx, Hx // Kx)
+        otherx = FORM[not plx.clustered]
+        r = {"ms": device_ms(lambda: pa.paged_attention(qx, kx, vx, tab,
+                                                        lx)),
+             "library_ms": device_ms(
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     qx[:, :, None], kgx, vgx, attn_mask=mx)),
+             f"{otherx}_ms": device_ms(lambda: pa.launch(
+                 qx, kx, vx, tab, lx, clustered=not plx.clustered)),
+             "form": FORM[plx.clustered], "splits": plx.splits,
+             "ctas": B * Kx * plx.splits,
+             "unit": f"B={B}, H={Hx}, K={Kx}, hd={hdx}, bf16, page {page}, "
+                     f"nb {nbx}, lens {n}"}
+        r["bound_ms"], r["bound_by"] = paged_bound_ms(qx, kx, tab, lx)
+        err = close(pa.paged_attention(qx, kx, vx, tab, lx),
+                    ref.paged_attention_reference(qx, kx, vx, tab, lx),
+                    PAGED_BF16_TOL, f"paged {name}")
+        print(f"paged_attention at {name}'s decode ({r['unit']}, "
+              f"{2 * kx.numel() * 2 / 1e6:.1f} MB of K/V): plan "
+              f"{r['form']} form, {plx.splits} CTAs a (request, kv head), "
+              f"{r['ctas']} CTAs; ptxas: "
+              f"{ptxas_usage(paged_log, paged_entry(hdx, plx.clustered))}"
+              f"; {r['ms']:.4f} ms, SDPA over the gathered cache "
+              f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x), "
+              f"the {otherx} form {r[f'{otherx}_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+              f"{r['bound_ms'] / r['ms']:.1%} of it); max abs err against "
+              f"the plain version {err:.3g}")
+        paged["long_context"][name] = r
+        del qx, kx, vx, kgx, vgx
     for name, r in (("flash_attention", flash), ("paged_attention", paged)):
         print(f"{name}: {r['ms']:.4f} ms per launch, plain {r['plain_ms']:.4f}"
               f" ms, library {r['library_ms']:.4f} ms, bound "
@@ -1413,7 +1568,8 @@ def main() -> int:
     t = phase(f"8. serving path: granite-3-2b, full width and depth, "
               f"{SERVE_B} requests x {SERVE_PROMPT} prompt tokens, "
               f"{SERVE_STEPS} decode steps")
-    serve = serving_path(dev, builds["flash_attention"]["log"])
+    serve = serving_path(dev, builds["flash_attention"]["log"],
+                         builds["paged_attention"]["log"])
     print(f"phase 8: {time.perf_counter() - t:.1f} s")
 
     # ------------------------------------------------------------ 9
@@ -1451,7 +1607,10 @@ def main() -> int:
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "library_ms": r["library_ms"], "unit": shape[name],
              "matches_plain": True,
-             **{x: r[x] for x in ("tflops",) if x in r}}
+             **{x: r[x] for x in ("tflops", "plan", "rotated_ms",
+                                  "cluster_ms", "cluster_rotated_ms",
+                                  "two_pass_ms", "two_pass_rotated_ms",
+                                  "long_context") if x in r}}
             for name, line, r in (("flash_attention", 85, serve["flash"]),
                                   ("paged_attention", 73, serve["paged"]))]
     print(smi)

@@ -106,6 +106,8 @@ def paged_inputs(B, H, K, hd, page, nb, P, dtype, seed=1):
     (2, 4, 2, 64, 64, 4, 16),
     (1, 8, 1, 32, 32, 8, 16),   # MQA
     (4, 4, 4, 16, 16, 2, 32),   # MHA
+    (2, 14, 2, 128, 16, 4, 16),  # hd 128, G 7 (qwen2-vl-7b's grouping)
+    (2, 10, 1, 256, 16, 4, 8),   # hd 256, G 10 on one kv head (recurrentgemma)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_plain_matches_jax(B, H, K, hd, page, nb, P, dtype):
@@ -161,6 +163,134 @@ def test_paged_over_contiguous_cache_is_masked_attention():
         assert_close(got[b:b + 1], want, TOL_F32)
 
 
+@pytest.mark.parametrize("B,K,nb,page,hd,G,dtype,splits,smem,clustered", [
+    # granite-3-2b's decode (capacity 1024): 64 pairs want 8 CTAs each,
+    # but only 62 clusters of 8 fit on the card at once: clusters of 4,
+    # 256 CTAs of 256 tokens of capacity each
+    (8, 8, 8, 128, 64, 4, "bfloat16", 4, 50496, True),
+    # qwen3-32b's decode geometry (capacity 4096): clusters of 4 would
+    # leave each CTA 1024 tokens, so the two-pass form at 8, 512 CTAs
+    (8, 8, 32, 128, 128, 8, "bfloat16", 8, 50496, False),
+    # recurrentgemma-2b's (capacity 2048, one kv head): 8 clusters of 16
+    # would be under a CTA an SM, so the two-pass form at 16, 128 CTAs
+    (8, 1, 16, 128, 256, 10, "bfloat16", 16, 50496, False),
+    (4, 8, 8, 128, 64, 4, "bfloat16", 8, 50496, True),   # 32 clusters of 8
+    (8, 8, 64, 128, 64, 4, "bfloat16", 8, 50496, False),  # 8192 tokens
+    (1, 1, 2, 16, 64, 4, "bfloat16", 1, 50496, True),    # under a chunk
+    (1, 1, 5, 20, 64, 4, "bfloat16", 2, 50496, False),   # nb * page = 100
+    (64, 8, 8, 128, 64, 4, "bfloat16", 1, 50496, True),  # 512 pairs
+    (8, 8, 8, 128, 16, 4, "bfloat16", 4, 13632, True),   # 4 KB stages
+    (8, 8, 8, 128, 64, 4, "float32", 4, 50496, True),
+    (2, 2, 4, 16, 16, 3, "float32", 1, 25920, True),     # one chunk
+    (2, 2, 4, 16, 256, 16, "float32", 1, 50496, True),
+])
+def test_paged_plan(B, K, nb, page, hd, G, dtype, splits, smem, clustered):
+    """The launch plan is a function of the shapes alone: the smallest
+    power of 2 of CTAs per (request, kv head) that makes two an SM (264
+    CTAs on 132 SMs), at most 16 and at most the capacity's 64-token
+    chunks; in the cluster form no more than keeps every cluster of the
+    launch on the card at once, and that form only where its CTAs fill
+    the card (one an SM) with at most 512 tokens of capacity each, or
+    where a pair is one CTA; the two-pass form at the uncapped count
+    elsewhere.  The shared memory is three K/V stages of at most 64 tokens
+    and 16 KB, and a 1344-byte tail."""
+    got = tpa.plan(B, K, nb, page, hd, G, DTYPES[dtype][1])
+    assert got == (splits, smem, clustered) and got.splits == splits
+    free = tpa._splits(B, K, nb, page, clustered=False)
+    if B * K * free < 2 * tpa.SMS:
+        assert free == tpa.MAX_SPLITS or 2 * free * tpa.CHUNK > nb * page
+    if clustered:
+        assert B * K <= tpa.CLUSTER_SLOTS[splits]
+        assert splits == 1 or (B * K * splits >= tpa.SMS and
+                               nb * page <= tpa.TWO_PASS_TOKENS * splits)
+    else:
+        assert splits == free
+
+
+def test_paged_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="head widths"):
+        tpa.plan(8, 8, 8, 128, 48, 4)
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        tpa.plan(8, 1, 8, 128, 64, 17)
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        tpa.plan(8, 1, 8, 128, 64, 0)
+    with pytest.raises(TypeError, match="K/V"):
+        tpa.plan(8, 8, 8, 128, 64, 4, torch.float16)
+
+
+def cluster_emulation(q, k_pages, v_pages, tables, lens):
+    """The kernel's split and merge, in float32 on the CPU: each (request,
+    kv head) over plan()'s CTAs, CTA r taking chunks [r*C/S, (r+1)*C/S) of
+    the C live 64-token chunks of lens[b] (clamped to nb * page), an online
+    softmax in base 2 over its tokens a chunk at a time (tokens past
+    lens[b] weigh 0; a CTA with none keeps m = -1e30, l = 0, acc = 0),
+    then the CTAs' (m, l, acc) merged as the kernel merges them (the max M
+    of the m, then l and acc weighted by 2^(m - M) and summed in rank
+    order) and divided by max(l, 1e-30)."""
+    B, H, hd = q.shape
+    P, page, K, _ = k_pages.shape
+    G, nb = H // K, tables.shape[1]
+    S = tpa.plan(B, K, nb, page, hd, G, k_pages.dtype).splits
+    scale2 = torch.tensor((1.0 / hd ** 0.5) * np.log2(np.e),
+                          dtype=torch.float32)
+    neg = torch.tensor(tref.NEG_INF, dtype=torch.float32)
+    kflat = k_pages.float().reshape(P * page, K, hd)
+    vflat = v_pages.float().reshape(P * page, K, hd)
+    out = torch.zeros(B, H, hd)
+    for b in range(B):
+        n = max(0, min(int(lens[b]), nb * page))
+        live = -(-n // tpa.CHUNK)
+        tok = torch.arange(nb * page)
+        rows = tables[b].long()[tok // page] * page + tok % page
+        for kh in range(K):
+            qs = q[b, kh * G:(kh + 1) * G].float()
+            parts = []
+            for r in range(S):
+                t0 = r * live // S * tpa.CHUNK
+                t1 = min((r + 1) * live // S * tpa.CHUNK, n)
+                m, l, acc = neg.expand(G).clone(), torch.zeros(G), \
+                    torch.zeros(G, hd)
+                for c0 in range(t0, t1, tpa.CHUNK):
+                    idx = rows[c0:min(c0 + tpa.CHUNK, t1)]
+                    s = qs @ kflat[idx, kh].T * scale2
+                    mn = torch.maximum(m, s.max(1).values)
+                    corr = torch.exp2(m - mn)
+                    p = torch.exp2(s - mn[:, None])
+                    l = l * corr + p.sum(1)
+                    acc = acc * corr[:, None] + p @ vflat[idx, kh]
+                    m = mn
+                parts.append((m, l, acc))
+            M = torch.stack([m for m, _, _ in parts]).max(0).values
+            L, A = torch.zeros(G), torch.zeros(G, hd)
+            for m, l, acc in parts:
+                f = torch.exp2(m - M)
+                L = L + l * f
+                A = A + acc * f[:, None]
+            out[b, kh * G:(kh + 1) * G] = A / torch.clamp(L, min=1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("B,H,K,hd,page,nb,P,lens", [
+    # 16 CTAs a cluster; lens 1 leaves 15 of them with no token, 70 14,
+    # and 1024 and 2000 reach and pass nb * page
+    (4, 6, 2, 16, 64, 16, 64, (1, 70, 1024, 2000)),
+    # 4 CTAs over 6 chunks (shares of 1 and 2), G 16
+    (2, 16, 1, 32, 32, 12, 24, (5, 384)),
+    # nb * page = 100, not a multiple of 64: 2 CTAs, the second ragged
+    (2, 8, 1, 64, 20, 5, 10, (100, 37)),
+    # a table shorter than one chunk: 1 CTA
+    (3, 4, 2, 16, 8, 4, 12, (32, 1, 17)),
+])
+def test_paged_split_and_merge_match_reference(B, H, K, hd, page, nb, P,
+                                               lens):
+    (_, q), (_, kp), (_, vp), tables, _ = paged_inputs(B, H, K, hd, page, nb,
+                                                       P, "float32", seed=6)
+    tables, lens = torch.from_numpy(tables), torch.tensor(lens,
+                                                          dtype=torch.int32)
+    want = tref.paged_attention_reference(q, kp, vp, tables, lens)
+    assert_close(cluster_emulation(q, kp, vp, tables, lens), want, TOL_F32)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     q = torch.zeros(1, 4, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
@@ -179,6 +309,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tpa.paged_attention(qd, pages, pages, tables[:1], lens)
     with pytest.raises(ValueError, match="fit"):
         tpa.paged_attention(qd, pages, pages[..., :8], tables, lens)
+    # the CUDA kernel's planner refuses a width and a group it does not take
+    with pytest.raises(ValueError, match="head widths"):
+        tpa.plan(2, 2, 2, 8, 48, 2)
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        tpa.plan(2, 2, 2, 8, 64, tpa.MAX_GROUP + 1)
 
 
 ALIGNED = [64 * 512, 64, 32 * 64] * 4   # b, h, s strides of q, k, v, o

@@ -147,22 +147,40 @@ def test_flash_mma_refuses_misaligned_views(cuda):
     assert fa.LAUNCHES == n and fa.LAUNCHES_BY_KERNEL == by
 
 
-@pytest.mark.parametrize("B,H,K,hd,page,nb,P", [
-    (2, 4, 2, 64, 64, 4, 16), (1, 8, 1, 32, 32, 8, 16),
-    (4, 4, 4, 16, 16, 2, 32), (8, 32, 8, 64, 128, 8, 64)])
+# (B, H, K, hd, page, nb, P, lens): lens None draws them in [1, nb*page)
+PAGED_CASES = [
+    (2, 4, 2, 64, 64, 4, 16, None), (1, 8, 1, 32, 32, 8, 16, None),
+    (4, 4, 4, 16, 16, 2, 32, None), (8, 32, 8, 64, 128, 8, 64, None),
+    (2, 14, 2, 128, 64, 4, 16, None),    # hd 128, G 7 (qwen2-vl-7b)
+    (2, 16, 2, 128, 64, 4, 16, None),    # hd 128, G 8
+    (4, 10, 1, 256, 64, 8, 32, None),    # hd 256, G 10 (recurrentgemma-2b)
+    # 16 CTAs a cluster: lens 1 and 65 leave 15 and 14 of them empty
+    (4, 8, 2, 64, 64, 16, 64, (1, 65, 130, 1000)),
+    (2, 8, 2, 64, 64, 4, 8, (256, 256)),  # lens == nb * page
+    # qwen3-32b's decode geometry: 8 x 4096 tokens, hd 128, G 8
+    (8, 64, 8, 128, 128, 32, 256, (4096,) * 8),
+]
+
+
+@pytest.mark.parametrize("B,H,K,hd,page,nb,P,lens", PAGED_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_paged_kernel_matches_plain(cuda, B, H, K, hd, page, nb, P, dtype):
+def test_paged_kernel_matches_plain(cuda, B, H, K, hd, page, nb, P, lens,
+                                    dtype):
     rng = np.random.default_rng(2)
     q = draw((B, H, hd), dtype, cuda, rng)
     kp = draw((P, page, K, hd), dtype, cuda, rng)
     vp = draw((P, page, K, hd), dtype, cuda, rng)
     tables = torch.from_numpy(rng.permutation(P)[:B * nb].reshape(B, nb)
                               .astype(np.int32)).to(cuda)
-    lens = torch.from_numpy(rng.integers(1, nb * page, size=B)
-                            .astype(np.int32)).to(cuda)
-    n = pa.LAUNCHES
+    if lens is None:
+        lens = rng.integers(1, nb * page, size=B)
+    lens = torch.from_numpy(np.asarray(lens, np.int32)).to(cuda)
+    n, by = pa.LAUNCHES, dict(pa.LAUNCHES_BY_FORM)
     got = ops.paged_attention(q, kp, vp, tables, lens)
     assert pa.LAUNCHES == n + 1
+    by["cluster" if pa.plan(B, K, nb, page, hd, H // K).clustered
+       else "two_pass"] += 1
+    assert pa.LAUNCHES_BY_FORM == by
     want = ref.paged_attention_reference(q, kp, vp, tables, lens)
     assert_close(got, want, 1e-5 if dtype == "float32" else 3e-2)
 
@@ -177,3 +195,62 @@ def test_kernels_refuse_on_the_card(cuda):
         pa.paged_attention(qd, pages, pages,
                            torch.zeros(2, 2, dtype=torch.int64, device=cuda),
                            torch.ones(2, dtype=torch.int32, device=cuda))
+    q48 = torch.zeros(2, 4, 48, device=cuda)
+    pages48 = torch.zeros(4, 8, 2, 48, device=cuda)
+    tables = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    n = pa.LAUNCHES
+    with pytest.raises(ValueError, match="head widths"):
+        pa.paged_attention(q48, pages48, pages48, tables, lens)
+    q17 = torch.zeros(2, 34, 16, device=cuda)
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        pa.paged_attention(q17, pages, pages, tables, lens)
+    assert pa.LAUNCHES == n
+
+
+def test_paged_kernel_zero_length_gives_zeros(cuda):
+    """lens[b] = 0 gives zeros, as the Pallas body does (no page of the
+    request is live); the other request is unaffected."""
+    rng = np.random.default_rng(3)
+    q = draw((2, 8, 64), "bfloat16", cuda, rng)
+    kp, vp = (draw((8, 64, 2, 64), "bfloat16", cuda, rng) for _ in range(2))
+    tables = torch.arange(8, dtype=torch.int32, device=cuda).reshape(2, 4)
+    lens = torch.tensor([0, 100], dtype=torch.int32, device=cuda)
+    got = pa.paged_attention(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    assert bool((got[0] == 0).all())
+    assert_close(got[1:], ref.paged_attention_reference(
+        q[1:], kp, vp, tables[1:], lens[1:]), 3e-2)
+
+
+@pytest.mark.parametrize("B,H,K,hd,page,nb,P,lens", [
+    c for c in PAGED_CASES if c[3] in (64, 128, 256)])
+@pytest.mark.parametrize("clustered", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_forms_match_plain(cuda, B, H, K, hd, page, nb, P, lens,
+                                 clustered, dtype):
+    """Each form of the merge, forced where the plan picks the other (the
+    comparison chip_smoke.py phase 8 times), computes the same function
+    and is counted under its own name."""
+    rng = np.random.default_rng(4)
+    q = draw((B, H, hd), dtype, cuda, rng)
+    kp, vp = (draw((P, page, K, hd), dtype, cuda, rng) for _ in range(2))
+    tables = torch.from_numpy(rng.permutation(P)[:B * nb].reshape(B, nb)
+                              .astype(np.int32)).to(cuda)
+    if lens is None:
+        lens = rng.integers(1, nb * page, size=B)
+    lens = torch.from_numpy(np.asarray(lens, np.int32)).to(cuda)
+    by = dict(pa.LAUNCHES_BY_FORM)
+    got = pa.launch(q, kp, vp, tables, lens, clustered=clustered)
+    by["cluster" if clustered else "two_pass"] += 1
+    assert pa.LAUNCHES_BY_FORM == by
+    assert_close(got, ref.paged_attention_reference(q, kp, vp, tables, lens),
+                 1e-5 if dtype == "float32" else 3e-2)
+
+
+def test_paged_cluster_slots_hold_on_the_card(cuda):
+    """The card holds at least as many clusters of each size at once as
+    the planner's table assumes (else a planned launch runs in waves)."""
+    for hd in (64, 128):
+        card = pa.clusters_on_card(hd)
+        assert all(card[s] >= n for s, n in pa.CLUSTER_SLOTS.items()), card
