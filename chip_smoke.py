@@ -7,12 +7,16 @@ parallel, and drives its three paths on the card:
 
 - the simulator (phases 2-5): the ``mmu_step`` kernel against its plain
   PyTorch version in each placement of the lane's state (all in shared
-  memory at Table 3; the L2 cache, or the L2 TLB, in device memory),
-  ``repro_torch.sim.runner.run_batch`` over all 11 workloads (radix and
-  Victima at the Table-3 defaults, every launch in shared memory) against
-  the JAX package's snapshot ``tests/golden/torch_fullsize_stats.json``,
-  timed, with its latency floors and, from the kernel's profiled build,
-  its cycles per access by stage;
+  memory at Table 3; the L2 cache, or the L2 TLB, in device memory) and
+  for each system of the L3-TLB, POM-TLB and nested-paging compositions
+  (``STAGED``), ``repro_torch.sim.runner.run_batch`` over all 11
+  workloads (radix and Victima, then each of ``STAGED``, at the Table-3
+  defaults, every launch in shared memory and of the system's
+  composition) against the JAX package's snapshots
+  ``tests/golden/torch_fullsize_stats.json`` and
+  ``torch_fullsize_stages_stats.json``, timed, with each composition's
+  latency floor and, from the kernel's profiled build, its cycles per
+  access by stage;
 - serving granite-3-2b (phases 6-8): the ``flash_attention`` (prefill;
   bf16 on the tensor cores, float32 on the CUDA cores, each call
   checked to have taken its dtype's kernel) and ``paged_attention``
@@ -55,11 +59,12 @@ jax nor the JAX package.
 import ctypes
 import hashlib
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -89,7 +94,16 @@ def golden_trace(n: int = 6000, seed: int = 1234) -> dict:
 
 
 SYSTEMS = ("radix", "victima")
+# the systems of the L3-TLB, POM-TLB and nested-paging compositions ->
+# the composition (mmu_step.COMPOSITIONS) each must launch
+STAGED = {"pom": "pom", "l3tlb_64k_15": "l3tlb", "l3tlb_64k_24": "l3tlb",
+          "l3tlb_64k_39": "l3tlb", "np": "np", "victima_virt": "victima_np",
+          "pom_virt": "pom_np", "isp": "radix"}
 CHECK_N = 2000      # accesses of the kernel-vs-plain check at Table 3
+# processes that run STAGED's plain versions on the CPU during phase 2
+# (on the card the plain step waits on the host, one small kernel at a
+# time)
+PLAIN_WORKERS = 4
 # a system of each other placement (mmu_step.placement), checked at
 # PLACED_N accesses: the L2 cache, then the L2 TLB, in device memory
 PLACED = {"victima_l2_8m": "l2_device", "radix_l2_8m": "l2_device",
@@ -102,6 +116,25 @@ LIBRARIES = ("mmu_step", "mmu_step_prof", "load_latency", "flash_attention",
              "paged_attention", "ssd_scan")
 FULL_N = 20_000     # main path against the JAX snapshot
 TIMED_N = 150_000   # main path at the runner's default length
+
+
+def plain_leaves(name: str, tr: dict) -> list:
+    """The plain version (the port's stage pipeline, access by access) of
+    system `name` at the Table-3 defaults over the numpy trace `tr`
+    (leaves [T, W]), on the CPU of a worker process: its state leaves."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.set_num_threads(1)
+    from repro_torch.core import mmu
+    from repro_torch.core.stages import (default_stages, make_state,
+                                         state_leaves)
+    from repro_torch.kernels import mmu_step
+    from repro_torch.sim import systems
+    cfg = systems.config(name)
+    st = make_state(cfg, tr["vpn"].shape[1])
+    mmu_step.plain_scan(mmu.make_step(cfg, default_stages(cfg)), st,
+                        {k: torch.from_numpy(np.ascontiguousarray(v))
+                         for k, v in tr.items()})
+    return [x.numpy() for x in state_leaves(st)]
 
 
 def phase(name):
@@ -190,15 +223,19 @@ def latency_floor(cfg, st, sm_ns: float, l1_ns: float, l2_ns: float):
     shared memory, or in device memory the L1-hit latency where the
     structure fits in the L1 left beside the shared memory, else the
     L2-hit latency.  Rounds: the first of every access (the L1 TLBs, L2
-    TLB, L1D, PWCs and Victima probe rows, read together); per walk level
-    an L2-cache row, and an L3 row where the level misses the L2; per
+    TLB, L1D, PWCs, Victima probe and L3-TLB or POM-shadow rows, read
+    together); per walk level, POM-TLB line and host-walk level an
+    L2-cache row, and an L3 row where it misses the L2; per nested
+    translation its nested-TLB row (shared memory), and under Victima its
+    nested-TLB-block probe's L2 row where the nested TLB missed; per
     background walk its PWC rows and the retag's L2 row; the two
     background lines' L3 rows (read together); on an L1D miss the data
-    line's L2 row (the prefetch's is read with it), and on an L2 miss
-    its L3 row.  The instructions between the rounds, the rounds whose
-    count the Stats do not hold (walk levels beyond one a walk or one an
-    L3 probe, L2 inserts after a background line, a Victima retag of a
-    demand walk) and the counter reads (issued ahead of their use) are
+    line's L2 row (the prefetch's is read with it), and on an L2 miss its
+    L3 row.  The instructions between the rounds, the rounds whose count
+    the Stats do not hold (walk levels beyond one a walk or one an L3
+    probe, L2 inserts after a background line, a Victima retag of a
+    demand walk or a translation, the nested-TLB evictions' background
+    host walks) and the counter reads (issued ahead of their use) are
     left out, so this is a floor.  Lanes run side by side: the floor is
     the slowest lane's.
     """
@@ -215,20 +252,31 @@ def latency_floor(cfg, st, sm_ns: float, l1_ns: float, l2_ns: float):
         9 * cfg.l2tlb_sets * cfg.l2tlb_ways)
     l3_place = dev_ns(9 * cfg.l3_sets * cfg.l3_ways)
     first = max(tlb_place, l2_place if cfg.victima else sm_ns)
+    if cfg.l3tlb_sets:
+        first = max(first, dev_ns(9 * cfg.l3tlb_sets * cfg.l3tlb_ways))
+    if cfg.pom:
+        first = max(first, dev_ns(9 * cfg.pom_sets * cfg.pom_ways))
     s, h = st.stats, st.hier
     acc = s.n_access.double()
     bgw = s.n_bg_ptw.double()
-    walks = s.n_demand_ptw.double() + bgw
-    levels = torch.maximum(walks, h.n_l3_trans.double())
+    host = s.n_host_ptw.double()
+    # nested translations: each hits the nested TLB, a Victima nested-TLB
+    # block, or walks the host table
+    nested = s.n_ntlb_hit.double() + s.n_nvictima_hit.double() + host
+    pte = s.n_demand_ptw.double() + bgw + 4 * host
+    if cfg.pom:  # every access past the L2 TLB reads its POM line
+        pte = pte + s.n_l2tlb_miss.double() - s.n_victima_hit.double()
+    levels = torch.maximum(pte, h.n_l3_trans.double())
     l2m = h.n_l2_miss.double()
     l2_rounds = levels + h.n_l2_access.double()
     if cfg.victima:
-        l2_rounds = l2_rounds + bgw
+        l2_rounds = l2_rounds + bgw + host + s.n_nvictima_hit.double()
     l3_rounds = h.n_l3_trans.double() + acc + l2m
-    ns = (acc * first + bgw * sm_ns + l2_rounds * l2_place
+    sm_rounds = bgw + nested
+    ns = (acc * first + sm_rounds * sm_ns + l2_rounds * l2_place
           + l3_rounds * l3_place)
     return (float(ns.max()) / 1e6,
-            float(((acc + bgw + l2_rounds + l3_rounds) / acc).mean()))
+            float(((acc + sm_rounds + l2_rounds + l3_rounds) / acc).mean()))
 
 
 def latency_floor_device(cfg, st, l1_ns: float, l2_ns: float):
@@ -567,6 +615,14 @@ def ptxas_usage(log: str, entry: str) -> str:
     if not out:
         raise AssertionError(f"no ptxas report for {entry} in the build log")
     return "; ".join(out)
+
+
+def mmu_entry(code: int, placement: str) -> str:
+    """The mangled-name part of the mmu_step kernel's instantiation for a
+    composition code and a placement (``ptxas_usage``'s entry)."""
+    from repro_torch.kernels import mmu_step
+    l2s, ts = mmu_step.PLACEMENTS[placement]
+    return f"mmu_step_kernelILb{int(l2s)}ELb{int(ts)}ELi{code}EE"
 
 
 def paged_entry(hd: int, clustered: bool) -> str:
@@ -1299,6 +1355,11 @@ def main() -> int:
     l1_ns = load_latency_ns(chase, 16 << 10, dev)
     l2_ns = load_latency_ns(chase, 16 << 20, dev)
     sm_ns = load_latency_ns(chase, 16 << 10, dev, shared=True)
+    for comp, code in mmu_step.COMPOSITIONS.values():
+        for place in (mmu_step.PLACEMENTS if comp in mmu_step.EVERY_PLACEMENT
+                      else ("shared",)):
+            print(f"mmu_step {comp} ({place}): " + ptxas_usage(
+                builds["mmu_step"]["log"], mmu_entry(code, place)))
     print(f"dependent load: {l1_ns:.1f} ns at a 16 KiB footprint (L1 hit), "
           f"{l2_ns:.1f} ns at 16 MiB (L2 hit), {sm_ns:.1f} ns in shared "
           f"memory")
@@ -1321,20 +1382,32 @@ def main() -> int:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                 for k, v in tr.items()}
 
-    def run_both(cfg, tr):
-        """State leaves after the kernel and after the plain version."""
+    def run_kernel(cfg, tr):
+        """State leaves after the kernel, its launch checked to have taken
+        the configuration's placement and composition."""
         names = default_stages(cfg)
-        W = tr["vpn"].shape[1]
-        stk, stp = make_state(cfg, W, dev), make_state(cfg, W, dev)
+        stk = make_state(cfg, tr["vpn"].shape[1], dev)
         ctr = on_card(tr)
         want = mmu_step.placement(cfg).name
+        comp = mmu_step.COMPOSITIONS[names][0]
         before = mmu_step.LAUNCHES_BY_PLACEMENT[want]
+        before_c = mmu_step.LAUNCHES_BY_COMPOSITION[comp]
         mmu_step.launch(stk, ctr, cfg, names)
         if mmu_step.LAUNCHES_BY_PLACEMENT[want] != before + 1:
             raise AssertionError(f"the launch did not take placement {want}")
-        mmu_step.plain_scan(mmu.make_step(cfg, names), stp, ctr)
+        if mmu_step.LAUNCHES_BY_COMPOSITION[comp] != before_c + 1:
+            raise AssertionError(f"the launch did not run composition {comp}")
+        return leaves(stk)
+
+    def run_both(cfg, tr):
+        """State leaves after the kernel and after the plain version, both
+        on the card."""
+        k = run_kernel(cfg, tr)
+        stp = make_state(cfg, tr["vpn"].shape[1], dev)
+        mmu_step.plain_scan(mmu.make_step(cfg, default_stages(cfg)), stp,
+                            on_card(tr))
         torch.cuda.synchronize()
-        return leaves(stk), leaves(stp)
+        return k, leaves(stp)
 
     # ------------------------------------------------------------ 2
     t = phase("2. kernel against its plain version, on the card")
@@ -1349,53 +1422,84 @@ def main() -> int:
         (TIMED_N, len(gens))).copy()
     pair = [workloads.index("rnd"), workloads.index("bc")]
     check_tr = {k: v[:CHECK_N, pair] for k, v in main_tr.items()}
-    worst, kernel_leaves = 0.0, {}
-    for name in SYSTEMS:
-        t0 = time.perf_counter()
-        k, p = run_both(systems.config(name), check_tr)
-        kernel_leaves[name] = k
-        err = max_err(k, p)
-        worst = max(worst, err)
-        if err != 0.0:
-            raise AssertionError(f"{name}: kernel differs from the plain "
-                                 f"version (max abs err {err})")
-        print(f"{name} Table-3, rnd+bc, {CHECK_N} accesses: kernel == "
-              f"plain on all {len(k)} leaves ({time.perf_counter() - t0:.1f}"
-              f" s)")
-    for name, want in PLACED.items():
-        t0 = time.perf_counter()
-        cfg = systems.config(name)
-        got = mmu_step.placement(cfg)
-        if got.name != want:
-            raise AssertionError(f"{name}: placement {got.name}, want {want}")
-        k, p = run_both(cfg, {k: v[:PLACED_N] for k, v in check_tr.items()})
-        err = max_err(k, p)
-        worst = max(worst, err)
-        if err != 0.0:
-            raise AssertionError(f"{name}: kernel differs from the plain "
-                                 f"version (max abs err {err})")
-        print(f"{name} ({want}, {got.smem_bytes:,} bytes of shared "
-              f"memory), rnd+bc, {PLACED_N} accesses: kernel == plain on all "
-              f"{len(k)} leaves ({time.perf_counter() - t0:.1f} s)")
-    with open(os.path.join(ROOT, "tests", "golden", "mmu_stats.json")) as f:
-        golden = json.load(f)
-    for name, over in GOLDEN_SYSTEMS.items():
-        cfg = SimConfig(**GOLDEN_CFG, **over)
-        stats, _ = mmu.simulate(cfg, golden_trace(), device=dev)
-        for field, want in golden[name].items():
-            got = np.asarray(getattr(stats, field)).tolist()
-            if got != want:
-                raise AssertionError(f"golden {name}.{field}: {got} != "
-                                     f"{want}")
-        print(f"golden {name}: kernel == tests/golden/mmu_stats.json")
-    cfg = systems.config("victima")
-    st = make_state(cfg, 2, dev)
-    mmu_step.launch(st, on_card(check_tr), cfg, default_stages(cfg),
-                    block=97)
-    torch.cuda.synchronize()
-    if max_err(kernel_leaves["victima"], leaves(st)) != 0.0:
-        raise AssertionError("the result depends on the trace-block size")
-    print("victima with 97-access blocks == one block")
+    # STAGED's plain versions run on the CPU, in worker processes, while
+    # the card checks the others
+    pool = ProcessPoolExecutor(PLAIN_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        staged_plain = {name: pool.submit(plain_leaves, name, check_tr)
+                        for name in sorted(STAGED, key=lambda n: (
+                            "virt" not in n and n != "np", n))}
+        worst, kernel_leaves = 0.0, {}
+        for name in SYSTEMS:
+            t0 = time.perf_counter()
+            k, p = run_both(systems.config(name), check_tr)
+            kernel_leaves[name] = k
+            err = max_err(k, p)
+            worst = max(worst, err)
+            if err != 0.0:
+                raise AssertionError(f"{name}: kernel differs from the plain "
+                                     f"version (max abs err {err})")
+            print(f"{name} Table-3, rnd+bc, {CHECK_N} accesses: kernel == "
+                  f"plain on all {len(k)} leaves "
+                  f"({time.perf_counter() - t0:.1f} s)")
+        for name, want in PLACED.items():
+            t0 = time.perf_counter()
+            cfg = systems.config(name)
+            got = mmu_step.placement(cfg)
+            if got.name != want:
+                raise AssertionError(f"{name}: placement {got.name}, "
+                                     f"want {want}")
+            k, p = run_both(cfg, {k: v[:PLACED_N]
+                                  for k, v in check_tr.items()})
+            err = max_err(k, p)
+            worst = max(worst, err)
+            if err != 0.0:
+                raise AssertionError(f"{name}: kernel differs from the plain "
+                                     f"version (max abs err {err})")
+            print(f"{name} ({want}, {got.smem_bytes:,} bytes of shared "
+                  f"memory), rnd+bc, {PLACED_N} accesses: kernel == plain on "
+                  f"all {len(k)} leaves ({time.perf_counter() - t0:.1f} s)")
+        for name, comp in STAGED.items():
+            t0 = time.perf_counter()
+            cfg = systems.config(name)
+            got = mmu_step.placement(cfg)
+            if got.name != "shared":
+                raise AssertionError(f"{name}: placement {got.name}, want "
+                                     f"shared")
+            k = run_kernel(cfg, check_tr)  # checks the composition too
+            err = max_err(k, staged_plain[name].result())
+            worst = max(worst, err)
+            if err != 0.0:
+                raise AssertionError(f"{name}: kernel differs from the plain "
+                                     f"version (max abs err {err})")
+            print(f"{name} ({comp}, shared, {got.smem_bytes:,} bytes) "
+                  f"Table-3, rnd+bc, {CHECK_N} accesses: kernel == plain (on "
+                  f"the CPU) on all {len(k)} leaves (waited "
+                  f"{time.perf_counter() - t0:.1f} s)")
+        with open(os.path.join(ROOT, "tests", "golden",
+                               "mmu_stats.json")) as f:
+            golden = json.load(f)
+        for name, over in GOLDEN_SYSTEMS.items():
+            cfg = SimConfig(**GOLDEN_CFG, **over)
+            stats, _ = mmu.simulate(cfg, golden_trace(), device=dev)
+            for field, want in golden[name].items():
+                got = np.asarray(getattr(stats, field)).tolist()
+                if got != want:
+                    raise AssertionError(f"golden {name}.{field}: {got} != "
+                                         f"{want}")
+            print(f"golden {name}: kernel == tests/golden/mmu_stats.json")
+        cfg = systems.config("victima")
+        st = make_state(cfg, 2, dev)
+        mmu_step.launch(st, on_card(check_tr), cfg, default_stages(cfg),
+                        block=97)
+        torch.cuda.synchronize()
+        if max_err(kernel_leaves["victima"], leaves(st)) != 0.0:
+            raise AssertionError("the result depends on the trace-block "
+                                 "size")
+        print("victima with 97-access blocks == one block")
+    finally:
+        pool.shutdown(cancel_futures=True)
     print(f"phase 2: {time.perf_counter() - t:.1f} s")
 
     # ------------------------------------------------------------ 3
@@ -1415,39 +1519,76 @@ def main() -> int:
             raise AssertionError(f"{w}: the port's trace differs from the "
                                  f"one the snapshot was made from")
     print("traces: all 11 equal the snapshot's (sha256)")
+    composition = {**{n: n for n in SYSTEMS}, **STAGED}
+
     def main_path_launches(name):
         """Launches since the counts were set to 0; every one must have
-        kept the whole lane in shared memory (Table 3)."""
+        kept the whole lane in shared memory (Table 3) and run the
+        system's composition."""
         by = {k: v for k, v in mmu_step.LAUNCHES_BY_PLACEMENT.items() if v}
+        by_c = {k: v for k, v in mmu_step.LAUNCHES_BY_COMPOSITION.items()
+                if v}
         if mmu_step.LAUNCHES == 0:
             raise AssertionError(f"{name}: the main path launched no kernel")
         if by != {"shared": mmu_step.LAUNCHES}:
             raise AssertionError(f"{name}: main-path launches by placement "
                                  f"{by}, want all in shared memory")
+        if by_c != {composition[name]: mmu_step.LAUNCHES}:
+            raise AssertionError(f"{name}: main-path launches by composition "
+                                 f"{by_c}, want all {composition[name]}")
         return mmu_step.LAUNCHES, by
 
     def zero_counts():
         mmu_step.LAUNCHES = 0
-        for k in mmu_step.LAUNCHES_BY_PLACEMENT:
-            mmu_step.LAUNCHES_BY_PLACEMENT[k] = 0
+        for counts in (mmu_step.LAUNCHES_BY_PLACEMENT,
+                       mmu_step.LAUNCHES_BY_COMPOSITION):
+            for k in counts:
+                counts[k] = 0
+
+    def snapshot_equal(name, out, want, n):
+        for w in workloads:
+            stats, extras, _ = out[w]
+            for field, v in want[w]["stats"].items():
+                if np.asarray(getattr(stats, field)).tolist() != v:
+                    raise AssertionError(f"{name}/{w}: Stats.{field} "
+                                         f"differs from the snapshot (n={n})")
+            for key, v in want[w]["extras"].items():
+                if np.asarray(extras[key]).tolist() != v:
+                    raise AssertionError(f"{name}/{w}: extras[{key!r}] "
+                                         f"differs from the snapshot (n={n})")
 
     for name in SYSTEMS:
         zero_counts()
         out = runner.run_batch(name, n=FULL_N, seed=0, cache=False)
         launches, _ = main_path_launches(name)
-        for w in workloads:
-            stats, extras, _ = out[w]
-            want = snap["systems"][name][w]
-            for field, v in want["stats"].items():
-                if np.asarray(getattr(stats, field)).tolist() != v:
-                    raise AssertionError(f"{name}/{w}: Stats.{field} "
-                                         f"differs from the snapshot")
-            for key, v in want["extras"].items():
-                if np.asarray(extras[key]).tolist() != v:
-                    raise AssertionError(f"{name}/{w}: extras[{key!r}] "
-                                         f"differs from the snapshot")
+        snapshot_equal(name, out, snap["systems"][name], FULL_N)
         print(f"{name}: 11 workloads equal the JAX snapshot on every Stats "
               f"leaf and extra ({launches} launches)")
+    with open(os.path.join(ROOT, "tests", "golden",
+                           "torch_fullsize_stages_stats.json")) as f:
+        snap2 = json.load(f)
+    assert (snap2["seed"], snap2["workloads"]) == (0, workloads), \
+        "stages snapshot settings"
+    for n, digests in snap2["trace_sha256"].items():
+        for w, g in zip(workloads, trace_gen.generate_many(
+                workloads, n=int(n), seed=0)):
+            h = hashlib.sha256()
+            for k in ("vpn", "is2m", "line"):
+                h.update(g["trace"][k].tobytes())
+            if h.hexdigest() != digests[w]:
+                raise AssertionError(f"{w}: the port's trace at n={n} differs "
+                                     f"from the stages snapshot's")
+    print(f"stages snapshot traces: all 11 equal at n = "
+          f"{', '.join(sorted(snap2['trace_sha256']))} (sha256)")
+    for name in STAGED:
+        want = snap2["systems"][name]
+        zero_counts()
+        out = runner.run_batch(name, n=want["n"], seed=0, cache=False)
+        launches, _ = main_path_launches(name)
+        snapshot_equal(name, out, want["workloads"], want["n"])
+        print(f"{name}: 11 workloads at n={want['n']} equal the JAX stages "
+              f"snapshot on every Stats leaf and extra ({launches} launches, "
+              f"all {composition[name]} in shared memory)")
     print(f"phase 3: {time.perf_counter() - t:.1f} s")
 
     # ------------------------------------------------------------ 4
@@ -1456,7 +1597,8 @@ def main() -> int:
     print(f"trace generation alone (11 workloads, generate_many): "
           f"{gen_s:.2f} s")
     results, main_launches, by_placement, main_ms = {}, {}, {}, {}
-    for name in SYSTEMS:
+    main_floor, main_wall = {}, {}
+    for name in SYSTEMS + tuple(STAGED):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
@@ -1472,13 +1614,17 @@ def main() -> int:
         ctr = on_card(main_tr)
         kms = cuda_time(lambda: mmu_step.launch(st, ctr, cfg,
                                                 default_stages(cfg)))
-        main_ms[name] = kms
-        print(f"{name}: run_batch wall {wall:.2f} s, kernel {kms:.1f} ms "
-              f"({main_launches[name]} launches, by placement "
-              f"{by_placement[name]}), "
+        main_ms[name], main_wall[name] = kms, wall
+        floor_ms, rounds = latency_floor(cfg, st, sm_ns, l1_ns, l2_ns)
+        main_floor[name] = floor_ms
+        print(f"{name} ({composition[name]}): run_batch wall {wall:.2f} s, "
+              f"kernel {kms:.1f} ms ({main_launches[name]} launches, by "
+              f"placement {by_placement[name]}), "
               f"{TIMED_N / kms * 1e3:,.0f} accesses/s per lane, "
               f"{TIMED_N * W / kms * 1e3:,.0f} accesses/s over {W} lanes, "
-              f"peak device memory {peak:.0f} MiB")
+              f"peak device memory {peak:.0f} MiB; latency floor "
+              f"{floor_ms:.1f} ms ({rounds:.1f} rounds per access, "
+              f"{kms / floor_ms:.1f}x)")
     print(f"{'workload':9s} {'PTW red.':>9s} {'Victima hits':>13s} "
           f"{'reach MB':>9s} {'speedup':>8s}")
     for w in workloads:
@@ -1521,8 +1667,7 @@ def main() -> int:
     dev_chain_ms, dev_rounds = latency_floor_device(cfg, states[0], l1_ns,
                                                     l2_ns)
     # the instantiation for this placement and the Victima composition
-    entry = "mmu_step_kernelILb{:d}ELb{:d}ELb1E".format(
-        *mmu_step.PLACEMENTS[pl.name])
+    entry = mmu_entry(mmu_step.C_VICTIMA, pl.name)
     print(f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, max abs err "
           f"{unit_err}; bytes bound {bound_ms:.5f} ms ({nbytes:,} bytes)")
     print(f"placement {pl.name}: {pl.smem_bytes:,} bytes of dynamic shared "
@@ -1621,6 +1766,9 @@ def main() -> int:
         "launches": main_launches["victima"],
         "launches_by_system": main_launches,
         "launches_by_placement": by_placement["victima"],
+        "compositions": [c for c, _ in mmu_step.COMPOSITIONS.values()],
+        "composition_by_system": composition,
+        "main_path_wall_s": main_wall, "main_path_floor_ms": main_floor,
         "placement": pl.name, "smem_bytes": pl.smem_bytes,
         "main_path_ms": main_ms, "stage_cycles_per_access": breakdown,
         "max_abs_err": max(worst, unit_err),

@@ -1,9 +1,9 @@
 """MMU translation-pipeline driver (paper §§4-6, Table 3); port of
-``repro.core.mmu`` for the radix and Victima compositions.
+``repro.core.mmu`` for the single-core, static-geometry compositions.
 
 The translation path is a statically composed list of stages (see
 ``repro_torch.core.stages``): L1 TLB -> L2 TLB -> [Victima L2-cache
-probe] -> radix page-table walker.  ``make_step`` folds the composition
+probe] -> [L3 TLB] -> [POM-TLB] -> radix or nested-paging (2-D) walker.  ``make_step`` folds the composition
 into one per-access step over lane-batched state; ``scan_accesses`` runs
 it over a trace through ``repro_torch.kernels.mmu_step.blocked_scan``,
 which launches the hand-written CUDA kernel when the state lies on the

@@ -7,11 +7,14 @@ Address map (64B-line ids, int32-safe):
   PD lines              PD_BASE   + (vpn>>9)>>3   (also 2M leaf level)
   PDP lines             PDP_BASE  + (vpn>>18)>>3
   PML4 lines            PML4_BASE + (vpn>>27)>>3
+  host PT lines (virt)  H*_BASE   + analogous, keyed by gpn
+  POM-TLB lines         POM_BASE  + (vpn mod 64K)>>2
 
 The walker is equipped with 3 split PWCs covering PML4/PDP/PD (2-cycle,
 Table 3); a PWC hit at depth d skips all accesses above d.  4K walks touch
 up to 4 lines, 2M walks up to 3 (the PD entry is the leaf).  The host
-walk of nested paging waits for the virtualization slice.
+walk of nested paging (``host_walk``) has no PWCs: four PTE-line
+accesses keyed by the guest-physical page.
 """
 from __future__ import annotations
 
@@ -30,6 +33,11 @@ LEAF4_BASE = _B + 0 * _W
 PD_BASE = _B + 1 * _W
 PDP_BASE = _B + 2 * _W
 PML4_BASE = _B + 3 * _W
+HLEAF_BASE = _B + 4 * _W
+HPD_BASE = _B + 5 * _W
+HPDP_BASE = _B + 6 * _W
+HPML4_BASE = _B + 7 * _W
+POM_BASE = _B + 8 * _W
 
 PWC_LAT = 2
 
@@ -98,3 +106,29 @@ def walk(h: Hier, pwcs: PWCs, vpn4k, is2m, now, pressure, tlb_aware: bool,
     insert_lru(pwcs.pdp, k_pdp, now, en & (start <= 1))
     insert_lru(pwcs.pd, k_pd, now, en & (start <= 2) & ~is2m)
     return h, pwcs, cycles, n_dram
+
+
+def _host_lines(gpn):
+    return (
+        HPML4_BASE + ((gpn >> 27) >> 3),
+        HPDP_BASE + ((gpn >> 18) >> 3),
+        HPD_BASE + ((gpn >> 9) >> 3),
+        HLEAF_BASE + (gpn >> 3),
+    )
+
+
+def host_walk(h: Hier, gpn, pressure, tlb_aware: bool, lat: Lat, enable):
+    """Host-PT walk (virt., no PWCs -- paper Fig. 3 gives the host walker a
+    nested TLB instead): 4 sequential PTE-line accesses through the
+    caches.  Returns (hier, cycles, n_dram, leaf_line)."""
+    en = as_mask(enable, gpn)
+    lines = _host_lines(gpn)
+    cycles = torch.zeros_like(gpn)
+    n_dram = torch.zeros_like(gpn)
+    if idle(en):
+        return h, cycles, n_dram, lines[3]
+    for ln in lines:
+        h, c, d = access_pte(h, ln, pressure, tlb_aware, lat, en)
+        cycles = cycles + c
+        n_dram = n_dram + d.int()
+    return h, cycles, n_dram, lines[3]

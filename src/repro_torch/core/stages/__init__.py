@@ -1,10 +1,11 @@
 """Composable translation-pipeline stages (port of
-``repro.core.stages``): the radix and Victima compositions.
+``repro.core.stages``): L1 and L2 TLBs, Victima, the L3 TLB, the
+POM-TLB and the radix and nested-paging walkers.
 
 ``STAGES`` maps stage names to singleton stage objects; a *composition*
-is an ordered tuple of names ending in the walker stage ``"ptw"``.
-``default_stages(cfg)`` derives the canonical composition from a
-SimConfig.
+is an ordered tuple of names ending in a walker stage (``"ptw"`` or
+``"ptw2d"``).  ``default_stages(cfg)`` derives the canonical composition
+from a SimConfig.
 """
 from __future__ import annotations
 
@@ -16,12 +17,16 @@ from repro_torch.core.stages.base import (Feats, MMUState, Request,
                                           zero_feats, zero_stats)
 from repro_torch.core.stages.l1_tlb import L1TLBStage
 from repro_torch.core.stages.l2_tlb import L2TLBStage
+from repro_torch.core.stages.l3_tlb import L3TLBStage
+from repro_torch.core.stages.nested import NestedWalkStage
+from repro_torch.core.stages.pom import POMStage
 from repro_torch.core.stages.ptw import RadixWalkStage
 from repro_torch.core.stages.victima import VictimaStage
 
 STAGES: dict[str, Stage] = {
     s.name: s for s in (L1TLBStage(), L2TLBStage(), VictimaStage(),
-                        RadixWalkStage())
+                        L3TLBStage(), POMStage(), RadixWalkStage(),
+                        NestedWalkStage())
 }
 
 
@@ -30,7 +35,11 @@ def default_stages(cfg: SimConfig) -> tuple[str, ...]:
     names = ["l1_tlb", "l2_tlb"]
     if cfg.victima:
         names.append("victima")
-    names.append("ptw")
+    if cfg.l3tlb_sets > 0:
+        names.append("l3_tlb")
+    if cfg.pom:
+        names.append("pom")
+    names.append("ptw2d" if cfg.virt and not cfg.ideal_shadow else "ptw")
     return tuple(names)
 
 
@@ -40,8 +49,8 @@ def validate_stages(cfg: SimConfig, names: tuple[str, ...]) -> None:
     if tuple(names) != expect:
         raise ValueError(
             f"stage composition {tuple(names)} inconsistent with config "
-            f"(expected {expect}: the victima flag and the stage list "
-            f"must agree)")
+            f"(expected {expect}: the victima/l3/pom/virt flags and the "
+            f"stage list must agree)")
 
 
 def fill_order(names: tuple[str, ...]) -> tuple[str, ...]:
@@ -49,11 +58,12 @@ def fill_order(names: tuple[str, ...]) -> tuple[str, ...]:
 
     Victima systems: the L2 TLB refill's evicted entry feeds Victima's
     background walk, so it must land first.  Non-Victima systems update
-    the walker's PTW-CP counters then refill the L2 TLB.  The L1 refill
-    closes out every composition.
+    the walker's PTW-CP counters then refill the L2 TLB.  POM / L3-TLB
+    learning and the L1 refill close out every composition.
     """
     order = (["l2_tlb", "victima"] if "victima" in names
              else [names[-1], "l2_tlb"])
+    order += [n for n in ("pom", "l3_tlb") if n in names]
     order.append("l1_tlb")
     return tuple(order)
 

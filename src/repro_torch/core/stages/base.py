@@ -34,19 +34,16 @@ from repro_torch.core.page_table import PWCs, make_pwcs
 
 WALK_HIST_BUCKETS = 64  # 10-cycle buckets for the Fig.4 PTW latency CDF
 
-# SimConfig values this slice simulates; anything else names the ROADMAP
+# SimConfig values this port simulates; anything else names the ROADMAP
 # queue item that ports it
-_STAGES = "Queue 1, the stages the paper's figures need"
 _SUPPORTED = {
-    "l3tlb_sets": (0, _STAGES + " (l3_tlb)"),
-    "pom": (False, _STAGES + " (pom)"),
     "utopia": (False, "Queue 1, Utopia and Revelator"),
     "revelator": (False, "Queue 1, Utopia and Revelator"),
-    "virt": (False, _STAGES + " (nested)"),
     "n_cores": (1, "Queue 1, Multicore"),
     "shared_tier_stats": (False, "Queue 1, Multicore"),
     "dram_cache_sets": (0, "Queue 1, Multicore (the DRAM-cache gate)"),
-    "collect": (False, _STAGES + " (collect_feats)"),
+    "collect": (False, "Queue 1, The paper tables on the port "
+                       "(collect_feats, with ptwcp_nn for Table 2)"),
 }
 
 
@@ -200,17 +197,17 @@ class MMUState(NamedTuple):
     l1d4: Assoc
     l1d2: Assoc
     l2tlb: Assoc
-    l3tlb: Assoc        # sized 1 (no L3 TLB in this slice)
-    pom: Assoc          # sized 1
+    l3tlb: Assoc        # sized 1 when absent
+    pom: Assoc          # sized 1 when absent
     pwcs: PWCs
     hier: Hier
-    ntlb: Assoc         # sized 1
+    ntlb: Assoc         # nested TLB (virt; sized 1 otherwise)
     restseg4: Assoc     # sized 1
     restseg2: Assoc     # sized 1
     rev: RevTable       # sized 1
     pc4: ptwcp.PageCounters
     pc2: ptwcp.PageCounters
-    pch: ptwcp.PageCounters  # sized 1
+    pch: ptwcp.PageCounters  # host-page counters (virt; sized 1 otherwise)
     feats: Feats        # sized 1
     stats: Stats
 
@@ -226,13 +223,13 @@ def make_state(cfg: SimConfig, lanes: int = 1, device="cpu") -> MMUState:
         l1d4=mk(cfg.l1d4_sets, cfg.l1d4_ways),
         l1d2=mk(cfg.l1d2_sets, cfg.l1d2_ways),
         l2tlb=mk(cfg.l2tlb_sets, cfg.l2tlb_ways),
-        l3tlb=mk(1, cfg.l3tlb_ways),
-        pom=mk(1, cfg.pom_ways),
+        l3tlb=mk(max(cfg.l3tlb_sets, 1), cfg.l3tlb_ways),
+        pom=mk(cfg.pom_sets if cfg.pom else 1, cfg.pom_ways),
         pwcs=make_pwcs(lanes=lanes, device=device),
         hier=make_hier(cfg.l1_sets, cfg.l1_ways, cfg.l2_sets, cfg.l2_ways,
                        cfg.l3_sets, cfg.l3_ways, 1, cfg.dram_cache_ways,
                        lanes=lanes, device=device),
-        ntlb=mk(1, cfg.ntlb_ways),
+        ntlb=mk(cfg.ntlb_sets if cfg.virt else 1, cfg.ntlb_ways),
         restseg4=mk(1, 1),
         restseg2=mk(1, 1),
         rev=RevTable(tab=mk(1, 1),
@@ -240,7 +237,8 @@ def make_state(cfg: SimConfig, lanes: int = 1, device="cpu") -> MMUState:
                                      device=device)),
         pc4=ptwcp.make_counters(cfg.n_pages4, lanes, device),
         pc2=ptwcp.make_counters(cfg.n_pages2, lanes, device),
-        pch=ptwcp.make_counters(1, lanes, device),
+        pch=ptwcp.make_counters(cfg.n_pagesh if cfg.virt else 1, lanes,
+                                device),
         feats=zero_feats(1, lanes, device),
         stats=zero_stats(lanes, device),
     )
@@ -342,3 +340,10 @@ class Stage:
     def fill(self, cfg: SimConfig, st: MMUState, req: Request,
              out: dict) -> MMUState:
         return st
+
+
+def hash_h(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Fibonacci-ish hash for the host-page counter table.  The int32
+    product wraps around, as in the reference (torch's int32 ``*`` does
+    on the CPU and on CUDA)."""
+    return (x * -1640531535) & (n - 1)

@@ -1,10 +1,12 @@
 """Per-step Stats fold over the pipeline's stage results; port of
 ``repro.core.stages.fold.accum_stats``.
 
-The fields of stages this slice does not run (L3 TLB, POM, nested walks,
-RestSeg, Revelator) would add zero every access and are left untouched.
-The f32 sums are added one access at a time, in the reference's order:
-``sum_tlb4_live`` passes 2^24 on long runs, where the order matters.
+The hit counts of stages absent from a composition, and the fields of
+RestSeg and Revelator (not ported yet), would add zero every access and
+are left untouched; the walker's nested-walk counts are added always
+(the radix walker reports zeros).  The f32 sums are added one access at
+a time, in the reference's order: ``sum_tlb4_live`` passes 2^24 on long
+runs, where the order matters.
 """
 from __future__ import annotations
 
@@ -27,7 +29,14 @@ def accum_stats(s: Stats, st: MMUState, out, walk_res, trans, past_l2,
     if "victima" in out:
         s.n_victima_hit.add_(out["victima"].hit.int())
         s.n_bg_ptw.add_(out["victima"].info["n_bg"])
+    if "l3_tlb" in out:
+        s.n_l3tlb_hit.add_(out["l3_tlb"].hit.int())
+    if "pom" in out:
+        s.n_pom_hit.add_(out["pom"].hit.int())
     s.n_demand_ptw.add_(walk_en.int())
+    s.n_host_ptw.add_(walk_res.info["nhost"])
+    s.n_ntlb_hit.add_(walk_res.info["n_nt_hit"])
+    s.n_nvictima_hit.add_(walk_res.info["n_nv_hit"])
     s.sum_trans_cyc.add_(trans.float())
     s.sum_l2miss_cyc.add_((past_l2 * miss2.int()).float())
     s.sum_data_cyc.add_(dcyc.float())

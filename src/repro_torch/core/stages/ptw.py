@@ -1,11 +1,13 @@
-"""Stage: demand page-table walk (native radix); port of
-``repro.core.stages.ptw``.
+"""Stage: demand page-table walk (native radix / I-SP 1-D shadow walk);
+port of ``repro.core.stages.ptw``.
 
 The terminal stage: everything still unresolved walks.  Fill maintains
 the PTW-CP per-page counters for non-Victima systems (Victima folds its
 counter updates into its own fused fill).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core import ptwcp
 from repro_torch.core.page_table import walk
@@ -30,7 +32,9 @@ class RadixWalkStage(Stage):
         _, _, wcyc, ndram = walk(st.hier, st.pwcs, req.vpn, req.is2m,
                                  req.now, req.pressure, cfg.tlb_aware,
                                  cfg.lat, need)
-        info = {"walk_en": need, "ndram": ndram}
+        zero = torch.zeros_like(ndram)
+        info = {"walk_en": need, "ndram": ndram, "nhost": zero,
+                "n_nt_hit": zero, "n_nv_hit": zero}
         return st, StageResult(hit=need, cycles=wcyc, info=info)
 
     def fill(self, cfg, st, req, out):

@@ -1,14 +1,22 @@
-// Per-access MMU step of the radix and Victima translation pipelines,
-// run over a block of the trace: the CUDA kernel behind
+// Per-access MMU step of the port's translation pipelines, run over a
+// block of the trace: the CUDA kernel behind
 // repro_torch.kernels.mmu_step.blocked_scan.
 //
 // Replaces the TPU kernel src/repro/kernels/mmu_step.py:105
 // `_blocked_scan_impl` (its pl.pallas_call at :162, entered by
 // `blocked_scan` at :177).  That kernel is generic because it traces any
-// step to a jaxpr; this one writes out the two compositions of
-// repro.core.mmu.make_step that the port simulates:
-//   radix   l1_tlb, l2_tlb, ptw            fills: ptw, l2_tlb, l1_tlb
-//   victima l1_tlb, l2_tlb, victima, ptw   fills: l2_tlb, victima, l1_tlb
+// step to a jaxpr; this one writes out the compositions of
+// repro.core.mmu.make_step that the port simulates, each a template
+// instantiation (Comp below):
+//   radix      l1_tlb, l2_tlb, ptw             fills: ptw, l2_tlb, l1_tlb
+//   victima    l1_tlb, l2_tlb, victima, ptw    fills: l2_tlb, victima, l1_tlb
+//   l3tlb      l1_tlb, l2_tlb, l3_tlb, ptw     fills: ptw, l2_tlb, l3_tlb, l1_tlb
+//   pom        l1_tlb, l2_tlb, pom, ptw        fills: ptw, l2_tlb, pom, l1_tlb
+//   np         l1_tlb, l2_tlb, ptw2d           fills: ptw2d, l2_tlb, l1_tlb
+//   victima_np l1_tlb, l2_tlb, victima, ptw2d  fills: l2_tlb, victima, l1_tlb
+//   pom_np     l1_tlb, l2_tlb, pom, ptw2d      fills: ptw2d, l2_tlb, pom, l1_tlb
+// (ideal shadow paging runs the radix instantiation: its nested TLB is
+// allocated and given its room in shared memory, and never touched).
 // It must equal the plain PyTorch step (repro_torch.core.mmu.make_step)
 // bit for bit, so every operation follows that code's order; the
 // comments name the reference function each block mirrors.
@@ -27,12 +35,15 @@
 // the Stats, the hierarchy and live-block counts) live in registers for
 // the whole launch.  Where the structures go is the placement, a pure
 // function of the geometry (mmu_step.placement): the histograms and the
-// small LRU arrays (L1 TLBs, PWCs, L1D) always, then the L2 cache if it
+// small LRU arrays (L1 TLBs, PWCs, L1D, and the nested TLB of a
+// virtualized configuration) always, then the L2 cache if it
 // fits in the 232,448 bytes a block may have, then the L2 TLB if it
 // still fits.  A structure that does not fit is used in device memory
 // (the L2 cache's packed bytes in a scratch tensor); the step code is one
 // template, instantiated per placement.  The L3 (288 KiB a lane at
-// Table 3) and the PTW-CP counters (4 MiB) always stay in device memory.
+// Table 3), the PTW-CP counters (4 MiB), the host-page counters (32 KiB)
+// and the 64K-entry L3 TLB and POM-TLB shadow (576 KiB each, read one
+// row at a time as a large L2 TLB is) always stay in device memory.
 //
 // Every row is read once into registers, one way a thread; a touch or an
 // insert on the same row works on those registers and stores only the
@@ -49,8 +60,8 @@
 // tie rule.  Row loads have no branch around them (threads past a row's
 // ways read its last way and are masked out), so loads that nothing
 // upstream feeds are in flight together: the rows of the L1 TLBs, the L2
-// TLB, the L1D, the PWCs and the Victima probe at the start of the
-// access, the next trace row during this one, the PTW-CP counter entries
+// TLB, the L1D, the PWCs, the Victima probe and the L3 TLB or POM shadow
+// at the start of the access, the next trace row during this one, the PTW-CP counter entries
 // right after the L2-TLB lookup (Victima: the vpn's and the L2-TLB
 // victim's, whose way is fixed once the lookup has touched the row) or
 // at the start of the access (radix), the background lines' L3 rows at
@@ -97,8 +108,17 @@ constexpr int FREQ_MAX = 7, COST_MAX = 15;
 constexpr int BOX_COST_LO = 1, BOX_COST_HI = 12;
 constexpr int BOX_FREQ_LO = 1, BOX_FREQ_HI = 7;
 // page-table lines: level l (0 = PML4 .. 3 = leaf) of a 4K vpn v is line
-// LINE_B + (3 - l) * LINE_W + ((v >> 9 * (3 - l)) >> 3)
+// LINE_B + (3 - l) * LINE_W + ((v >> 9 * (3 - l)) >> 3); the host page
+// table's (nested paging, keyed by the guest-physical page) lies
+// HOST_LINES above it, the POM-TLB's lines POM_LINES above LINE_B
 constexpr int LINE_B = 1 << 29, LINE_W = 1 << 22;
+constexpr int HOST_LINES = 4 * LINE_W, POM_LINES = 8 * LINE_W;
+// stages.base.hash_h's multiplier, -1640531535 as uint32 (the int32
+// product wraps in the reference; signed overflow is undefined here)
+constexpr uint32_t HASH_MUL = 2654435761u;
+// a composition: bit 0 Victima, 1 the L3 TLB, 2 the POM-TLB, 3 the
+// nested (2-D) walk; mmu_step.COMPOSITIONS holds the same codes
+constexpr int C_VICTIMA = 1, C_L3TLB = 2, C_POM = 4, C_NESTED = 8;
 constexpr uint32_t BG_MUL = static_cast<uint32_t>(-1640531527);
 constexpr uint32_t BG_SALT0 = static_cast<uint32_t>(-1640531527);
 constexpr uint32_t BG_SALT1 = static_cast<uint32_t>(-2048144789);
@@ -132,7 +152,8 @@ struct HierCountP {
 };
 struct StatsP {
   int32_t *n_access, *n_l1tlb_hit, *n_l2tlb_hit, *n_l2tlb_miss,
-      *n_victima_hit, *n_demand_ptw, *n_bg_ptw;
+      *n_victima_hit, *n_l3tlb_hit, *n_pom_hit, *n_demand_ptw, *n_bg_ptw,
+      *n_host_ptw, *n_ntlb_hit, *n_nvictima_hit;
   float *sum_trans_cyc, *sum_l2miss_cyc, *sum_data_cyc, *sum_walk_cyc;
   int32_t* hist_walk;
   float *sum_tlb4_live, *sum_tlb2_live;
@@ -143,25 +164,44 @@ struct TraceP {
   int32_t* line;
   float* ipa;
 };
+// Offsets in bytes into the block's dynamic shared memory: the int32
+// arrays first (histograms, LRU tags and stamps, L2 tags), then the
+// bytes (LRU valid, L2 packed and reuse shadow).  plan() below computes
+// them from the geometry; mmu_step.placement computes the total in
+// Python.
+struct Plan {
+  int hist, lru_i32[8], l2_tag, lru_u8[8], l2_pk, l2_r8, total;
+};
 struct Params {
   AssocP l1d4, l1d2, l2tlb, pml4, pdp, pd, l1d, l3;
+  AssocP l3tlb, pom, ntlb;  // sized 1 where the configuration has none
   L2P l2;
-  CountersP pc4, pc2;
+  CountersP pc4, pc2, pch;
   HierCountP hier;
   StatsP stats;
   TraceP trace;
   int32_t* now;
   int32_t lanes, t0, t1;
-  int32_t victima, tlb_aware, use_ptwcp;
+  int32_t comp;  // the composition's code (C_* bits)
+  int32_t virt;  // the plan gives the nested TLB room in shared memory
+  int32_t tlb_aware, use_ptwcp;
   float pressure_mpki, bypass_l2mpki;
-  int32_t l1tlb_lat, l2tlb_lat;
+  int32_t l1tlb_lat, l2tlb_lat, l3tlb_lat;
+  int32_t pom_mask;  // pom_sets * pom_ways - 1
   int32_t lat_l1d, lat_l2, lat_l3, lat_dram;
+  int32_t pad0;
   int64_t* prof;     // [lanes, PROF_SLOTS] cycles, read only under MMU_PROFILE
   uint8_t* l2_pack;  // [lanes, 2, sets * ways]: the L2 cache's packed bytes
                      // and reuse shadow when it is not in shared memory
   int32_t l2_shared, l2tlb_shared;  // the placement (1 = shared memory)
   int32_t smem_bytes;               // its bytes, as mmu_step.placement says
   int32_t pad;
+  // plan(*this), filled in by mmu_step_launch: the kernel reads its
+  // offsets here, so a pointer it needs again costs one constant load
+  // (the compiler rematerialises the pointers in the loop rather than
+  // hold them in registers; from the geometry, that is a chain of
+  // multiplies on every access)
+  Plan plan;
 };
 
 namespace {
@@ -535,12 +575,14 @@ __device__ __forceinline__ void l2_insert_pair(const L2c& c, L2Row& r,
 // ------------------------------------------------------------ lane
 struct Lane {
   Lru l1d4, l1d2, l2tlb, pml4, pdp, pd, l1d;
+  Lru l3tlb, pom;  // device memory
+  Lru ntlb;        // shared memory (when the configuration is virtualized)
   L2c l2;
   L3c l3;
   int32_t* hist_walk;  // shared memory; bucket b owned by thread b % 32
-  uint8_t *f4, *c4, *f2, *c2;
-  int n4, n2;
-  bool tlb_aware;
+  uint8_t *f4, *c4, *f2, *c2, *fh, *ch;
+  int n4, n2, nh;
+  bool tlb_aware, use_ptwcp;
   int lat_l1d, lat_l2, lat_l3, lat_dram;
   // registers for the whole launch
   Live live;
@@ -553,18 +595,18 @@ __device__ __forceinline__ int miss_cycles(const Lane& L, bool hit2,
 }
 
 // caches.access_pte, enabled: the L3 row is loaded before the L2 insert,
-// which does not need it
+// which does not need it; `bt` types the line (BT_TLB4 for POM-TLB lines)
 __device__ __forceinline__ int access_pte(Lane& L, int line, bool pressure,
-                                          bool* dram) {
+                                          bool* dram, int bt = BT_DATA) {
   L2Row r = load_row(L.l2, line);
-  const unsigned m = hits(r, line, BT_DATA);
+  const unsigned m = hits(r, line, bt);
   if (m != 0) {
     l2_touch(L.l2, r, __ffs(m) - 1, pressure, L.tlb_aware);
     *dram = false;
     return L.lat_l2;
   }
   L3Row r3 = load_row(L.l3, line);
-  l2_insert(L.l2, r, line, BT_DATA, pressure, L.tlb_aware, L.live);
+  l2_insert(L.l2, r, line, bt, pressure, L.tlb_aware, L.live);
   const bool hit3 = l3_access(L.l3, r3, line);
   L.n_l3_access += 1;
   L.n_l3_trans += 1;
@@ -711,20 +753,156 @@ __device__ __forceinline__ bool predict(int f, int c) {
          f <= BOX_FREQ_HI;
 }
 
-// ------------------------------------------------ shared-memory plan
-// Offsets in bytes into the block's dynamic shared memory: the int32
-// arrays first (histograms, LRU tags and stamps, L2 tags), then the
-// bytes (LRU valid, L2 packed and reuse shadow).  The host computes the
-// same total in smem_bytes(); mmu_step.placement computes it in Python.
-struct Plan {
-  int hist, lru_i32[7], l2_tag, lru_u8[7], l2_pk, l2_r8, total;
+// ---------------------------------------------------- nested paging
+// stages.base.hash_h: the host-page counter entry of guest page `x`
+__device__ __forceinline__ int hash_h(int x, int n) {
+  return static_cast<int>(static_cast<uint32_t>(x) * HASH_MUL) & (n - 1);
+}
+
+// page_table.host_walk, enabled: the host page table's four levels, no
+// PWCs
+__device__ __forceinline__ int host_walk(Lane& L, int gpn, bool pressure,
+                                         int* n_dram) {
+  int cycles = 0;
+  *n_dram = 0;
+#pragma unroll 1
+  for (int up = 3; up >= 0; --up) {
+    bool d;
+    cycles += access_pte(
+        L, LINE_B + HOST_LINES + up * LINE_W + ((gpn >> 9 * up) >> 3),
+        pressure, &d);
+    *n_dram += d;
+  }
+  return cycles;
+}
+
+struct Nested {
+  int cycles;
+  bool walked, nt_hit, nv_hit;
 };
 
+// stages.nested.nested_translate, enabled: guest-physical page `gpn` ->
+// host-physical through the nested TLB, [Victima's nested-TLB block in
+// the L2 cache,] the host walk; then the host-page counters, the retag,
+// and the nested-TLB refill with its eviction's background host walk, in
+// the reference's order.  Thread 0 writes the counters; every thread
+// reads them (the __syncwarp at the end orders the next translation's
+// reads after these writes).  When the eviction's entry meets the demand
+// walk's, the second update starts from the first's result, as the
+// reference's two sequential updates do.
+template <bool VICTIMA>
+__device__ __forceinline__ Nested nested_translate(Lane& L, int gpn, int now,
+                                                   bool pressure,
+                                                   bool bypass) {
+  LruRow rn = load_row(L.ntlb, gpn);
+  const int hidx = hash_h(gpn, L.nh);
+  int f = L.fh[hidx], c = L.ch[hidx];
+  Nested o = {1, false, false, false};  // the 1-cycle nested TLB
+  const unsigned m = hits(rn, gpn);
+  if (m != 0) {  // a hit only stamps its entry
+    touch(L.ntlb, rn, __ffs(m) - 1, now);
+    o.nt_hit = true;
+    return o;
+  }
+  if (VICTIMA) {
+    const int vk = gpn >> 3;
+    L2Row r = load_row(L.l2, vk);
+    const unsigned mv = hits(r, vk, BT_NTLB);
+    if (mv != 0) {
+      l2_touch(L.l2, r, __ffs(mv) - 1, pressure, L.tlb_aware);
+      o.cycles += L.lat_l2;
+      o.nv_hit = true;
+    }
+  }
+  o.walked = !o.nv_hit;
+  if (o.walked) {
+    int nd;
+    o.cycles += host_walk(L, gpn, pressure, &nd);
+    f = min(f + 1, FREQ_MAX);
+    c = min(c + (nd >= 1), COST_MAX);
+    if (lane() == 0) {
+      L.fh[hidx] = static_cast<uint8_t>(f);
+      L.ch[hidx] = static_cast<uint8_t>(c);
+    }
+    if (VICTIMA && (!L.use_ptwcp || predict(f, c) || bypass))
+      retag_to_tlb(L, gpn >> 3, BT_NTLB, pressure);
+  }
+  // refill the nested TLB (the row is as loaded: a miss stamps nothing)
+  const int tv = lru_victim(rn);
+  const int ev_tag = __shfl_sync(kFull, rn.tag, tv);
+  const bool ev_valid = (__ballot_sync(kFull, rn.valid()) >> tv) & 1u;
+  fill(L.ntlb, rn, tv, gpn, now);
+  if (VICTIMA && ev_valid) {
+    const int eidx = hash_h(ev_tag, L.nh);
+    const int fe = eidx == hidx ? f : L.fh[eidx];
+    const int ce = eidx == hidx ? c : L.ch[eidx];
+    if (!L.use_ptwcp || predict(fe, ce) || bypass) {
+      int bd;
+      host_walk(L, ev_tag, pressure, &bd);
+      if (lane() == 0) {
+        L.fh[eidx] = static_cast<uint8_t>(min(fe + 1, FREQ_MAX));
+        L.ch[eidx] = static_cast<uint8_t>(min(ce + (bd >= 1), COST_MAX));
+      }
+      retag_to_tlb(L, ev_tag >> 3, BT_NTLB, pressure);
+    }
+  }
+  __syncwarp(kFull);
+  return o;
+}
+
+struct Walk2d {
+  int cycles, n_dram, nhost, nt_hit, nv_hit;
+};
+
+// stages.nested.guest_walk_2d, enabled: the guest walk's levels, each
+// translating its PT line's guest-physical page before the access, then
+// the data page's own (identity map: gpn = vpn).  The PWCs are probed
+// before the walk; their fills come after the last translation, not
+// before it (nothing in a translation reads or writes a PWC), so one
+// loop of five translations serves all.
+template <bool VICTIMA>
+__device__ __forceinline__ Walk2d walk2d(Lane& L, PwcRows& w, int vpn,
+                                        bool is2m, int now, bool pressure,
+                                        bool bypass) {
+  const int k4 = vpn >> 27, k3 = vpn >> 18, k2 = vpn >> 9;
+  const bool hit4 = hits(w.r4, k4) != 0;
+  const bool hit3 = hits(w.r3, k3) != 0;
+  const bool hit2 = hits(w.r2, k2) != 0 && !is2m;
+  int start = hit2 ? 3 : hit3 ? 2 : hit4 ? 1 : 0;
+  if (is2m) start = min(start, 2);
+  const int n_levels = is2m ? 3 : 4;
+  Walk2d o = {PWC_LAT, 0, 0, 0, 0};
+#pragma unroll 1
+  for (int lv = start; lv <= 4; ++lv) {
+    if (lv < 4 && lv >= n_levels) continue;
+    const int up = 3 - min(lv, 3);
+    const int line = LINE_B + up * LINE_W + ((vpn >> 9 * up) >> 3);
+    const Nested n = nested_translate<VICTIMA>(L, lv < 4 ? line >> 6 : vpn,
+                                               now, pressure, bypass);
+    o.cycles += n.cycles;
+    o.nhost += n.walked;
+    o.nt_hit += n.nt_hit;
+    o.nv_hit += n.nv_hit;
+    if (lv < 4) {
+      bool d;
+      o.cycles += access_pte(L, line, pressure, &d);
+      o.n_dram += d;
+    }
+  }
+  insert_lru(L.pml4, w.r4, k4, now, start <= 0);
+  insert_lru(L.pdp, w.r3, k3, now, start <= 1);
+  insert_lru(L.pd, w.r2, k2, now, start <= 2 && !is2m);
+  return o;
+}
+
+// ------------------------------------------------ shared-memory plan
 __host__ __device__ inline int entries(const AssocP& a) {
   return a.sets * a.ways;
 }
 
-// the seven LRU arrays in plan order; the L2 TLB is the last
+// the eight LRU arrays in plan order: the six always in shared memory,
+// the nested TLB (virtualized configurations), the L2 TLB (placement)
+constexpr int LRU_NTLB = 6, LRU_L2TLB = 7;
 __host__ __device__ inline const AssocP& lru_param(const Params& p, int k) {
   switch (k) {
     case 0: return p.l1d4;
@@ -733,8 +911,13 @@ __host__ __device__ inline const AssocP& lru_param(const Params& p, int k) {
     case 3: return p.pdp;
     case 4: return p.pd;
     case 5: return p.l1d;
+    case LRU_NTLB: return p.ntlb;
     default: return p.l2tlb;
   }
+}
+
+__host__ __device__ inline bool lru_shared(const Params& p, int k) {
+  return k < LRU_NTLB || (k == LRU_NTLB ? p.virt != 0 : p.l2tlb_shared != 0);
 }
 
 __host__ __device__ inline Plan plan(const Params& p) {
@@ -742,17 +925,16 @@ __host__ __device__ inline Plan plan(const Params& p) {
   int o = 0;
   s.hist = o;
   o += 4 * (WALK_HIST_BUCKETS + 2 * REUSE_BUCKETS);
-  const int n_lru = p.l2tlb_shared ? 7 : 6;
-  for (int k = 0; k < 7; ++k) {
+  for (int k = 0; k < 8; ++k) {
     s.lru_i32[k] = o;
-    if (k < n_lru) o += 8 * entries(lru_param(p, k));
+    if (lru_shared(p, k)) o += 8 * entries(lru_param(p, k));
   }
   const int n2 = p.l2.sets * p.l2.ways;
   s.l2_tag = o;
   if (p.l2_shared) o += 4 * n2;
-  for (int k = 0; k < 7; ++k) {
+  for (int k = 0; k < 8; ++k) {
     s.lru_u8[k] = o;
-    if (k < n_lru) o += entries(lru_param(p, k));
+    if (lru_shared(p, k)) o += entries(lru_param(p, k));
   }
   s.l2_pk = o;
   s.l2_r8 = o + n2;
@@ -841,11 +1023,15 @@ __device__ void lru_out(const AssocP& a, int b, const Lru& s) {
       });
 }
 
-template <bool L2S, bool TS, bool VICTIMA>
+template <bool L2S, bool TS, int COMP>
 __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
   extern __shared__ __align__(16) char smem[];
+  constexpr bool victima = (COMP & C_VICTIMA) != 0;
+  constexpr bool l3tlb = (COMP & C_L3TLB) != 0;
+  constexpr bool pom = (COMP & C_POM) != 0;
+  constexpr bool nested = (COMP & C_NESTED) != 0;
   const int b = blockIdx.x;
-  const Plan pl = plan(p);
+  const Plan& pl = p.plan;
   const size_t n2 = static_cast<size_t>(p.l2.sets) * p.l2.ways;
   const size_t o2 = b * n2;
   int32_t* const hist = reinterpret_cast<int32_t*>(smem + pl.hist);
@@ -857,7 +1043,15 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
   L.pdp = lru_in(p.pdp, b, true, smem, pl.lru_i32[3], pl.lru_u8[3]);
   L.pd = lru_in(p.pd, b, true, smem, pl.lru_i32[4], pl.lru_u8[4]);
   L.l1d = lru_in(p.l1d, b, true, smem, pl.lru_i32[5], pl.lru_u8[5]);
-  L.l2tlb = lru_in(p.l2tlb, b, TS, smem, pl.lru_i32[6], pl.lru_u8[6]);
+  // the nested TLB: only the 2-D walk uses it (ideal shadow paging runs
+  // the radix instantiation and leaves it as it is)
+  if constexpr (nested)
+    L.ntlb = lru_in(p.ntlb, b, true, smem, pl.lru_i32[LRU_NTLB],
+                    pl.lru_u8[LRU_NTLB]);
+  L.l2tlb = lru_in(p.l2tlb, b, TS, smem, pl.lru_i32[LRU_L2TLB],
+                   pl.lru_u8[LRU_L2TLB]);
+  if constexpr (l3tlb) L.l3tlb = lru_in(p.l3tlb, b, false, smem, 0, 0);
+  if constexpr (pom) L.pom = lru_in(p.pom, b, false, smem, 0, 0);
   L.l2 = {L2S ? reinterpret_cast<int32_t*>(smem + pl.l2_tag)
               : p.l2.tags + o2,
           L2S ? reinterpret_cast<uint8_t*>(smem + pl.l2_pk)
@@ -933,6 +1127,13 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
   L.n4 = p.pc4.n;
   L.n2 = p.pc2.n;
   L.tlb_aware = p.tlb_aware != 0;
+  if constexpr (nested) {
+    const size_t nho = static_cast<size_t>(b) * p.pch.n;
+    L.fh = p.pch.freq + nho;
+    L.ch = p.pch.cost + nho;
+    L.nh = p.pch.n;
+    L.use_ptwcp = p.use_ptwcp != 0;
+  }
   L.lat_l1d = p.lat_l1d;
   L.lat_l2 = p.lat_l2;
   L.lat_l3 = p.lat_l3;
@@ -949,10 +1150,16 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
   int n_l2tlb_hit = S.n_l2tlb_hit[b], n_l2tlb_miss = S.n_l2tlb_miss[b];
   int n_victima_hit = S.n_victima_hit[b], n_demand_ptw = S.n_demand_ptw[b];
   int n_bg_ptw = S.n_bg_ptw[b];
+  // the counts of a stage the composition lacks stay 0 and are not
+  // written back (no register holds them through the loop)
+  int n_l3tlb_hit = l3tlb ? S.n_l3tlb_hit[b] : 0;
+  int n_pom_hit = pom ? S.n_pom_hit[b] : 0;
+  int n_host_ptw = nested ? S.n_host_ptw[b] : 0;
+  int n_ntlb_hit = nested ? S.n_ntlb_hit[b] : 0;
+  int n_nvictima_hit = nested ? S.n_nvictima_hit[b] : 0;
   float sum_trans = S.sum_trans_cyc[b], sum_l2miss = S.sum_l2miss_cyc[b];
   float sum_data = S.sum_data_cyc[b], sum_walk = S.sum_walk_cyc[b];
   float sum_tlb4 = S.sum_tlb4_live[b], sum_tlb2 = S.sum_tlb2_live[b];
-  constexpr bool victima = VICTIMA;
   const bool tlb_aware = L.tlb_aware;
   __syncwarp(kFull);  // the copies in are done: each word has one owner
 
@@ -1000,6 +1207,9 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     PwcRows pw = pwc_rows(L, vpn);
     L2Row qv;
     if (victima) qv = load_row(L.l2, vkey);
+    LruRow q3, qp;
+    if (l3tlb) q3 = load_row(L.l3tlb, key2);
+    if (pom) qp = load_row(L.pom, key2);
     // radix: the PTW-CP counter entry of this access
     const int ci = is2m ? vpn2 & (L.n2 - 1) : vpn & (L.n4 - 1);
     int cf = 0, cc = 0;
@@ -1061,12 +1271,48 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
       past += vhit ? L.lat_l2 : 0;
       need = need && !vhit;
     }
+
+    // stages.l3_tlb lookup: the probe latency is paid by every access
+    // that reaches this level
+    bool l3hit = false;
+    if (l3tlb && need) {
+      const unsigned m3 = hits(q3, key2);
+      l3hit = m3 != 0;
+      if (l3hit) touch(L.l3tlb, q3, __ffs(m3) - 1, now);
+      past += p.l3tlb_lat;
+      need = !l3hit;
+    }
+
+    // stages.pom lookup: the POM-TLB line through the caches (typed as a
+    // TLB block), then the shadow structure
+    bool pomhit = false;
+    if (pom && need) {
+      bool d;
+      past += access_pte(L, LINE_B + POM_LINES + ((key2 & p.pom_mask) >> 2),
+                         pressure, &d, BT_TLB4);
+      const unsigned mp = hits(qp, key2);
+      pomhit = mp != 0;
+      if (pomhit) touch(L.pom, qp, __ffs(mp) - 1, now);
+      need = !pomhit;
+    }
     PROF_STAMP(ST_PROBE);
 
-    // stages.ptw lookup: the demand walk
+    // stages.ptw / stages.nested lookup: the demand walk
     const bool walk_en = need;
-    int ndram = 0, wcyc = 0;
-    if (walk_en) wcyc = walk(L, pw, vpn, is2m, now, pressure, &ndram);
+    int ndram = 0, wcyc = 0, nhost = 0, nt_hit = 0, nv_hit = 0;
+    if (walk_en) {
+      if constexpr (nested) {
+        const Walk2d w2 = walk2d<victima>(L, pw, vpn, is2m, now, pressure,
+                                          bypass);
+        wcyc = w2.cycles;
+        ndram = w2.n_dram;
+        nhost = w2.nhost;
+        nt_hit = w2.nt_hit;
+        nv_hit = w2.nv_hit;
+      } else {
+        wcyc = walk(L, pw, vpn, is2m, now, pressure, &ndram);
+      }
+    }
     past += wcyc;
     PROF_STAMP(ST_WALK);
 
@@ -1109,13 +1355,33 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
         }
       }
     } else {
-      // stages.ptw fill (fill_walk_counters), then stages.l2_tlb fill
+      // stages.ptw / stages.nested fill (fill_walk_counters), then
+      // stages.l2_tlb fill
       if (walk_en && lane() == 0) {
         (is2m ? L.f2 : L.f4)[ci] = static_cast<uint8_t>(min(cf + 1, FREQ_MAX));
         (is2m ? L.c2 : L.c4)[ci] =
             static_cast<uint8_t>(min(cc + (ndram >= 1), COST_MAX));
       }
-      insert_lru(L.l2tlb, qt, key2, now, miss2);
+      if (pom) {
+        // the L2 TLB's evicted entry (the row as the lookup left it: a
+        // miss stamped nothing), then stages.pom fill: the walked entry
+        // and then that evicted one
+        tv = lru_victim(qt);
+        ev_tag = __shfl_sync(kFull, qt.tag, tv);
+        ev_valid = miss2 && ((__ballot_sync(kFull, qt.valid()) >> tv) & 1u);
+        if (miss2) fill(L.l2tlb, qt, tv, key2, now);
+        insert_lru(L.pom, qp, key2, now, walk_en);
+        if (ev_valid) {
+          const int smask = L.pom.sets - 1;
+          LruRow qe = qp;  // the same set: the row as the first fill left it
+          if (((ev_tag ^ key2) & smask) != 0) qe = load_row(L.pom, ev_tag);
+          insert_lru(L.pom, qe, ev_tag, now, true);
+        }
+      } else {
+        insert_lru(L.l2tlb, qt, key2, now, miss2);
+      }
+      // stages.l3_tlb fill
+      if (l3tlb) insert_lru(L.l3tlb, q3, key2, now, walk_en);
     }
     PROF_STAMP(ST_FILL);
     // stages.l1_tlb fill
@@ -1133,8 +1399,13 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     n_l2tlb_hit += l2hit;
     n_l2tlb_miss += miss2;
     n_victima_hit += vhit;
+    n_l3tlb_hit += l3hit;
+    n_pom_hit += pomhit;
     n_demand_ptw += walk_en;
     n_bg_ptw += bg;
+    n_host_ptw += nhost;
+    n_ntlb_hit += nt_hit;
+    n_nvictima_hit += nv_hit;
     sum_trans = __fadd_rn(sum_trans, __int2float_rn(trans));
     sum_l2miss = __fadd_rn(sum_l2miss, __int2float_rn(miss2 ? past : 0));
     sum_data = __fadd_rn(sum_data, __int2float_rn(dcyc));
@@ -1163,6 +1434,13 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     S.n_victima_hit[b] = n_victima_hit;
     S.n_demand_ptw[b] = n_demand_ptw;
     S.n_bg_ptw[b] = n_bg_ptw;
+    if (l3tlb) S.n_l3tlb_hit[b] = n_l3tlb_hit;
+    if (pom) S.n_pom_hit[b] = n_pom_hit;
+    if (nested) {
+      S.n_host_ptw[b] = n_host_ptw;
+      S.n_ntlb_hit[b] = n_ntlb_hit;
+      S.n_nvictima_hit[b] = n_nvictima_hit;
+    }
     S.sum_trans_cyc[b] = sum_trans;
     S.sum_l2miss_cyc[b] = sum_l2miss;
     S.sum_data_cyc[b] = sum_data;
@@ -1189,6 +1467,7 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
   lru_out(p.pdp, b, L.pdp);
   lru_out(p.pd, b, L.pd);
   lru_out(p.l1d, b, L.l1d);
+  if constexpr (nested) lru_out(p.ntlb, b, L.ntlb);
   if (TS) lru_out(p.l2tlb, b, L.l2tlb);
   if (quads) {
     batched(
@@ -1229,17 +1508,32 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
 
 using KernelFn = void (*)(const Params);
 
-template <bool V>
-KernelFn kernel_for(const Params& p) {
-  if (p.l2_shared) return p.l2tlb_shared ? mmu_step_kernel<true, true, V>
-                                         : mmu_step_kernel<true, false, V>;
-  return p.l2tlb_shared ? mmu_step_kernel<false, true, V>
-                        : mmu_step_kernel<false, false, V>;
+// the instantiation of a launch, from its composition and placement: the
+// radix and Victima compositions in every placement, the others with the
+// whole lane in shared memory (the placement of every system the port
+// registers with them); nullptr for a pair that is not built
+template <int C, bool EVERY_PLACEMENT>
+KernelFn placed(const Params& p) {
+  if (p.l2_shared && p.l2tlb_shared) return mmu_step_kernel<true, true, C>;
+  if constexpr (EVERY_PLACEMENT) {
+    if (p.l2_shared) return mmu_step_kernel<true, false, C>;
+    return p.l2tlb_shared ? mmu_step_kernel<false, true, C>
+                          : mmu_step_kernel<false, false, C>;
+  }
+  return nullptr;
 }
 
-// the instantiation of a launch: placement and composition
 KernelFn kernel_for(const Params& p) {
-  return p.victima ? kernel_for<true>(p) : kernel_for<false>(p);
+  switch (p.comp) {
+    case 0: return placed<0, true>(p);
+    case C_VICTIMA: return placed<C_VICTIMA, true>(p);
+    case C_L3TLB: return placed<C_L3TLB, false>(p);
+    case C_POM: return placed<C_POM, false>(p);
+    case C_NESTED: return placed<C_NESTED, false>(p);
+    case C_NESTED | C_VICTIMA: return placed<C_NESTED | C_VICTIMA, false>(p);
+    case C_NESTED | C_POM: return placed<C_NESTED | C_POM, false>(p);
+    default: return nullptr;
+  }
 }
 
 constexpr int kMaxDevices = 64;
@@ -1255,16 +1549,18 @@ int mmu_step_params_size(void) { return static_cast<int>(sizeof(Params)); }
 // to the state's); returns cudaGetLastError() (0 = launched), or -1 when
 // p.smem_bytes disagrees with the plan or exceeds a block's limit.
 int mmu_step_launch(Params p, void* stream) {
-  const int bytes = plan(p).total;
+  p.plan = plan(p);
+  const int bytes = p.plan.total;
   if (bytes != p.smem_bytes || bytes > SMEM_LIMIT) return -1;
   const KernelFn k = kernel_for(p);
+  if (k == nullptr) return -2;
   // each instantiation's limit is raised to a block's most, once a device
-  static bool raised[8][kMaxDevices] = {};
+  static bool raised[64][kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  bool& done = raised[4 * (p.victima != 0) + 2 * (p.l2_shared != 0) +
+  bool& done = raised[4 * (p.comp & 15) + 2 * (p.l2_shared != 0) +
                      (p.l2tlb_shared != 0)][dev];
   if (!done) {
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1280,6 +1576,9 @@ const char* mmu_step_error_string(int err) {
   if (err == -1)
     return "shared-memory bytes of the launch disagree with the kernel's "
            "plan, or exceed a block's 232,448";
+  if (err == -2)
+    return "no instantiation of the kernel for this composition and "
+           "placement";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -11,7 +11,10 @@ shared memory: it copies the state in from the tensors ``make_state``
 allocated (one per leaf, lane axis first, bools as bytes), packing the
 L2 cache, and writes it back at its end.  Which structures go to shared
 memory is ``placement(cfg)``, a pure function of the geometry; launches
-are counted per placement in ``LAUNCHES_BY_PLACEMENT``.
+are counted per placement in ``LAUNCHES_BY_PLACEMENT`` and per
+composition (``COMPOSITIONS``: radix, Victima, the L3 TLB, the POM-TLB,
+each under nested paging where the reference has it) in
+``LAUNCHES_BY_COMPOSITION``.
 
 The kernel is bound by latency, not by bytes or operations: each access
 is a chain of dependent row reads (see the source's note).
@@ -29,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.stages import default_stages
 from repro_torch.kernels import build
 
 # kernel launches made by blocked_scan since import (the launch count
@@ -67,17 +71,22 @@ def placement(cfg) -> Placement:
 
     Shared memory takes, in this order and while they fit in
     ``SMEM_LIMIT``: the histograms and the small LRU arrays (L1 TLBs,
-    PWCs, L1D; always, or this raises); the L2 cache, packed to 6 bytes a
-    way; the L2 TLB, 9 bytes an entry.  What does not fit stays in device
-    memory, and so do the L3 and the PTW-CP counters.  The kernel checks
-    the byte count against its own layout at every launch.
+    PWCs, L1D, and the nested TLB when ``cfg.virt``; always, or this
+    raises); the L2 cache, packed to 6 bytes a way; the L2 TLB, 9 bytes an
+    entry.  What does not fit stays in device memory, and so do the L3,
+    the L3 TLB, the POM-TLB's shadow and the PTW-CP and host-page
+    counters.  The kernel checks the byte count against its own layout at
+    every launch.
     """
     small = (cfg.l1d4_sets * cfg.l1d4_ways + cfg.l1d2_sets * cfg.l1d2_ways
              + 3 * PWC_SETS * PWC_WAYS + cfg.l1_sets * cfg.l1_ways)
+    if cfg.virt:
+        small += cfg.ntlb_sets * cfg.ntlb_ways
     nbytes = _HIST_BYTES + _LRU_BYTES * small
     if nbytes > SMEM_LIMIT:
-        raise ValueError(f"the L1 TLBs, PWCs and L1D take {nbytes} bytes, "
-                         f"more than a block's {SMEM_LIMIT}")
+        raise ValueError(f"the L1 TLBs, PWCs and L1D"
+                         f"{' (and nested TLB)' if cfg.virt else ''} take "
+                         f"{nbytes} bytes, more than a block's {SMEM_LIMIT}")
     l2 = _L2_BYTES * cfg.l2_sets * cfg.l2_ways
     l2_shared = nbytes + l2 <= SMEM_LIMIT
     nbytes += l2 if l2_shared else 0
@@ -88,9 +97,27 @@ def placement(cfg) -> Placement:
                 if v == (l2_shared, tlb_shared))
     return Placement(name, l2_shared, tlb_shared, nbytes)
 
-# the compositions the kernel writes out
-COMPOSITIONS = {("l1_tlb", "l2_tlb", "ptw"): False,
-                ("l1_tlb", "l2_tlb", "victima", "ptw"): True}
+# the compositions the kernel writes out: stage names -> (name, code).
+# The code's bits (csrc/mmu_step.cu's C_*): 1 Victima, 2 the L3 TLB, 4
+# the POM-TLB, 8 the nested (2-D) walk
+C_VICTIMA, C_L3TLB, C_POM, C_NESTED = 1, 2, 4, 8
+COMPOSITIONS = {
+    ("l1_tlb", "l2_tlb", "ptw"): ("radix", 0),
+    ("l1_tlb", "l2_tlb", "victima", "ptw"): ("victima", C_VICTIMA),
+    ("l1_tlb", "l2_tlb", "l3_tlb", "ptw"): ("l3tlb", C_L3TLB),
+    ("l1_tlb", "l2_tlb", "pom", "ptw"): ("pom", C_POM),
+    ("l1_tlb", "l2_tlb", "ptw2d"): ("np", C_NESTED),
+    ("l1_tlb", "l2_tlb", "victima", "ptw2d"): ("victima_np",
+                                               C_NESTED | C_VICTIMA),
+    ("l1_tlb", "l2_tlb", "pom", "ptw2d"): ("pom_np", C_NESTED | C_POM),
+}
+# compositions built in every placement; the others only in "shared",
+# the placement of every system the port registers with them
+EVERY_PLACEMENT = ("radix", "victima")
+
+# kernel launches per composition since import
+LAUNCHES_BY_COMPOSITION = dict.fromkeys(
+    [n for n, _ in COMPOSITIONS.values()], 0)
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int32
@@ -119,7 +146,8 @@ class _HierCountP(ctypes.Structure):
 
 
 _STATS_FIELDS = ("n_access", "n_l1tlb_hit", "n_l2tlb_hit", "n_l2tlb_miss",
-                 "n_victima_hit", "n_demand_ptw", "n_bg_ptw",
+                 "n_victima_hit", "n_l3tlb_hit", "n_pom_hit", "n_demand_ptw",
+                 "n_bg_ptw", "n_host_ptw", "n_ntlb_hit", "n_nvictima_hit",
                  "sum_trans_cyc", "sum_l2miss_cyc", "sum_data_cyc",
                  "sum_walk_cyc", "hist_walk", "sum_tlb4_live",
                  "sum_tlb2_live")
@@ -133,21 +161,29 @@ class _TraceP(ctypes.Structure):
     _fields_ = [(n, _p) for n in ("vpn", "is2m", "line", "ipa")]
 
 
+class _PlanP(ctypes.Structure):  # filled in by the C launch function
+    _fields_ = [(n, _i) for n in (
+        "hist", *[f"lru_i32_{k}" for k in range(8)], "l2_tag",
+        *[f"lru_u8_{k}" for k in range(8)], "l2_pk", "l2_r8", "total")]
+
+
 class _Params(ctypes.Structure):
     _fields_ = (
         [(n, _AssocP) for n in ("l1d4", "l1d2", "l2tlb", "pml4", "pdp",
-                                "pd", "l1d", "l3")]
+                                "pd", "l1d", "l3", "l3tlb", "pom", "ntlb")]
         + [("l2", _L2P), ("pc4", _CountersP), ("pc2", _CountersP),
-           ("hier", _HierCountP), ("stats", _StatsP), ("trace", _TraceP),
-           ("now", _p)]
-        + [(n, _i) for n in ("lanes", "t0", "t1", "victima",
+           ("pch", _CountersP), ("hier", _HierCountP), ("stats", _StatsP),
+           ("trace", _TraceP), ("now", _p)]
+        + [(n, _i) for n in ("lanes", "t0", "t1", "comp", "virt",
                              "tlb_aware", "use_ptwcp")]
         + [("pressure_mpki", _f), ("bypass_l2mpki", _f)]
-        + [(n, _i) for n in ("l1tlb_lat", "l2tlb_lat", "lat_l1d", "lat_l2",
-                             "lat_l3", "lat_dram")]
+        + [(n, _i) for n in ("l1tlb_lat", "l2tlb_lat", "l3tlb_lat",
+                             "pom_mask", "lat_l1d", "lat_l2", "lat_l3",
+                             "lat_dram", "pad0")]
         + [("prof", _p), ("l2_pack", _p)]
         + [(n, _i) for n in ("l2_shared", "l2tlb_shared", "smem_bytes",
-                             "pad")])
+                             "pad")]
+        + [("plan", _PlanP)])
 
 
 # the profiled build's per-lane slots: cycles of each stage (thread 0's
@@ -213,9 +249,15 @@ def _params(st, trace: dict, cfg, stage_names) -> _Params:
     if names not in COMPOSITIONS:
         raise ValueError(f"the mmu_step kernel runs the compositions "
                          f"{list(COMPOSITIONS)}, not {names}")
-    if COMPOSITIONS[names] != cfg.victima:
-        raise ValueError(f"composition {names} disagrees with "
-                         f"cfg.victima={cfg.victima}")
+    comp, code = COMPOSITIONS[names]
+    if names != default_stages(cfg):
+        raise ValueError(f"composition {names} disagrees with the "
+                         f"configuration's {default_stages(cfg)}")
+    pl = placement(cfg)
+    if comp not in EVERY_PLACEMENT and pl.name != "shared":
+        raise ValueError(f"the mmu_step kernel runs composition {comp} "
+                         f"only with the lane in shared memory; this "
+                         f"geometry takes placement {pl.name}")
     dev = st.now.device
     W = st.now.shape[0]
     T = trace["vpn"].shape[0]
@@ -264,7 +306,6 @@ def _params(st, trace: dict, cfg, stage_names) -> _Params:
         for f in _STATS_FIELDS])
     h = st.hier
     lat = cfg.lat
-    pl = placement(cfg)
     params = _Params(
         l1d4=_assoc(st.l1d4, cfg.l1d4_sets, cfg.l1d4_ways, W, "l1d4", dev),
         l1d2=_assoc(st.l1d2, cfg.l1d2_sets, cfg.l1d2_ways, W, "l1d2", dev),
@@ -275,22 +316,31 @@ def _params(st, trace: dict, cfg, stage_names) -> _Params:
         pd=_assoc(st.pwcs.pd, PWC_SETS, PWC_WAYS, W, "pwcs.pd", dev),
         l1d=_assoc(h.l1d, cfg.l1_sets, cfg.l1_ways, W, "hier.l1d", dev),
         l3=_assoc(h.l3, cfg.l3_sets, cfg.l3_ways, W, "hier.l3", dev),
+        l3tlb=_assoc(st.l3tlb, max(cfg.l3tlb_sets, 1), cfg.l3tlb_ways, W,
+                     "l3tlb", dev),
+        pom=_assoc(st.pom, cfg.pom_sets if cfg.pom else 1, cfg.pom_ways, W,
+                   "pom", dev),
+        ntlb=_assoc(st.ntlb, cfg.ntlb_sets if cfg.virt else 1,
+                    cfg.ntlb_ways, W, "ntlb", dev),
         l2=l2p,
         pc4=counters(st.pc4, cfg.n_pages4, "pc4"),
         pc2=counters(st.pc2, cfg.n_pages2, "pc2"),
+        pch=counters(st.pch, cfg.n_pagesh if cfg.virt else 1, "pch"),
         hier=_HierCountP(*[i32(getattr(h, n), (W,), "hier." + n)
                            for n in ("n_l2_access", "n_l2_miss",
                                      "n_l3_access", "n_l3_trans")]),
         stats=stats, trace=tr,
         now=i32(st.now, (W,), "now"),
-        lanes=W, t0=0, t1=0, victima=int(cfg.victima),
+        lanes=W, t0=0, t1=0, comp=code, virt=int(cfg.virt),
         tlb_aware=int(cfg.tlb_aware), use_ptwcp=int(cfg.use_ptwcp),
         pressure_mpki=cfg.pressure_mpki, bypass_l2mpki=cfg.bypass_l2mpki,
         l1tlb_lat=cfg.l1tlb_lat, l2tlb_lat=cfg.l2tlb_lat,
+        l3tlb_lat=cfg.l3tlb_lat, pom_mask=cfg.pom_sets * cfg.pom_ways - 1,
         lat_l1d=lat.l1d, lat_l2=lat.l2, lat_l3=lat.l3, lat_dram=lat.dram,
         l2_shared=int(pl.l2_shared), l2tlb_shared=int(pl.l2tlb_shared),
         smem_bytes=pl.smem_bytes)
     params.placement = pl.name
+    params.composition = comp
     if not pl.l2_shared:
         params.scratch = torch.empty((W, 2, cfg.l2_sets * cfg.l2_ways),
                                      dtype=torch.uint8, device=dev)
@@ -347,6 +397,7 @@ def launch(st, trace: dict, cfg, stage_names, block: int | None = None):
     for _ in _launches(_lib(), params, st, trace, block):
         LAUNCHES += 1
         LAUNCHES_BY_PLACEMENT[params.placement] += 1
+        LAUNCHES_BY_COMPOSITION[params.composition] += 1
     return st
 
 

@@ -1,7 +1,7 @@
 """Registry of evaluated systems (paper Table 3 + ablations); port of
 ``repro.sim.systems`` restricted to the systems this port simulates: the
-single-core native systems built from the radix and Victima
-compositions.
+single-core systems built from the radix, Victima, L3-TLB and POM-TLB
+compositions, natively and under nested paging.
 
 Each ``System`` names its stage composition plus the SimConfig overrides
 that size it; its entry matches the reference's one for one.  A name the
@@ -17,6 +17,11 @@ from repro_torch.core.stages import SimConfig, default_stages
 
 _RADIX = ("l1_tlb", "l2_tlb", "ptw")
 _VICTIMA = ("l1_tlb", "l2_tlb", "victima", "ptw")
+_L3 = ("l1_tlb", "l2_tlb", "l3_tlb", "ptw")
+_POM = ("l1_tlb", "l2_tlb", "pom", "ptw")
+_NP = ("l1_tlb", "l2_tlb", "ptw2d")
+_VICTIMA_NP = ("l1_tlb", "l2_tlb", "victima", "ptw2d")
+_POM_NP = ("l1_tlb", "l2_tlb", "pom", "ptw2d")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,20 +42,15 @@ REGISTRY: dict[str, System] = {}
 
 # reference systems not simulated here yet -> the ROADMAP.md item that
 # ports them
-_LATER_STAGES = "Queue 1, the stages the paper's figures need"
+_LATER_TABLES = "Queue 1, The paper tables on the port"
 _LATER_UR = "Queue 1, Utopia and Revelator"
 _LATER_MULTICORE = "Queue 1, Multicore"
 LATER: dict[str, str] = {
-    "pom": _LATER_STAGES,
-    "l3tlb_64k_15": _LATER_STAGES, "l3tlb_64k_24": _LATER_STAGES,
-    "l3tlb_64k_39": _LATER_STAGES,
-    "radix_collect": _LATER_STAGES + " (collect_feats)",
+    "radix_collect": _LATER_TABLES + " (collect_feats, for Table 2)",
     "utopia": _LATER_UR, "utopia_victima": _LATER_UR,
     "utopia_rs8": _LATER_UR, "utopia_rs32": _LATER_UR,
     "revelator": _LATER_UR, "revelator_victima": _LATER_UR,
-    "np": _LATER_STAGES, "victima_virt": _LATER_STAGES,
-    "pom_virt": _LATER_STAGES, "utopia_virt": _LATER_UR,
-    "revelator_virt": _LATER_UR, "isp": _LATER_STAGES,
+    "utopia_virt": _LATER_UR, "revelator_virt": _LATER_UR,
     **{f"{k}_{c}c": _LATER_MULTICORE
        for k in ("radix", "victima", "pom", "victima_dramc")
        for c in (1, 2, 4)},
@@ -103,6 +103,8 @@ register("victima_agnostic", _VICTIMA, "Victima with TLB-agnostic SRRIP "
 register("victima_noptwcp", _VICTIMA, "Victima inserting every candidate "
          "(no PTW-CP ablation)", tags=("native", "ablation"),
          victima=True, use_ptwcp=False)
+register("pom", _POM, "64K-entry software-managed in-memory L3 TLB",
+         tags=("native",), pom=True)
 
 # optimistic large L2 TLBs (12-cycle regardless of size; Figs. 5-6)
 for _n, _sets, _ways in [("3k", 256, 12), ("8k", 512, 16),
@@ -120,9 +122,26 @@ for _n, _sets, _lat in [("8k", 512, 17), ("16k", 1024, 23),
              tags=("native", "l2tlb_ladder"),
              l2tlb_sets=_sets, l2tlb_ways=16, l2tlb_lat=_lat)
 
+# hardware L3 TLB (64K entries) at various latencies (Fig. 8)
+for _lat in (15, 24, 39):
+    register(f"l3tlb_64k_{_lat}", _L3, f"64K-entry hardware L3 TLB @{_lat}c",
+             tags=("native", "l3tlb_ladder"),
+             l3tlb_sets=4096, l3tlb_lat=_lat)
+
 # L2 cache size sensitivity (Fig. 25): 1/4/8 MB
 for _n, _sets in [("1m", 1024), ("4m", 4096), ("8m", 8192)]:
     register(f"victima_l2_{_n}", _VICTIMA, f"Victima with {_n}B L2 cache",
              tags=("native", "sensitivity"), victima=True, l2_sets=_sets)
     register(f"radix_l2_{_n}", _RADIX, f"radix with {_n}B L2 cache",
              tags=("native", "sensitivity"), l2_sets=_sets)
+
+# --------------------------------------------------------------- virtualized
+register("np", _NP, "nested paging: 2-D walk + nested TLB",
+         tags=("virt",), virt=True)
+register("victima_virt", _VICTIMA_NP, "Victima under nested paging "
+         "(gVA + nested TLB blocks in L2$)", tags=("virt", "headline"),
+         virt=True, victima=True)
+register("pom_virt", _POM_NP, "POM-TLB under nested paging",
+         tags=("virt",), virt=True, pom=True)
+register("isp", _RADIX, "ideal shadow paging: 1-D walk, free updates",
+         tags=("virt",), virt=True, ideal_shadow=True)

@@ -12,6 +12,8 @@ traces, and every state leaf must be equal after the run.  The other
 tests check, on CPU tensors, that the wrapper refuses what the kernel
 does not take; they import no jax either.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,23 @@ from repro_torch.sim import systems, trace_gen
 TINY = dict(l2tlb_sets=4, l2tlb_ways=4, l1d4_sets=2, l1d4_ways=2,
             l1d2_sets=2, l1d2_ways=2, l2_sets=64, l2_ways=8, l3_sets=64,
             l3_ways=8, n_pages4=1 << 12, n_pages2=1 << 8)
+
+# the systems of the L3-TLB, POM-TLB and nested-paging compositions (their
+# plain runs go on the CPU: on the card the plain step waits on the host,
+# one small kernel at a time)
+STAGED = ["pom", "l3tlb_64k_15", "l3tlb_64k_24", "l3tlb_64k_39", "np",
+          "victima_virt", "pom_virt", "isp"]
+
+
+def tiny(name: str) -> SimConfig:
+    """`name` on TINY structures, with test_systems_registry's small L3
+    TLB, POM shadow and host-page table."""
+    cfg = systems.get(name).config(SimConfig(**TINY, n_pagesh=1 << 8))
+    if cfg.l3tlb_sets:
+        cfg = dataclasses.replace(cfg, l3tlb_sets=16, l3tlb_ways=4)
+    if cfg.pom:
+        cfg = dataclasses.replace(cfg, pom_sets=16, pom_ways=4)
+    return cfg
 
 
 @pytest.fixture
@@ -97,6 +116,41 @@ def test_kernel_matches_plain_at_table3(cuda, system):
                         run(cfg, tr, cuda, kernel=True))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("system", STAGED)
+def test_staged_kernel_matches_plain_on_small_structures(cuda, system):
+    """Every new flow (L3-TLB and POM hits, nested-TLB hits and host walks,
+    Victima's nested-TLB blocks) fires at this size; the composition's
+    launch is counted."""
+    cfg = tiny(system)
+    tr = mixed_traces(1000, 2)
+    comp = mmu_step.COMPOSITIONS[default_stages(cfg)][0]
+    before = mmu_step.LAUNCHES_BY_COMPOSITION[comp]
+    got = run(cfg, tr, cuda, kernel=True)
+    assert mmu_step.LAUNCHES_BY_COMPOSITION[comp] == before + 1
+    assert_leaves_equal(run(cfg, tr, torch.device("cpu"), kernel=False), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("system", STAGED)
+def test_staged_kernel_matches_plain_at_table3(cuda, system):
+    cfg = systems.config(system)
+    assert mmu_step.placement(cfg).name == "shared"
+    tr = workload_traces(["rnd", "bc"], 300)
+    assert_leaves_equal(run(cfg, tr, torch.device("cpu"), kernel=False),
+                        run(cfg, tr, cuda, kernel=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("system", ["pom", "np", "victima_virt"])
+def test_staged_result_does_not_depend_on_block(cuda, system):
+    """97-row launches (not a divisor of the trace) equal the plain run."""
+    cfg = tiny(system)
+    tr = mixed_traces(500, 2, seed=3)
+    assert_leaves_equal(run(cfg, tr, torch.device("cpu"), kernel=False),
+                        run(cfg, tr, cuda, kernel=True, block=97))
+
+
 # one system of each placement the registry reaches: everything in shared
 # memory (Table 3), the L2 cache in device memory (8 MB), the L2 TLB in
 # device memory (128k entries)
@@ -152,11 +206,13 @@ def test_launches_are_counted(cuda):
 # ------------------------------------------ wrapper checks (on the CPU)
 
 # every system the port simulates -> its placement; Table 3 takes 217,200
-# bytes of shared memory, l2tlb_3k 231,024
+# bytes of shared memory (217,776 with the nested TLB), l2tlb_3k 231,024
 WANT_PLACEMENT = {
     **dict.fromkeys(["radix", "victima", "victima_agnostic",
                      "victima_noptwcp", "l2tlb_3k", "victima_l2_1m",
-                     "radix_l2_1m"], "shared"),
+                     "radix_l2_1m", "pom", "l3tlb_64k_15", "l3tlb_64k_24",
+                     "l3tlb_64k_39", "np", "victima_virt", "pom_virt",
+                     "isp"], "shared"),
     **dict.fromkeys([f"l2tlb_{n}" for n in ("8k", "16k", "32k", "64k",
                                             "128k")]
                     + [f"l2tlb_{n}_real" for n in ("8k", "16k", "32k",
@@ -174,6 +230,9 @@ def test_placement_of_every_system():
         assert (pl.l2_shared, pl.l2tlb_shared) == mmu_step.PLACEMENTS[want]
         assert 0 < pl.smem_bytes <= mmu_step.SMEM_LIMIT == 232_448, name
     assert mmu_step.placement(systems.config("victima")).smem_bytes == 217_200
+    for name in ("np", "victima_virt", "pom_virt", "isp"):
+        assert mmu_step.placement(systems.config(name)).smem_bytes == \
+            217_776, name
     assert mmu_step.placement(systems.config("l2tlb_3k")).smem_bytes == \
         231_024
 
@@ -284,12 +343,51 @@ def test_params_refuse_more_than_32_ways():
         mmu_step._params(*cpu_args(cfg))
 
 
+@pytest.mark.parametrize("system", STAGED)
+def test_params_carry_the_composition(system):
+    cfg = tiny(system)
+    p = mmu_step._params(*cpu_args(cfg))
+    names = default_stages(cfg)
+    assert (p.composition, p.comp) == mmu_step.COMPOSITIONS[names]
+    assert p.virt == int(cfg.virt)
+    assert (p.l3tlb.sets, p.pom.sets, p.ntlb.sets, p.pch.n) == (
+        max(cfg.l3tlb_sets, 1), cfg.pom_sets if cfg.pom else 1,
+        cfg.ntlb_sets if cfg.virt else 1, cfg.n_pagesh if cfg.virt else 1)
+    assert p.pom_mask == cfg.pom_sets * cfg.pom_ways - 1
+    assert p.smem_bytes == mmu_step.placement(cfg).smem_bytes
+
+
+def test_params_refuse_a_staged_composition_outside_shared_memory():
+    cfg = dataclasses.replace(tiny("np"), l2_sets=1 << 14)
+    assert mmu_step.placement(cfg).name == "l2_device"
+    with pytest.raises(ValueError, match="only with the lane in shared"):
+        mmu_step._params(*cpu_args(cfg))
+    # radix and Victima keep every placement
+    mmu_step._params(*cpu_args(dataclasses.replace(cfg, virt=False)))
+
+
+def test_params_refuse_a_wrong_nested_state():
+    st, tr, cfg, names = cpu_args(tiny("victima_virt"))
+    with pytest.raises(ValueError, match="pch.freq"):
+        mmu_step._params(st._replace(pch=st.pch._replace(
+            freq=st.pch.freq[:, :8])), tr, cfg, names)
+    st, tr, cfg, names = cpu_args(tiny("pom"))
+    with pytest.raises(ValueError, match="pom.tags"):
+        mmu_step._params(st._replace(pom=st.pom._replace(
+            tags=st.pom.tags[:, :8])), tr, cfg, names)
+
+
 def test_params_refuse_other_compositions():
     st, tr, cfg, _ = cpu_args()
     with pytest.raises(ValueError, match="compositions"):
         mmu_step._params(st, tr, cfg, ("l1_tlb", "ptw"))
     with pytest.raises(ValueError, match="disagrees"):
         mmu_step._params(st, tr, cfg, ("l1_tlb", "l2_tlb", "victima", "ptw"))
+    with pytest.raises(ValueError, match="disagrees"):
+        mmu_step._params(st, tr, cfg, ("l1_tlb", "l2_tlb", "ptw2d"))
+    st, tr, cfg, _ = cpu_args(tiny("isp"))
+    with pytest.raises(ValueError, match="disagrees"):
+        mmu_step._params(st, tr, cfg, ("l1_tlb", "l2_tlb", "ptw2d"))
 
 
 def test_cpu_state_runs_the_plain_version_without_launching():

@@ -79,7 +79,9 @@ def test_config_stats_and_state_mirror_the_reference():
             (tuple(b) if n == "lat" else b), n
     assert j_base.Stats._fields == t_base.Stats._fields
     for cfg in (GOLDEN_CFG, j_base.SimConfig(),
-                j_systems.config("victima_l2_8m")):
+                j_systems.config("victima_l2_8m"),
+                j_systems.config("l3tlb_64k_15"),
+                j_systems.config("pom_virt"), j_systems.config("isp")):
         ref = jax.tree.leaves(j_base.make_state(cfg))
         got = t_base.state_leaves(t_base.make_state(port_cfg(cfg)))
         assert [(x.shape, np.dtype(x.dtype)) for x in ref] == \
