@@ -9,14 +9,21 @@ parallel, and drives its three paths on the card:
   PyTorch version in each placement of the lane's state (all in shared
   memory at Table 3; the L2 cache, or the L2 TLB, in device memory) and
   for each system of the L3-TLB, POM-TLB and nested-paging compositions
-  (``STAGED``), ``repro_torch.sim.runner.run_batch`` over all 11
-  workloads (radix and Victima, then each of ``STAGED``, at the Table-3
-  defaults, every launch in shared memory and of the system's
-  composition) against the JAX package's snapshots
-  ``tests/golden/torch_fullsize_stats.json`` and
-  ``torch_fullsize_stages_stats.json``, timed, with each composition's
+  (``STAGED``) and of the Table-2, Utopia and Revelator ones (``PAPER``),
+  ``repro_torch.sim.runner.run_batch`` over all 11
+  workloads (radix and Victima, then each of ``STAGED`` and ``PAPER``,
+  at the Table-3 defaults, every launch in shared memory and of the
+  system's composition) against the JAX package's snapshots
+  ``tests/golden/torch_fullsize_stats.json``,
+  ``torch_fullsize_stages_stats.json`` and
+  ``torch_fullsize_paper_stats.json``, timed, with each composition's
   latency floor and, from the kernel's profiled build, its cycles per
   access by stage;
+- the paper's tables (phase 12): every figure function of
+  ``repro_torch.sim.paper`` at n = 20,000 against the reference's rows
+  in ``torch_fullsize_paper_stats.json`` (Table 2's MLPs trained from the
+  reference's initial weights, within ``MLP_TOL``), then the whole table
+  at n = 150,000 from a fresh result cache, timed per figure;
 - serving granite-3-2b (phases 6-8): the ``flash_attention`` (prefill;
   bf16 on the tensor cores, float32 on the CUDA cores, each call
   checked to have taken its dtype's kernel) and ``paged_attention``
@@ -61,8 +68,10 @@ import hashlib
 import json
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
@@ -99,6 +108,19 @@ SYSTEMS = ("radix", "victima")
 STAGED = {"pom": "pom", "l3tlb_64k_15": "l3tlb", "l3tlb_64k_24": "l3tlb",
           "l3tlb_64k_39": "l3tlb", "np": "np", "victima_virt": "victima_np",
           "pom_virt": "pom_np", "isp": "radix"}
+# the systems of the Table-2, Utopia and Revelator compositions -> the
+# composition each must launch; phase 2 checks all but utopia_rs8 (the
+# instantiation of utopia and utopia_rs32, at 16 ways) against the plain
+# version
+PAPER = {"radix_collect": "radix_collect", "utopia": "utopia",
+         "utopia_rs8": "utopia", "utopia_rs32": "utopia",
+         "utopia_victima": "utopia_victima", "revelator": "revelator",
+         "revelator_victima": "revelator_victima"}
+PAPER_PLAIN = [n for n in PAPER if n != "utopia_rs8"]
+# Table 2's MLPs trained on the card from the reference's initial weights
+# against the reference's results: accuracy, precision, recall and F1
+# within this (the two trainers' float32 sums differ in order)
+MLP_TOL = 0.005
 CHECK_N = 2000      # accesses of the kernel-vs-plain check at Table 3
 # processes that run STAGED's plain versions on the CPU during phase 2
 # (on the card the plain step waits on the host, one small kernel at a
@@ -135,6 +157,15 @@ def plain_leaves(name: str, tr: dict) -> list:
                         {k: torch.from_numpy(np.ascontiguousarray(v))
                          for k, v in tr.items()})
     return [x.numpy() for x in state_leaves(st)]
+
+
+def sha256_of(*arrays) -> str:
+    """sha256 over the arrays' bytes, in order (the paper snapshot's
+    digests of the feats and pc4 extras and of Table 2's dataset)."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(np.asarray(a)).tobytes())
+    return h.hexdigest()
 
 
 def phase(name):
@@ -223,10 +254,11 @@ def latency_floor(cfg, st, sm_ns: float, l1_ns: float, l2_ns: float):
     shared memory, or in device memory the L1-hit latency where the
     structure fits in the L1 left beside the shared memory, else the
     L2-hit latency.  Rounds: the first of every access (the L1 TLBs, L2
-    TLB, L1D, PWCs, Victima probe and L3-TLB or POM-shadow rows, read
-    together); per walk level, POM-TLB line and host-walk level an
-    L2-cache row, and an L3 row where it misses the L2; per nested
-    translation its nested-TLB row (shared memory), and under Victima its
+    TLB, L1D, PWCs, Victima probe, L3-TLB or POM-shadow rows, RestSeg
+    and signature-table rows, read together); per walk level, POM-TLB
+    line, RestSeg tag line and host-walk level an L2-cache row, and an L3
+    row where it misses the L2 (a verification walk of Revelator counts
+    one level at least); per nested translation its nested-TLB row (shared memory), and under Victima its
     nested-TLB-block probe's L2 row where the nested TLB missed; per
     background walk its PWC rows and the retag's L2 row; the two
     background lines' L3 rows (read together); on an L1D miss the data
@@ -256,6 +288,10 @@ def latency_floor(cfg, st, sm_ns: float, l1_ns: float, l2_ns: float):
         first = max(first, dev_ns(9 * cfg.l3tlb_sets * cfg.l3tlb_ways))
     if cfg.pom:
         first = max(first, dev_ns(9 * cfg.pom_sets * cfg.pom_ways))
+    if cfg.utopia:
+        first = max(first, dev_ns(9 * cfg.restseg4_sets * cfg.restseg_ways))
+    if cfg.revelator:  # the signature row and its enrolled pages
+        first = max(first, dev_ns(13 * cfg.rev_sets * cfg.rev_ways))
     s, h = st.stats, st.hier
     acc = s.n_access.double()
     bgw = s.n_bg_ptw.double()
@@ -266,6 +302,10 @@ def latency_floor(cfg, st, sm_ns: float, l1_ns: float, l2_ns: float):
     pte = s.n_demand_ptw.double() + bgw + 4 * host
     if cfg.pom:  # every access past the L2 TLB reads its POM line
         pte = pte + s.n_l2tlb_miss.double() - s.n_victima_hit.double()
+    if cfg.utopia:  # every RestSeg probe reads its tag line
+        pte = pte + s.n_restseg_hit.double() + s.n_restseg_miss.double()
+    if cfg.revelator:  # a verification walk (one level at least) a hit
+        pte = pte + s.n_rev_hit.double() + s.n_rev_mispred.double()
     levels = torch.maximum(pte, h.n_l3_trans.double())
     l2m = h.n_l2_miss.double()
     l2_rounds = levels + h.n_l2_access.double()
@@ -1355,11 +1395,11 @@ def main() -> int:
     l1_ns = load_latency_ns(chase, 16 << 10, dev)
     l2_ns = load_latency_ns(chase, 16 << 20, dev)
     sm_ns = load_latency_ns(chase, 16 << 10, dev, shared=True)
-    for comp, code in mmu_step.COMPOSITIONS.values():
-        for place in (mmu_step.PLACEMENTS if comp in mmu_step.EVERY_PLACEMENT
-                      else ("shared",)):
-            print(f"mmu_step {comp} ({place}): " + ptxas_usage(
-                builds["mmu_step"]["log"], mmu_entry(code, place)))
+    codes = dict((*mmu_step.COMPOSITIONS.values(),
+                  *mmu_step.COLLECTED.values()))
+    for comp, place in mmu_step.instantiations():
+        print(f"mmu_step {comp} ({place}): " + ptxas_usage(
+            builds["mmu_step"]["log"], mmu_entry(codes[comp], place)))
     print(f"dependent load: {l1_ns:.1f} ns at a 16 KiB footprint (L1 hit), "
           f"{l2_ns:.1f} ns at 16 MiB (L2 hit), {sm_ns:.1f} ns in shared "
           f"memory")
@@ -1389,7 +1429,7 @@ def main() -> int:
         stk = make_state(cfg, tr["vpn"].shape[1], dev)
         ctr = on_card(tr)
         want = mmu_step.placement(cfg).name
-        comp = mmu_step.COMPOSITIONS[names][0]
+        comp = mmu_step.composition(cfg, names)[0]
         before = mmu_step.LAUNCHES_BY_PLACEMENT[want]
         before_c = mmu_step.LAUNCHES_BY_COMPOSITION[comp]
         mmu_step.launch(stk, ctr, cfg, names)
@@ -1429,7 +1469,8 @@ def main() -> int:
     try:
         staged_plain = {name: pool.submit(plain_leaves, name, check_tr)
                         for name in sorted(STAGED, key=lambda n: (
-                            "virt" not in n and n != "np", n))}
+                            "virt" not in n and n != "np", n))
+                        + PAPER_PLAIN}
         worst, kernel_leaves = 0.0, {}
         for name in SYSTEMS:
             t0 = time.perf_counter()
@@ -1460,7 +1501,8 @@ def main() -> int:
             print(f"{name} ({want}, {got.smem_bytes:,} bytes of shared "
                   f"memory), rnd+bc, {PLACED_N} accesses: kernel == plain on "
                   f"all {len(k)} leaves ({time.perf_counter() - t0:.1f} s)")
-        for name, comp in STAGED.items():
+        for name, comp in [*STAGED.items(),
+                           *((n, PAPER[n]) for n in PAPER_PLAIN)]:
             t0 = time.perf_counter()
             cfg = systems.config(name)
             got = mmu_step.placement(cfg)
@@ -1519,7 +1561,7 @@ def main() -> int:
             raise AssertionError(f"{w}: the port's trace differs from the "
                                  f"one the snapshot was made from")
     print("traces: all 11 equal the snapshot's (sha256)")
-    composition = {**{n: n for n in SYSTEMS}, **STAGED}
+    composition = {**{n: n for n in SYSTEMS}, **STAGED, **PAPER}
 
     def main_path_launches(name):
         """Launches since the counts were set to 0; every one must have
@@ -1546,14 +1588,24 @@ def main() -> int:
                 counts[k] = 0
 
     def snapshot_equal(name, out, want, n):
+        """Every Stats leaf and extra of `out` equals the snapshot's; an
+        extra the snapshot holds as ``<key>_sha256`` (feats, pc4) by its
+        digest."""
         for w in workloads:
             stats, extras, _ = out[w]
             for field, v in want[w]["stats"].items():
                 if np.asarray(getattr(stats, field)).tolist() != v:
                     raise AssertionError(f"{name}/{w}: Stats.{field} "
                                          f"differs from the snapshot (n={n})")
+            keys = {k.removesuffix("_sha256") for k in want[w]["extras"]}
+            if set(extras) != keys:
+                raise AssertionError(f"{name}/{w}: extras {sorted(extras)}, "
+                                     f"the snapshot's {sorted(keys)}")
             for key, v in want[w]["extras"].items():
-                if np.asarray(extras[key]).tolist() != v:
+                got = (sha256_of(*extras[key.removesuffix("_sha256")])
+                       if key.endswith("_sha256")
+                       else np.asarray(extras[key]).tolist())
+                if got != v:
                     raise AssertionError(f"{name}/{w}: extras[{key!r}] "
                                          f"differs from the snapshot (n={n})")
 
@@ -1589,6 +1641,23 @@ def main() -> int:
         print(f"{name}: 11 workloads at n={want['n']} equal the JAX stages "
               f"snapshot on every Stats leaf and extra ({launches} launches, "
               f"all {composition[name]} in shared memory)")
+    with open(os.path.join(ROOT, "tests", "golden",
+                           "torch_fullsize_paper_stats.json")) as f:
+        snap3 = json.load(f)
+    assert (snap3["n"], snap3["seed"], snap3["workloads"]) == \
+        (FULL_N, 0, workloads), "paper snapshot settings"
+    if snap3["trace_sha256"] != snap["trace_sha256"]:
+        raise AssertionError("the paper snapshot was made from other traces")
+    for name in PAPER:
+        zero_counts()
+        out = runner.run_batch(name, n=FULL_N, seed=0, cache=False)
+        launches, _ = main_path_launches(name)
+        snapshot_equal(name, out, snap3["systems"][name], FULL_N)
+        digests = " (feats, pc4 by sha256)" if name == "radix_collect" \
+            else ""
+        print(f"{name}: 11 workloads equal the JAX paper snapshot on every "
+              f"Stats leaf and extra{digests} ({launches} launches, all "
+              f"{composition[name]} in shared memory)")
     print(f"phase 3: {time.perf_counter() - t:.1f} s")
 
     # ------------------------------------------------------------ 4
@@ -1598,7 +1667,7 @@ def main() -> int:
           f"{gen_s:.2f} s")
     results, main_launches, by_placement, main_ms = {}, {}, {}, {}
     main_floor, main_wall = {}, {}
-    for name in SYSTEMS + tuple(STAGED):
+    for name in SYSTEMS + tuple(STAGED) + tuple(PAPER):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
@@ -1737,6 +1806,113 @@ def main() -> int:
     mamba = mamba2_serving(dev, builds["ssd_scan"]["log"])
     print(f"phase 11: {time.perf_counter() - t:.1f} s")
 
+    # ------------------------------------------------------------ 12
+    torch.cuda.empty_cache()
+    t = phase(f"12. the paper tables: every figure at n={FULL_N} against "
+              f"the reference's rows, then at n={TIMED_N}")
+    from repro_torch.core import ptwcp_nn
+    from repro_torch.sim import paper
+    figs = snap3["figures"]
+    assert sorted(figs) == sorted(f.__name__ for f in paper.ALL)
+    t2 = snap3["table2"]
+    inits = {name: [(np.asarray(w, np.float32), np.asarray(b, np.float32))
+                    for w, b in m["init"]] for name, m in t2["mlps"].items()}
+    cache_dir = runner.CACHE_DIR
+    tmp = tempfile.mkdtemp(prefix="paper_tables_")
+    try:
+        # n = 20,000, from a fresh cache: rows against the snapshot's
+        runner.CACHE_DIR = os.path.join(tmp, "small")
+        zero_counts()
+        for fig in paper.ALL:
+            extra = {"inits": inits} if fig is paper.table2_ptwcp else {}
+            rows = [[r[0], r[2]] for r in fig(workloads=workloads, n=FULL_N,
+                                               seed=0, device=dev, **extra)]
+            want = figs[fig.__name__]
+            if fig is paper.table2_ptwcp:
+                # the MLP rows in numbers below; the rest as strings
+                same = ([r[0] for r in rows] == [r[0] for r in want]
+                        and rows[3:] == want[3:])
+            else:
+                same = rows == want
+            if not same:
+                raise AssertionError(f"{fig.__name__}: rows {rows} differ "
+                                     f"from the reference's {want}")
+        small_launches = mmu_step.LAUNCHES
+        small_by = {k: v for k, v in
+                    mmu_step.LAUNCHES_BY_COMPOSITION.items() if v}
+        if set(small_by) != set(mmu_step.LAUNCHES_BY_COMPOSITION):
+            raise AssertionError(f"the figures launched the compositions "
+                                 f"{sorted(small_by)}, not every one")
+        print(f"{len(paper.ALL)} figures: every row equals the reference's "
+              f"(Table 2's MLP rows below); {small_launches} launches, by "
+              f"composition {small_by}")
+        for name, want in snap3["systems"].items():
+            out = runner.run_batch(name, workloads, n=FULL_N, seed=0,
+                                   device=dev)  # from the cache
+            snapshot_equal(name, out, want, FULL_N)
+        print(f"the {len(snap3['systems'])} systems the paper snapshot "
+              f"holds equal it on every Stats leaf and extra")
+        out = runner.run_batch("radix_collect", workloads, n=FULL_N, seed=0,
+                               device=dev)
+        X, y = ptwcp_nn.build_dataset([out[w][1] for w in workloads])
+        if (sha256_of(X), sha256_of(y), list(X.shape)) != \
+                (t2["X_sha256"], t2["y_sha256"], t2["X_shape"]):
+            raise AssertionError("Table 2's dataset differs from the "
+                                 "reference's")
+        box = ptwcp_nn.fit_box(X, y)
+        if list(box) != t2["fit_box"]:
+            raise AssertionError(f"fit_box {box} != {t2['fit_box']}")
+        comps = [ptwcp_nn.comparator_result(X, y),
+                 ptwcp_nn.comparator_result(
+                     X, y, box, name=f"Comparator(refit {box})")]
+        if [c.__dict__ for c in comps] != t2["comparators"]:
+            raise AssertionError("Table 2's comparator rows differ")
+        mlp_err = 0.0
+        for name, idx, hidden in ptwcp_nn.MLPS:
+            r = ptwcp_nn.train_mlp(X, y, idx, hidden, name=name, device=dev,
+                                   init=inits[name])
+            want = t2["mlps"][name]["result"]
+            if r.params_bytes != want["params_bytes"]:
+                raise AssertionError(f"{name}: {r.params_bytes} bytes")
+            err = max(abs(getattr(r, k) - want[k]) for k in
+                      ("accuracy", "precision", "recall", "f1"))
+            mlp_err = max(mlp_err, err)
+            if err > MLP_TOL:
+                raise AssertionError(f"{name}: {r} differs from the "
+                                     f"reference's {want} by {err}")
+            print(f"Table 2 {name} from the reference's initial weights: "
+                  f"acc {r.accuracy:.4f} prec {r.precision:.4f} rec "
+                  f"{r.recall:.4f} F1 {r.f1:.4f} ({r.params_bytes} B), "
+                  f"max |diff| {err:.2e} (tolerance {MLP_TOL})")
+        print(f"Table 2 at n={FULL_N}: dataset {X.shape} and its labels "
+              f"equal the reference's (sha256), fit_box {box}, both "
+              f"comparator rows exact")
+
+        # the whole table at n = 150,000, from a fresh cache
+        runner.CACHE_DIR = os.path.join(tmp, "full")
+        shutil.rmtree(os.path.join(tmp, "small"))
+        zero_counts()
+        walls = {}
+        t0 = time.perf_counter()
+        for fig in paper.ALL:
+            t1 = time.perf_counter()
+            rows = fig(workloads=workloads, n=TIMED_N, seed=0, device=dev)
+            walls[fig.__name__] = time.perf_counter() - t1
+            for name, us, derived in rows:
+                print(f"  {name:42s} {derived}  ({us:.4f} us/access)")
+            print(f"{fig.__name__}: {walls[fig.__name__]:.2f} s")
+        paper_wall = time.perf_counter() - t0
+        paper_launches = mmu_step.LAUNCHES
+        if paper_launches == 0:
+            raise AssertionError("the paper tables launched no kernel")
+        print(f"the paper tables at n={TIMED_N} from a fresh cache: "
+              f"{paper_wall:.2f} s in all, {paper_launches} launches, by "
+              f"composition {dict(mmu_step.LAUNCHES_BY_COMPOSITION)}")
+    finally:
+        runner.CACHE_DIR = cache_dir
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 12: {time.perf_counter() - t:.1f} s")
+
     shape = {"flash_attention": f"granite-3-2b prefill: B={SERVE_B}, "
                                 f"S={SERVE_PROMPT}, H=32, K=8, hd=64, bf16, "
                                 f"causal",
@@ -1766,7 +1942,13 @@ def main() -> int:
         "launches": main_launches["victima"],
         "launches_by_system": main_launches,
         "launches_by_placement": by_placement["victima"],
-        "compositions": [c for c, _ in mmu_step.COMPOSITIONS.values()],
+        "compositions": [c for c, _ in (*mmu_step.COMPOSITIONS.values(),
+                                        *mmu_step.COLLECTED.values())],
+        "paper_tables": {"n": TIMED_N, "wall_s": paper_wall,
+                         "wall_s_by_figure": walls,
+                         "launches": paper_launches,
+                         "rows_equal_reference_at_n": FULL_N,
+                         "table2_mlp_max_abs_diff": mlp_err},
         "composition_by_system": composition,
         "main_path_wall_s": main_wall, "main_path_floor_ms": main_floor,
         "placement": pl.name, "smem_bytes": pl.smem_bytes,

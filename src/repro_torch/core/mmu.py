@@ -3,7 +3,9 @@
 
 The translation path is a statically composed list of stages (see
 ``repro_torch.core.stages``): L1 TLB -> L2 TLB -> [Victima L2-cache
-probe] -> [L3 TLB] -> [POM-TLB] -> radix or nested-paging (2-D) walker.  ``make_step`` folds the composition
+probe] -> [L3 TLB] -> [POM-TLB] -> radix or nested-paging (2-D) walker,
+with Revelator's signature probe right after the L2 TLB and Utopia's
+RestSeg probe right before the walker.  ``make_step`` folds the composition
 into one per-access step over lane-batched state; ``scan_accesses`` runs
 it over a trace through ``repro_torch.kernels.mmu_step.blocked_scan``,
 which launches the hand-written CUDA kernel when the state lies on the
@@ -21,12 +23,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import ptwcp
 from repro_torch.core.caches import BT_DATA, REUSE_BUCKETS, access_data
 from repro_torch.core.stages import (MMUState, Request, STAGES, SimConfig,
                                      Stats, WALK_HIST_BUCKETS,
-                                     default_stages, fill_order, make_state,
-                                     validate_stages)
-from repro_torch.core.stages.fold import accum_stats
+                                     Feats, default_stages, fill_order,
+                                     make_state, validate_stages)
+from repro_torch.core.stages.fold import accum_stats, collect_feats
 from repro_torch.kernels import mmu_step
 
 __all__ = [
@@ -108,6 +111,8 @@ def make_step(cfg: SimConfig, stage_names=None):
         _, dcyc = access_data(st.hier, req.line, now, pressure,
                               cfg.tlb_aware, cfg.lat)
         accum_stats(st.stats, st, out, walk_res, trans, past_l2, dcyc)
+        if cfg.collect:
+            collect_feats(cfg, st, req, out, walk_res)
         return st
 
     return step
@@ -136,9 +141,10 @@ def _final_hists(l2):
     return hd, ht
 
 
-def _finalize(st: MMUState):
-    """The finished state as host numpy: (Stats, l2a, l2m, hd, ht) with
-    a leading lane axis on every leaf."""
+def _finalize(st: MMUState, cfg: SimConfig):
+    """The finished state as host numpy: (Stats, l2a, l2m, hd, ht, feats,
+    pc4) with a leading lane axis on every leaf (feats and pc4 are None
+    unless ``cfg.collect``)."""
     hd, ht = _final_hists(st.hier.l2)
 
     def host(x):
@@ -146,13 +152,21 @@ def _finalize(st: MMUState):
 
     stats = Stats(*[host(x) for x in st.stats])
     return (stats, host(st.hier.n_l2_access), host(st.hier.n_l2_miss),
-            host(hd), host(ht))
+            host(hd), host(ht),
+            Feats(*[host(x) for x in st.feats]) if cfg.collect else None,
+            ptwcp.PageCounters(*[host(x) for x in st.pc4])
+            if cfg.collect else None)
 
 
-def _extras_of(l2a, l2m, hd, ht, index=lambda x: x) -> dict:
-    return {"l2_access": int(index(l2a)), "l2_miss": int(index(l2m)),
-            "hist_reuse_data": np.asarray(index(hd)),
-            "hist_reuse_tlb": np.asarray(index(ht))}
+def _extras_of(cfg, l2a, l2m, hd, ht, feats, pc4,
+               index=lambda x: x) -> dict:
+    e = {"l2_access": int(index(l2a)), "l2_miss": int(index(l2m)),
+         "hist_reuse_data": np.asarray(index(hd)),
+         "hist_reuse_tlb": np.asarray(index(ht))}
+    if cfg.collect:
+        e["feats"] = type(feats)(*[np.asarray(index(x)) for x in feats])
+        e["pc4"] = type(pc4)(*[np.asarray(index(x)) for x in pc4])
+    return e
 
 
 def _lane_trace(trace: dict, cfg: SimConfig, device, lanes: int | None):
@@ -189,9 +203,9 @@ def simulate(cfg: SimConfig, trace: dict, stage_names=None, device=None):
     step = make_step(cfg, names)
     tr = _lane_trace(trace, cfg, dev, None)
     st = scan_accesses(step, make_state(cfg, 1, dev), tr, cfg, names)
-    stats, l2a, l2m, hd, ht = _finalize(st)
+    stats, *rest = _finalize(st, cfg)
     return (Stats(*[x[0] for x in stats]),
-            _extras_of(l2a, l2m, hd, ht, index=lambda x: x[0]))
+            _extras_of(cfg, *rest, index=lambda x: x[0]))
 
 
 def simulate_batch(cfg: SimConfig, traces: dict, stage_names=None,
@@ -206,8 +220,8 @@ def simulate_batch(cfg: SimConfig, traces: dict, stage_names=None,
     tr = _lane_trace(traces, cfg, dev, lanes=True)
     W = tr["vpn"].shape[1]
     st = scan_accesses(step, make_state(cfg, W, dev), tr, cfg, names)
-    stats, l2a, l2m, hd, ht = _finalize(st)
+    stats, *rest = _finalize(st, cfg)
     per = [Stats(*[x[i] for x in stats]) for i in range(W)]
-    extras = [_extras_of(l2a, l2m, hd, ht, index=lambda x, i=i: x[i])
+    extras = [_extras_of(cfg, *rest, index=lambda x, i=i: x[i])
               for i in range(W)]
     return per, extras

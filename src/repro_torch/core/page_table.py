@@ -38,6 +38,8 @@ HPD_BASE = _B + 5 * _W
 HPDP_BASE = _B + 6 * _W
 HPML4_BASE = _B + 7 * _W
 POM_BASE = _B + 8 * _W
+RESTSEG4_BASE = _B + 9 * _W   # Utopia 4K RestSeg tag/permission lines
+RESTSEG2_BASE = _B + 10 * _W  # Utopia 2M RestSeg tag/permission lines
 
 PWC_LAT = 2
 

@@ -17,7 +17,11 @@ Differences from the reference, all forced by torch:
   for one, but rejects on construction any value this port cannot
   simulate yet, naming the field;
 - the ``Dyn`` ladder views are not ported yet, so ``Request`` has no
-  ``dyn`` field and every geometry is static.
+  ``dyn`` field and every geometry is static;
+- the Table-2 feature counters keep the reference's uint16, but CPU
+  torch neither adds nor puts into uint16, so ``collect_feats`` works on
+  int16 views of them: int16 addition wraps modulo 2^16 as the
+  reference's uint16 ``.at[].add`` does, bit for bit.
 """
 from __future__ import annotations
 
@@ -37,13 +41,9 @@ WALK_HIST_BUCKETS = 64  # 10-cycle buckets for the Fig.4 PTW latency CDF
 # SimConfig values this port simulates; anything else names the ROADMAP
 # queue item that ports it
 _SUPPORTED = {
-    "utopia": (False, "Queue 1, Utopia and Revelator"),
-    "revelator": (False, "Queue 1, Utopia and Revelator"),
     "n_cores": (1, "Queue 1, Multicore"),
     "shared_tier_stats": (False, "Queue 1, Multicore"),
     "dram_cache_sets": (0, "Queue 1, Multicore (the DRAM-cache gate)"),
-    "collect": (False, "Queue 1, The paper tables on the port "
-                       "(collect_feats, with ptwcp_nn for Table 2)"),
 }
 
 
@@ -120,6 +120,12 @@ class SimConfig:
                 raise ValueError(
                     f"SimConfig.{field}={got!r}: this port simulates only "
                     f"{field}={want!r} so far; ROADMAP.md {item} ports it")
+        if self.virt and (self.utopia or self.revelator):
+            raise ValueError(
+                "SimConfig.utopia or revelator with virt=True: this port "
+                "simulates Utopia and Revelator natively only so far; "
+                "ROADMAP.md Queue 1, Utopia and Revelator under nested "
+                "paging ports them")
 
 
 class Stats(NamedTuple):
@@ -167,12 +173,13 @@ def zero_stats(lanes: int = 1, device="cpu") -> Stats:
 
 
 class Feats(NamedTuple):
-    """Per-page features for the Table-2 predictor study (sized 1: off)."""
-    n_access: torch.Tensor     # uint16
+    """Per-page features for the Table-2 predictor study (hashed table,
+    sized 1 when ``collect`` is off)."""
+    n_access: torch.Tensor     # uint16 [W, n_feat]
     n_l1_miss: torch.Tensor    # uint16
-    n_l2_miss: torch.Tensor    # uint16
-    n_walk: torch.Tensor       # uint16
-    walk_cyc: torch.Tensor     # float32
+    n_l2_miss: torch.Tensor    # uint16 — L2 TLB misses
+    n_walk: torch.Tensor       # uint16 — walk count
+    walk_cyc: torch.Tensor     # float32 — Σ demand-walk cycles
     is2m: torch.Tensor         # uint8
 
 
@@ -186,10 +193,16 @@ def zero_feats(n: int, lanes: int = 1, device="cpu") -> Feats:
 
 
 class RevTable(NamedTuple):
-    """Revelator signature table (sized 1: off in this slice)."""
+    """Revelator signature table: hashed VPN -> speculative frame (sized
+    1 when ``revelator`` is off).
 
-    tab: Assoc
-    vpn: torch.Tensor   # int32 [W, S, ways]
+    ``tab`` is keyed by a lossy signature of the size-tagged page id;
+    ``vpn`` shadows the enrolled page id per way, the ground truth the
+    verification walk confirms against.
+    """
+
+    tab: Assoc          # tags = lossy signature, meta = LRU stamp
+    vpn: torch.Tensor   # int32 [W, S, ways] — enrolled key2 per way
 
 
 class MMUState(NamedTuple):
@@ -202,13 +215,13 @@ class MMUState(NamedTuple):
     pwcs: PWCs
     hier: Hier
     ntlb: Assoc         # nested TLB (virt; sized 1 otherwise)
-    restseg4: Assoc     # sized 1
-    restseg2: Assoc     # sized 1
-    rev: RevTable       # sized 1
+    restseg4: Assoc     # Utopia 4K-page RestSeg (sized 1 when off)
+    restseg2: Assoc     # Utopia 2M-page RestSeg (sized 1 when off)
+    rev: RevTable       # Revelator signature table (sized 1 when off)
     pc4: ptwcp.PageCounters
     pc2: ptwcp.PageCounters
     pch: ptwcp.PageCounters  # host-page counters (virt; sized 1 otherwise)
-    feats: Feats        # sized 1
+    feats: Feats        # Table-2 features (sized 1 when collect is off)
     stats: Stats
 
 
@@ -217,6 +230,10 @@ def make_state(cfg: SimConfig, lanes: int = 1, device="cpu") -> MMUState:
     shapes (placeholders of absent structures sized 1, as there)."""
     def mk(sets, ways):
         return make(sets, ways, lanes, device)
+
+    rs_ways = cfg.restseg_ways if cfg.utopia else 1
+    rev_sets = cfg.rev_sets if cfg.revelator else 1
+    rev_ways = cfg.rev_ways if cfg.revelator else 1
 
     return MMUState(
         now=torch.zeros((lanes,), dtype=torch.int32, device=device),
@@ -230,16 +247,16 @@ def make_state(cfg: SimConfig, lanes: int = 1, device="cpu") -> MMUState:
                        cfg.l3_sets, cfg.l3_ways, 1, cfg.dram_cache_ways,
                        lanes=lanes, device=device),
         ntlb=mk(cfg.ntlb_sets if cfg.virt else 1, cfg.ntlb_ways),
-        restseg4=mk(1, 1),
-        restseg2=mk(1, 1),
-        rev=RevTable(tab=mk(1, 1),
-                     vpn=torch.zeros((lanes, 1, 1), dtype=torch.int32,
-                                     device=device)),
+        restseg4=mk(cfg.restseg4_sets if cfg.utopia else 1, rs_ways),
+        restseg2=mk(cfg.restseg2_sets if cfg.utopia else 1, rs_ways),
+        rev=RevTable(tab=mk(rev_sets, rev_ways),
+                     vpn=torch.zeros((lanes, rev_sets, rev_ways),
+                                     dtype=torch.int32, device=device)),
         pc4=ptwcp.make_counters(cfg.n_pages4, lanes, device),
         pc2=ptwcp.make_counters(cfg.n_pages2, lanes, device),
         pch=ptwcp.make_counters(cfg.n_pagesh if cfg.virt else 1, lanes,
                                 device),
-        feats=zero_feats(1, lanes, device),
+        feats=zero_feats(cfg.n_feat if cfg.collect else 1, lanes, device),
         stats=zero_stats(lanes, device),
     )
 
@@ -325,6 +342,25 @@ class StageResult(NamedTuple):
     cycles: torch.Tensor      # int32 [W] — latency charged by this stage
     info: dict                # stage-specific values for fills/stats
     need: Any = None          # bool [W] — still unresolved AFTER this stage
+
+
+def ptwcp_walk_verdict(cfg: SimConfig, st: MMUState, req: Request,
+                       walk_en):
+    """Post-walk PTW-CP verdict shared by fill-time promotion engines
+    (Utopia's RestSeg migration, Revelator's enrollment).
+
+    Reads the freshly trained counters (callers run after whichever fill
+    owns the counter traffic, see ``stages.fill_order``) and applies the
+    standard overrides: ``use_ptwcp=False`` promotes every candidate,
+    high L2$ MPKI (``req.l2_bypass``) bypasses the predictor.
+    """
+    if not cfg.use_ptwcp:
+        return walk_en
+    idx4 = req.vpn & (cfg.n_pages4 - 1)
+    idx2 = req.vpn2 & (cfg.n_pages2 - 1)
+    pred = torch.where(req.is2m, ptwcp.predict_page(st.pc2, idx2),
+                       ptwcp.predict_page(st.pc4, idx4))
+    return walk_en & (pred | req.l2_bypass)
 
 
 class Stage:

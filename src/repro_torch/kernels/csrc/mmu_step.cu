@@ -15,8 +15,17 @@
 //   np         l1_tlb, l2_tlb, ptw2d           fills: ptw2d, l2_tlb, l1_tlb
 //   victima_np l1_tlb, l2_tlb, victima, ptw2d  fills: l2_tlb, victima, l1_tlb
 //   pom_np     l1_tlb, l2_tlb, pom, ptw2d      fills: ptw2d, l2_tlb, pom, l1_tlb
+//   radix_collect  the radix composition with the Table-2 feature stream
+//              (stages.fold.collect_feats) after the Stats fold
+//   utopia     l1_tlb, l2_tlb, restseg, ptw    fills: ptw, l2_tlb, restseg, l1_tlb
+//   utopia_victima  l1_tlb, l2_tlb, victima, restseg, ptw
+//                                 fills: l2_tlb, victima, restseg, l1_tlb
+//   revelator  l1_tlb, l2_tlb, rev, ptw        fills: ptw, l2_tlb, rev, l1_tlb
+//   revelator_victima  l1_tlb, l2_tlb, rev, victima, ptw
+//                                 fills: l2_tlb, victima, rev, l1_tlb
 // (ideal shadow paging runs the radix instantiation: its nested TLB is
-// allocated and given its room in shared memory, and never touched).
+// allocated and given its room in shared memory, and never touched;
+// utopia_rs8 and utopia_rs32 run utopia's, the RestSeg ways a parameter).
 // It must equal the plain PyTorch step (repro_torch.core.mmu.make_step)
 // bit for bit, so every operation follows that code's order; the
 // comments name the reference function each block mirrors.
@@ -43,7 +52,16 @@
 // template, instantiated per placement.  The L3 (288 KiB a lane at
 // Table 3), the PTW-CP counters (4 MiB), the host-page counters (32 KiB)
 // and the 64K-entry L3 TLB and POM-TLB shadow (576 KiB each, read one
-// row at a time as a large L2 TLB is) always stay in device memory.
+// row at a time as a large L2 TLB is) always stay in device memory, and
+// so do the structures of the compositions added last, whose
+// instantiations run only with the rest of the lane in shared memory
+// (which leaves them no room there): Utopia's RestSegs (8192 and 256
+// sets of up to 32 ways, 1.2 MB a lane at 16 ways), Revelator's
+// signature table and its enrolled-page shadow (4096 x 16, 832 KiB), the
+// Table-2 feature table (2^20 entries of 13 bytes, 13 MiB a lane; one
+// thread reads an access's entry at the start of the access and writes
+// it at the end), and the RestSeg and verification-walk histograms (one
+// thread's fire-and-forget atomicAdd a probe).
 //
 // Every row is read once into registers, one way a thread; a touch or an
 // insert on the same row works on those registers and stores only the
@@ -85,7 +103,8 @@
 // csrc/load_latency.cu); the instructions between them are not counted.
 //
 // Exactness.  int32 arithmetic that wraps in the reference (the
-// background-line hash) is done in uint32; float sums use __fadd_rn /
+// background-line hash, hash_h, Revelator's signature) is done in
+// uint32, and the uint16 feature counters wrap as uint16; float sums use __fadd_rn /
 // __fmul_rn in float (never double), one access at a time, and the file
 // is compiled with -fmad=false.  The pack step __trap()s on an RRPV or a
 // block type outside 0..3 or a negative reuse count instead of
@@ -117,8 +136,12 @@ constexpr int HOST_LINES = 4 * LINE_W, POM_LINES = 8 * LINE_W;
 // product wraps in the reference; signed overflow is undefined here)
 constexpr uint32_t HASH_MUL = 2654435761u;
 // a composition: bit 0 Victima, 1 the L3 TLB, 2 the POM-TLB, 3 the
-// nested (2-D) walk; mmu_step.COMPOSITIONS holds the same codes
+// nested (2-D) walk, 4 the Table-2 feature stream, 5 Utopia's RestSegs,
+// 6 Revelator; mmu_step.COMPOSITIONS holds the same codes
 constexpr int C_VICTIMA = 1, C_L3TLB = 2, C_POM = 4, C_NESTED = 8;
+constexpr int C_COLLECT = 16, C_RESTSEG = 32, C_REV = 64;
+// page_table.RESTSEG4_BASE and RESTSEG2_BASE, above LINE_B
+constexpr int RESTSEG4_LINES = 9 * LINE_W, RESTSEG2_LINES = 10 * LINE_W;
 constexpr uint32_t BG_MUL = static_cast<uint32_t>(-1640531527);
 constexpr uint32_t BG_SALT0 = static_cast<uint32_t>(-1640531527);
 constexpr uint32_t BG_SALT1 = static_cast<uint32_t>(-2048144789);
@@ -157,6 +180,19 @@ struct StatsP {
   float *sum_trans_cyc, *sum_l2miss_cyc, *sum_data_cyc, *sum_walk_cyc;
   int32_t* hist_walk;
   float *sum_tlb4_live, *sum_tlb2_live;
+  int32_t *n_restseg_hit, *n_restseg_miss, *n_restseg_mig,
+      *n_restseg_conflict;
+  float* sum_restseg_cyc;
+  int32_t* hist_restseg;
+  int32_t *n_rev_hit, *n_rev_mispred, *n_rev_enroll;
+  float* sum_rev_verify_cyc;
+  int32_t* hist_rev_verify;
+};
+struct FeatsP {  // the Table-2 feature table, [lanes, n] each
+  uint16_t *n_access, *n_l1_miss, *n_l2_miss, *n_walk;
+  float* walk_cyc;
+  uint8_t* is2m;
+  int32_t n, pad;
 };
 struct TraceP {
   int32_t* vpn;
@@ -196,6 +232,12 @@ struct Params {
   int32_t l2_shared, l2tlb_shared;  // the placement (1 = shared memory)
   int32_t smem_bytes;               // its bytes, as mmu_step.placement says
   int32_t pad;
+  // Utopia's RestSegs and Revelator's signature table with its
+  // enrolled-page shadow (device memory; sized 1 where absent)
+  AssocP restseg4, restseg2, rev;
+  int32_t* rev_vpn;
+  FeatsP feats;  // sized 1 unless the configuration collects
+  int32_t rev_lat, rev_sig_bits;
   // plan(*this), filled in by mmu_step_launch: the kernel reads its
   // offsets here, so a pointer it needs again costs one constant load
   // (the compiler rematerialises the pointers in the loop rather than
@@ -317,6 +359,16 @@ __device__ __forceinline__ void fill(const Lru& a, LruRow& r, int w, int key,
 __device__ __forceinline__ void insert_lru(const Lru& a, LruRow& r, int key,
                                            int now, bool en) {
   if (en) fill(a, r, lru_victim(r), key, now);
+}
+
+// assoc.insert_lru, returning evicted_valid & en (a RestSeg conflict)
+__device__ __forceinline__ bool insert_lru_evicts(const Lru& a, LruRow& r,
+                                                  int key, int now, bool en) {
+  if (!en) return false;
+  const int w = lru_victim(r);
+  const bool ev = (__ballot_sync(kFull, r.valid()) >> w) & 1u;
+  fill(a, r, w, key, now);
+  return ev;
 }
 
 // --------------------------------------------------------- L2 cache
@@ -576,6 +628,8 @@ __device__ __forceinline__ void l2_insert_pair(const L2c& c, L2Row& r,
 struct Lane {
   Lru l1d4, l1d2, l2tlb, pml4, pdp, pd, l1d;
   Lru l3tlb, pom;  // device memory
+  Lru rs4, rs2, rev;  // device memory
+  int32_t* rev_vpn;   // the signature table's enrolled page, per entry
   Lru ntlb;        // shared memory (when the configuration is virtualized)
   L2c l2;
   L3c l3;
@@ -1030,6 +1084,9 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
   constexpr bool l3tlb = (COMP & C_L3TLB) != 0;
   constexpr bool pom = (COMP & C_POM) != 0;
   constexpr bool nested = (COMP & C_NESTED) != 0;
+  constexpr bool collect = (COMP & C_COLLECT) != 0;
+  constexpr bool restseg = (COMP & C_RESTSEG) != 0;
+  constexpr bool rev = (COMP & C_REV) != 0;
   const int b = blockIdx.x;
   const Plan& pl = p.plan;
   const size_t n2 = static_cast<size_t>(p.l2.sets) * p.l2.ways;
@@ -1052,6 +1109,14 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
                    pl.lru_u8[LRU_L2TLB]);
   if constexpr (l3tlb) L.l3tlb = lru_in(p.l3tlb, b, false, smem, 0, 0);
   if constexpr (pom) L.pom = lru_in(p.pom, b, false, smem, 0, 0);
+  if constexpr (restseg) {
+    L.rs4 = lru_in(p.restseg4, b, false, smem, 0, 0);
+    L.rs2 = lru_in(p.restseg2, b, false, smem, 0, 0);
+  }
+  if constexpr (rev) {
+    L.rev = lru_in(p.rev, b, false, smem, 0, 0);
+    L.rev_vpn = p.rev_vpn + static_cast<size_t>(b) * entries(p.rev);
+  }
   L.l2 = {L2S ? reinterpret_cast<int32_t*>(smem + pl.l2_tag)
               : p.l2.tags + o2,
           L2S ? reinterpret_cast<uint8_t*>(smem + pl.l2_pk)
@@ -1160,6 +1225,28 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
   float sum_trans = S.sum_trans_cyc[b], sum_l2miss = S.sum_l2miss_cyc[b];
   float sum_data = S.sum_data_cyc[b], sum_walk = S.sum_walk_cyc[b];
   float sum_tlb4 = S.sum_tlb4_live[b], sum_tlb2 = S.sum_tlb2_live[b];
+  int n_rs_hit = restseg ? S.n_restseg_hit[b] : 0;
+  int n_rs_miss = restseg ? S.n_restseg_miss[b] : 0;
+  int n_rs_mig = restseg ? S.n_restseg_mig[b] : 0;
+  int n_rs_conf = restseg ? S.n_restseg_conflict[b] : 0;
+  float sum_rs = restseg ? S.sum_restseg_cyc[b] : 0.0f;
+  int n_rv_hit = rev ? S.n_rev_hit[b] : 0;
+  int n_rv_mispred = rev ? S.n_rev_mispred[b] : 0;
+  int n_rv_enroll = rev ? S.n_rev_enroll[b] : 0;
+  float sum_rv = rev ? S.sum_rev_verify_cyc[b] : 0.0f;
+  // the RestSeg-probe and verification-walk histograms stay in device
+  // memory (thread 0 adds to them; nothing reads them during the launch)
+  int32_t* const hist_rs = S.hist_restseg + b * WALK_HIST_BUCKETS;
+  int32_t* const hist_rv = S.hist_rev_verify + b * WALK_HIST_BUCKETS;
+  const int rev_mask = static_cast<int>((1u << p.rev_sig_bits) - 1u);
+  // the feature table of this lane
+  const size_t fo = static_cast<size_t>(b) * p.feats.n;
+  uint16_t* const ft_acc = p.feats.n_access + fo;
+  uint16_t* const ft_l1 = p.feats.n_l1_miss + fo;
+  uint16_t* const ft_l2 = p.feats.n_l2_miss + fo;
+  uint16_t* const ft_walk = p.feats.n_walk + fo;
+  float* const ft_cyc = p.feats.walk_cyc + fo;
+  uint8_t* const ft_2m = p.feats.is2m + fo;
   const bool tlb_aware = L.tlb_aware;
   __syncwarp(kFull);  // the copies in are done: each word has one owner
 
@@ -1210,6 +1297,31 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     LruRow q3, qp;
     if (l3tlb) q3 = load_row(L.l3tlb, key2);
     if (pom) qp = load_row(L.pom, key2);
+    // Utopia: both RestSeg rows; Revelator: the signature's row and its
+    // enrolled pages (rev_sig: the int32 product wraps, as hash_h's)
+    LruRow qr4, qr2, qrv;
+    if (restseg) {
+      qr4 = load_row(L.rs4, vpn);
+      qr2 = load_row(L.rs2, vpn2);
+    }
+    const int sig = static_cast<int>(static_cast<uint32_t>(key2) * HASH_MUL) &
+                    rev_mask;
+    int rv_vpn = 0;
+    if (rev) {
+      qrv = load_row(L.rev, sig);
+      rv_vpn = L.rev_vpn[qrv.i];
+    }
+    // the Table-2 feature entry of this access (thread 0)
+    const int fi = collect ? hash_h(vpn_sz, p.feats.n) : 0;
+    unsigned fe_acc = 0, fe_l1 = 0, fe_l2 = 0, fe_walk = 0;
+    float fe_cyc = 0.0f;
+    if (collect && lane() == 0) {
+      fe_acc = ft_acc[fi];
+      fe_l1 = ft_l1[fi];
+      fe_l2 = ft_l2[fi];
+      fe_walk = ft_walk[fi];
+      fe_cyc = ft_cyc[fi];
+    }
     // radix: the PTW-CP counter entry of this access
     const int ci = is2m ? vpn2 & (L.n2 - 1) : vpn & (L.n4 - 1);
     int cf = 0, cc = 0;
@@ -1262,6 +1374,29 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     }
     PROF_STAMP(ST_TLB);
 
+    // stages.revelator lookup: the lowest way whose signature matches (way
+    // 0 when none does); a hit stamps it and repairs its enrolled page,
+    // and runs the verification walk, whose cycles are paid only on a
+    // misprediction.  A hit resolves the access, so nothing below reads
+    // the rows (L2 cache, PWCs) the walk changed.
+    bool rvhit = false, rv_correct = false, rv_mispred = false;
+    int vcyc = 0;
+    if (rev) {
+      const unsigned mr = hits(qrv, sig);
+      const int w = first_way(mr);
+      rvhit = need && mr != 0;
+      rv_correct = rvhit && __shfl_sync(kFull, rv_vpn, w) == key2;
+      rv_mispred = rvhit && !rv_correct;
+      if (rvhit) {
+        touch(L.rev, qrv, w, now);
+        if (lane() == w) L.rev_vpn[qrv.i] = key2;
+        int vd;
+        vcyc = walk(L, pw, vpn, is2m, now, pressure, &vd);
+      }
+      past += rvhit ? p.rev_lat + (rv_mispred ? vcyc : 0) : 0;
+      need = need && !rvhit;
+    }
+
     // stages.victima lookup
     bool vhit = false;
     if (victima) {
@@ -1295,6 +1430,26 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
       if (pomhit) touch(L.pom, qp, __ffs(mp) - 1, now);
       need = !pomhit;
     }
+
+    // stages.utopia lookup: the set's tag line through the caches (typed
+    // as a TLB block), then both RestSegs; the page size picks the hit
+    const bool rprobed = restseg && need;
+    bool rshit = false;
+    int rcyc = 0;
+    if (rprobed) {
+      bool d;
+      rcyc = access_pte(
+          L, LINE_B + (is2m ? RESTSEG2_LINES + (vpn2 & (L.rs2.sets - 1))
+                            : RESTSEG4_LINES + (vpn & (L.rs4.sets - 1))),
+          pressure, &d, BT_TLB4);
+      const unsigned m4 = hits(qr4, vpn), m2 = hits(qr2, vpn2);
+      const bool hit4 = !is2m && m4 != 0, hit2 = is2m && m2 != 0;
+      if (hit4) touch(L.rs4, qr4, __ffs(m4) - 1, now);
+      if (hit2) touch(L.rs2, qr2, __ffs(m2) - 1, now);
+      rshit = hit4 || hit2;
+      past += rcyc;
+      need = !rshit;
+    }
     PROF_STAMP(ST_PROBE);
 
     // stages.ptw / stages.nested lookup: the demand walk
@@ -1317,6 +1472,10 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     PROF_STAMP(ST_WALK);
 
     bool bg = false;
+    // stages.base.ptwcp_walk_verdict: Utopia's migration and Revelator's
+    // enrollment, from the PTW-CP counters the walker's (or Victima's)
+    // fill leaves
+    bool promote = false;
     if (victima) {
       // stages.l2_tlb fill
       if (miss2) fill(L.l2tlb, qt, tv, key2, now);
@@ -1340,10 +1499,20 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
         retag_to_tlb(L, ev_vpn >> 3, ev2m ? BT_TLB2 : BT_TLB4, pressure);
       }
       // fused counter writeback: slot 0 then slot 1 (slot 1 wins a tie)
+      const bool en4[2] = {walk_en && !is2m, bg && !ev2m};
+      const bool en2[2] = {walk_en && is2m, bg && ev2m};
+      const bool dr[2] = {ndram >= 1, bdram >= 1};
+      if (restseg || rev) {
+        // the demand page's counters as the writeback leaves them, for
+        // the promotion verdict below
+        const int k = is2m ? i2[1] == i2[0] : i4[1] == i4[0];
+        const int f = is2m ? f2[k] + en2[k] : f4[k] + en4[k];
+        const int c = (is2m ? c2[k] : c4[k]) +
+                      ((is2m ? en2[k] : en4[k]) && dr[k]);
+        promote = walk_en && (!p.use_ptwcp || bypass ||
+                              predict(min(f, FREQ_MAX), min(c, COST_MAX)));
+      }
       if (lane() == 0) {
-        const bool en4[2] = {walk_en && !is2m, bg && !ev2m};
-        const bool en2[2] = {walk_en && is2m, bg && ev2m};
-        const bool dr[2] = {ndram >= 1, bdram >= 1};
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
           L.f4[i4[k]] = static_cast<uint8_t>(min(f4[k] + en4[k], FREQ_MAX));
@@ -1362,6 +1531,10 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
         (is2m ? L.c2 : L.c4)[ci] =
             static_cast<uint8_t>(min(cc + (ndram >= 1), COST_MAX));
       }
+      if (restseg || rev)
+        promote = walk_en && (!p.use_ptwcp || bypass ||
+                              predict(min(cf + 1, FREQ_MAX),
+                                      min(cc + (ndram >= 1), COST_MAX)));
       if (pom) {
         // the L2 TLB's evicted entry (the row as the lookup left it: a
         // miss stamped nothing), then stages.pom fill: the walked entry
@@ -1383,6 +1556,23 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
       // stages.l3_tlb fill
       if (l3tlb) insert_lru(L.l3tlb, q3, key2, now, walk_en);
     }
+    // stages.utopia fill (the migration engine; a set conflict demotes
+    // the LRU resident), then stages.revelator fill (enrollment: the
+    // signature in the LRU way, with its page).  No composition has
+    // these with the POM-TLB or the L3 TLB, whose fills the reference
+    // orders after them.
+    if (restseg) {
+      const bool c4 = insert_lru_evicts(L.rs4, qr4, vpn, now, promote && !is2m);
+      const bool c2 = insert_lru_evicts(L.rs2, qr2, vpn2, now, promote && is2m);
+      n_rs_mig += promote;
+      n_rs_conf += c4 || c2;
+    }
+    if (rev && promote) {
+      const int w = lru_victim(qrv);
+      fill(L.rev, qrv, w, sig, now);
+      if (lane() == w) L.rev_vpn[qrv.i] = key2;
+    }
+    n_rv_enroll += rev && promote;
     PROF_STAMP(ST_FILL);
     // stages.l1_tlb fill
     insert_lru(L.l1d4, q4, vpn, now, miss1 && !is2m);
@@ -1416,6 +1606,30 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     }
     sum_tlb4 = __fadd_rn(sum_tlb4, __int2float_rn(L.live.n4));
     sum_tlb2 = __fadd_rn(sum_tlb2, __int2float_rn(L.live.n2));
+    if (restseg) {
+      n_rs_hit += rshit;
+      n_rs_miss += rprobed && !rshit;
+      sum_rs = __fadd_rn(sum_rs, __int2float_rn(rcyc));
+      if (rprobed && lane() == 0)
+        atomicAdd(hist_rs + min(rcyc / 10, WALK_HIST_BUCKETS - 1), 1);
+    }
+    if (rev) {
+      n_rv_hit += rv_correct;
+      n_rv_mispred += rv_mispred;
+      sum_rv = __fadd_rn(sum_rv, __int2float_rn(vcyc));
+      if (rvhit && lane() == 0)
+        atomicAdd(hist_rv + min(vcyc / 10, WALK_HIST_BUCKETS - 1), 1);
+    }
+    // stages.fold.collect_feats: four uint16 counters that wrap, the f32
+    // walk-cycle sum, and is2m set
+    if (collect && lane() == 0) {
+      ft_acc[fi] = static_cast<uint16_t>(fe_acc + 1);
+      ft_l1[fi] = static_cast<uint16_t>(fe_l1 + miss1);
+      ft_l2[fi] = static_cast<uint16_t>(fe_l2 + miss2);
+      ft_walk[fi] = static_cast<uint16_t>(fe_walk + walk_en);
+      ft_cyc[fi] = __fadd_rn(fe_cyc, __int2float_rn(walk_en ? wcyc : 0));
+      ft_2m[fi] = is2m;
+    }
     // the counters thread 0 wrote are read by every thread next access,
     // and a row half 1 of a pair wrote may be thread w's next access
     __syncwarp(kFull);
@@ -1440,6 +1654,19 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
       S.n_host_ptw[b] = n_host_ptw;
       S.n_ntlb_hit[b] = n_ntlb_hit;
       S.n_nvictima_hit[b] = n_nvictima_hit;
+    }
+    if (restseg) {
+      S.n_restseg_hit[b] = n_rs_hit;
+      S.n_restseg_miss[b] = n_rs_miss;
+      S.n_restseg_mig[b] = n_rs_mig;
+      S.n_restseg_conflict[b] = n_rs_conf;
+      S.sum_restseg_cyc[b] = sum_rs;
+    }
+    if (rev) {
+      S.n_rev_hit[b] = n_rv_hit;
+      S.n_rev_mispred[b] = n_rv_mispred;
+      S.n_rev_enroll[b] = n_rv_enroll;
+      S.sum_rev_verify_cyc[b] = sum_rv;
     }
     S.sum_trans_cyc[b] = sum_trans;
     S.sum_l2miss_cyc[b] = sum_l2miss;
@@ -1508,32 +1735,54 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
 
 using KernelFn = void (*)(const Params);
 
-// the instantiation of a launch, from its composition and placement: the
-// radix and Victima compositions in every placement, the others with the
-// whole lane in shared memory (the placement of every system the port
-// registers with them); nullptr for a pair that is not built
-template <int C, bool EVERY_PLACEMENT>
-KernelFn placed(const Params& p) {
-  if (p.l2_shared && p.l2tlb_shared) return mmu_step_kernel<true, true, C>;
-  if constexpr (EVERY_PLACEMENT) {
-    if (p.l2_shared) return mmu_step_kernel<true, false, C>;
-    return p.l2tlb_shared ? mmu_step_kernel<false, true, C>
-                          : mmu_step_kernel<false, false, C>;
-  }
-  return nullptr;
+// Every instantiation: its composition, its placement (L2 cache, L2 TLB
+// in shared memory) and its entry.  The radix and Victima compositions
+// are built in every placement, the others with the whole lane in shared
+// memory (the placement of every system the port registers with them).
+struct Instantiation {
+  int comp;
+  bool l2_shared, l2tlb_shared;
+  KernelFn fn;
+};
+
+template <int C>
+constexpr Instantiation shared_only() {
+  return {C, true, true, mmu_step_kernel<true, true, C>};
 }
 
-KernelFn kernel_for(const Params& p) {
-  switch (p.comp) {
-    case 0: return placed<0, true>(p);
-    case C_VICTIMA: return placed<C_VICTIMA, true>(p);
-    case C_L3TLB: return placed<C_L3TLB, false>(p);
-    case C_POM: return placed<C_POM, false>(p);
-    case C_NESTED: return placed<C_NESTED, false>(p);
-    case C_NESTED | C_VICTIMA: return placed<C_NESTED | C_VICTIMA, false>(p);
-    case C_NESTED | C_POM: return placed<C_NESTED | C_POM, false>(p);
-    default: return nullptr;
+template <int C>
+constexpr Instantiation placed(bool l2s, bool ts) {
+  return {C, l2s, ts,
+          l2s ? (ts ? mmu_step_kernel<true, true, C>
+                    : mmu_step_kernel<true, false, C>)
+              : (ts ? mmu_step_kernel<false, true, C>
+                    : mmu_step_kernel<false, false, C>)};
+}
+
+const Instantiation kInstantiations[] = {
+    placed<0>(true, true), placed<0>(true, false), placed<0>(false, true),
+    placed<0>(false, false), placed<C_VICTIMA>(true, true),
+    placed<C_VICTIMA>(true, false), placed<C_VICTIMA>(false, true),
+    placed<C_VICTIMA>(false, false), shared_only<C_L3TLB>(),
+    shared_only<C_POM>(), shared_only<C_NESTED>(),
+    shared_only<C_NESTED | C_VICTIMA>(), shared_only<C_NESTED | C_POM>(),
+    shared_only<C_COLLECT>(), shared_only<C_RESTSEG>(),
+    shared_only<C_RESTSEG | C_VICTIMA>(), shared_only<C_REV>(),
+    shared_only<C_REV | C_VICTIMA>(),
+};
+constexpr int kNumInstantiations =
+    sizeof(kInstantiations) / sizeof(kInstantiations[0]);
+
+// the dense number of a launch's instantiation, from its composition and
+// placement; -1 for a pair that is not built
+int instantiation_of(const Params& p) {
+  for (int i = 0; i < kNumInstantiations; ++i) {
+    const Instantiation& k = kInstantiations[i];
+    if (k.comp == p.comp && k.l2_shared == (p.l2_shared != 0) &&
+        k.l2tlb_shared == (p.l2tlb_shared != 0))
+      return i;
   }
+  return -1;
 }
 
 constexpr int kMaxDevices = 64;
@@ -1544,6 +1793,17 @@ extern "C" {
 
 int mmu_step_params_size(void) { return static_cast<int>(sizeof(Params)); }
 
+// the number of instantiations, and the composition code and placement
+// (bit 1: L2 cache, bit 0: L2 TLB in shared memory) of instantiation i
+int mmu_step_instantiations(void) { return kNumInstantiations; }
+int mmu_step_instantiation(int i, int* comp, int* placement) {
+  if (i < 0 || i >= kNumInstantiations) return -1;
+  *comp = kInstantiations[i].comp;
+  *placement = 2 * kInstantiations[i].l2_shared +
+               kInstantiations[i].l2tlb_shared;
+  return 0;
+}
+
 // Launch one block of 32 threads per lane over trace rows [t0, t1) on
 // `stream`, on the calling thread's current device (the wrapper sets it
 // to the state's); returns cudaGetLastError() (0 = launched), or -1 when
@@ -1552,16 +1812,16 @@ int mmu_step_launch(Params p, void* stream) {
   p.plan = plan(p);
   const int bytes = p.plan.total;
   if (bytes != p.smem_bytes || bytes > SMEM_LIMIT) return -1;
-  const KernelFn k = kernel_for(p);
-  if (k == nullptr) return -2;
+  const int inst = instantiation_of(p);
+  if (inst < 0) return -2;
+  const KernelFn k = kInstantiations[inst].fn;
   // each instantiation's limit is raised to a block's most, once a device
-  static bool raised[64][kMaxDevices] = {};
+  static bool raised[kNumInstantiations][kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  bool& done = raised[4 * (p.comp & 15) + 2 * (p.l2_shared != 0) +
-                     (p.l2tlb_shared != 0)][dev];
+  bool& done = raised[inst][dev];
   if (!done) {
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SMEM_LIMIT);

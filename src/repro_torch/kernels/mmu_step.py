@@ -13,7 +13,9 @@ L2 cache, and writes it back at its end.  Which structures go to shared
 memory is ``placement(cfg)``, a pure function of the geometry; launches
 are counted per placement in ``LAUNCHES_BY_PLACEMENT`` and per
 composition (``COMPOSITIONS``: radix, Victima, the L3 TLB, the POM-TLB,
-each under nested paging where the reference has it) in
+each under nested paging where the reference has it, Utopia and
+Revelator alone and with Victima; and ``radix_collect``, the radix
+composition with the Table-2 feature stream) in
 ``LAUNCHES_BY_COMPOSITION``.
 
 The kernel is bound by latency, not by bytes or operations: each access
@@ -32,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.stages import default_stages
+from repro_torch.core.stages import Feats, Stats, default_stages
 from repro_torch.kernels import build
 
 # kernel launches made by blocked_scan since import (the launch count
@@ -74,9 +76,12 @@ def placement(cfg) -> Placement:
     PWCs, L1D, and the nested TLB when ``cfg.virt``; always, or this
     raises); the L2 cache, packed to 6 bytes a way; the L2 TLB, 9 bytes an
     entry.  What does not fit stays in device memory, and so do the L3,
-    the L3 TLB, the POM-TLB's shadow and the PTW-CP and host-page
-    counters.  The kernel checks the byte count against its own layout at
-    every launch.
+    the L3 TLB, the POM-TLB's shadow, the PTW-CP and host-page counters,
+    Utopia's RestSegs (8192 x 16 and 256 x 16 at the defaults, up to 32
+    ways), Revelator's signature table and its enrolled-page shadow
+    (4096 x 16), the Table-2 feature table (2^20 entries of 13 bytes),
+    and the RestSeg-probe and verification-walk histograms.  The kernel
+    checks the byte count against its own layout at every launch.
     """
     small = (cfg.l1d4_sets * cfg.l1d4_ways + cfg.l1d2_sets * cfg.l1d2_ways
              + 3 * PWC_SETS * PWC_WAYS + cfg.l1_sets * cfg.l1_ways)
@@ -99,8 +104,11 @@ def placement(cfg) -> Placement:
 
 # the compositions the kernel writes out: stage names -> (name, code).
 # The code's bits (csrc/mmu_step.cu's C_*): 1 Victima, 2 the L3 TLB, 4
-# the POM-TLB, 8 the nested (2-D) walk
+# the POM-TLB, 8 the nested (2-D) walk, 16 the Table-2 feature stream
+# (``COLLECTED``: a configuration with ``collect`` set), 32 Utopia's
+# RestSegs, 64 Revelator
 C_VICTIMA, C_L3TLB, C_POM, C_NESTED = 1, 2, 4, 8
+C_COLLECT, C_RESTSEG, C_REV = 16, 32, 64
 COMPOSITIONS = {
     ("l1_tlb", "l2_tlb", "ptw"): ("radix", 0),
     ("l1_tlb", "l2_tlb", "victima", "ptw"): ("victima", C_VICTIMA),
@@ -110,14 +118,36 @@ COMPOSITIONS = {
     ("l1_tlb", "l2_tlb", "victima", "ptw2d"): ("victima_np",
                                                C_NESTED | C_VICTIMA),
     ("l1_tlb", "l2_tlb", "pom", "ptw2d"): ("pom_np", C_NESTED | C_POM),
+    ("l1_tlb", "l2_tlb", "restseg", "ptw"): ("utopia", C_RESTSEG),
+    ("l1_tlb", "l2_tlb", "victima", "restseg", "ptw"): (
+        "utopia_victima", C_RESTSEG | C_VICTIMA),
+    ("l1_tlb", "l2_tlb", "rev", "ptw"): ("revelator", C_REV),
+    ("l1_tlb", "l2_tlb", "rev", "victima", "ptw"): (
+        "revelator_victima", C_REV | C_VICTIMA),
 }
+# the compositions with the feature stream: the stage names of a
+# configuration with ``collect`` set -> (name, code)
+COLLECTED = {("l1_tlb", "l2_tlb", "ptw"): ("radix_collect", C_COLLECT)}
 # compositions built in every placement; the others only in "shared",
 # the placement of every system the port registers with them
 EVERY_PLACEMENT = ("radix", "victima")
 
 # kernel launches per composition since import
 LAUNCHES_BY_COMPOSITION = dict.fromkeys(
-    [n for n, _ in COMPOSITIONS.values()], 0)
+    [n for n, _ in (*COMPOSITIONS.values(), *COLLECTED.values())], 0)
+
+
+def composition(cfg, stage_names) -> tuple[str, int]:
+    """The kernel's (name, code) for ``stage_names`` under ``cfg``;
+    raises for a composition it does not write out."""
+    names = tuple(stage_names)
+    table = COLLECTED if cfg.collect else COMPOSITIONS
+    if names not in table:
+        raise ValueError(f"the mmu_step kernel runs the compositions "
+                         f"{list(table)}"
+                         f"{' with collect' if cfg.collect else ''}, not "
+                         f"{names}")
+    return table[names]
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int32
@@ -145,16 +175,12 @@ class _HierCountP(ctypes.Structure):
                                   "n_l3_access", "n_l3_trans")]
 
 
-_STATS_FIELDS = ("n_access", "n_l1tlb_hit", "n_l2tlb_hit", "n_l2tlb_miss",
-                 "n_victima_hit", "n_l3tlb_hit", "n_pom_hit", "n_demand_ptw",
-                 "n_bg_ptw", "n_host_ptw", "n_ntlb_hit", "n_nvictima_hit",
-                 "sum_trans_cyc", "sum_l2miss_cyc", "sum_data_cyc",
-                 "sum_walk_cyc", "hist_walk", "sum_tlb4_live",
-                 "sum_tlb2_live")
-
-
 class _StatsP(ctypes.Structure):
-    _fields_ = [(n, _p) for n in _STATS_FIELDS]
+    _fields_ = [(n, _p) for n in Stats._fields]
+
+
+class _FeatsP(ctypes.Structure):
+    _fields_ = [(n, _p) for n in Feats._fields] + [("n", _i), ("pad", _i)]
 
 
 class _TraceP(ctypes.Structure):
@@ -183,6 +209,9 @@ class _Params(ctypes.Structure):
         + [("prof", _p), ("l2_pack", _p)]
         + [(n, _i) for n in ("l2_shared", "l2tlb_shared", "smem_bytes",
                              "pad")]
+        + [(n, _AssocP) for n in ("restseg4", "restseg2", "rev")]
+        + [("rev_vpn", _p), ("feats", _FeatsP), ("rev_lat", _i),
+           ("rev_sig_bits", _i)]
         + [("plan", _PlanP)])
 
 
@@ -205,6 +234,12 @@ def _lib(name: str = "mmu_step") -> ctypes.CDLL:
         lib.mmu_step_launch.restype = ctypes.c_int
         lib.mmu_step_error_string.argtypes = [ctypes.c_int]
         lib.mmu_step_error_string.restype = ctypes.c_char_p
+        lib.mmu_step_instantiations.argtypes = []
+        lib.mmu_step_instantiations.restype = ctypes.c_int
+        lib.mmu_step_instantiation.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int)]
+        lib.mmu_step_instantiation.restype = ctypes.c_int
         got = lib.mmu_step_params_size()
         if got != ctypes.sizeof(_Params):
             raise RuntimeError(f"mmu_step Params is {got} bytes in C, "
@@ -246,10 +281,7 @@ def _params(st, trace: dict, cfg, stage_names) -> _Params:
     the L2 cache outside shared memory it also holds the scratch tensor
     of its packed bytes (``torch.empty``, filled by the kernel)."""
     names = tuple(stage_names)
-    if names not in COMPOSITIONS:
-        raise ValueError(f"the mmu_step kernel runs the compositions "
-                         f"{list(COMPOSITIONS)}, not {names}")
-    comp, code = COMPOSITIONS[names]
+    comp, code = composition(cfg, names)
     if names != default_stages(cfg):
         raise ValueError(f"composition {names} disagrees with the "
                          f"configuration's {default_stages(cfg)}")
@@ -303,7 +335,22 @@ def _params(st, trace: dict, cfg, stage_names) -> _Params:
         _ptr(getattr(s, f),
              torch.float32 if f.startswith("sum_") else torch.int32,
              (W, 64) if f.startswith("hist_") else (W,), f"stats.{f}", dev)
-        for f in _STATS_FIELDS])
+        for f in Stats._fields])
+    n_feat = cfg.n_feat if cfg.collect else 1
+    if n_feat & (n_feat - 1):
+        raise ValueError(f"the feature table has {n_feat} entries, not a "
+                         f"power of two")
+    feats = _FeatsP(*[
+        _ptr(getattr(st.feats, f),
+             {"walk_cyc": torch.float32, "is2m": torch.uint8}.get(
+                 f, torch.uint16), (W, n_feat), f"feats.{f}", dev)
+        for f in Feats._fields], n_feat, 0)
+    if not 0 < cfg.rev_sig_bits < 32:
+        raise ValueError(f"rev_sig_bits={cfg.rev_sig_bits}: the kernel "
+                         f"takes 1..31")
+    rs_ways = cfg.restseg_ways if cfg.utopia else 1
+    rev_sets = cfg.rev_sets if cfg.revelator else 1
+    rev_ways = cfg.rev_ways if cfg.revelator else 1
     h = st.hier
     lat = cfg.lat
     params = _Params(
@@ -338,7 +385,14 @@ def _params(st, trace: dict, cfg, stage_names) -> _Params:
         l3tlb_lat=cfg.l3tlb_lat, pom_mask=cfg.pom_sets * cfg.pom_ways - 1,
         lat_l1d=lat.l1d, lat_l2=lat.l2, lat_l3=lat.l3, lat_dram=lat.dram,
         l2_shared=int(pl.l2_shared), l2tlb_shared=int(pl.l2tlb_shared),
-        smem_bytes=pl.smem_bytes)
+        smem_bytes=pl.smem_bytes,
+        restseg4=_assoc(st.restseg4, cfg.restseg4_sets if cfg.utopia else 1,
+                        rs_ways, W, "restseg4", dev),
+        restseg2=_assoc(st.restseg2, cfg.restseg2_sets if cfg.utopia else 1,
+                        rs_ways, W, "restseg2", dev),
+        rev=_assoc(st.rev.tab, rev_sets, rev_ways, W, "rev.tab", dev),
+        rev_vpn=i32(st.rev.vpn, (W, rev_sets, rev_ways), "rev.vpn"),
+        feats=feats, rev_lat=cfg.rev_lat, rev_sig_bits=cfg.rev_sig_bits)
     params.placement = pl.name
     params.composition = comp
     if not pl.l2_shared:
@@ -346,6 +400,23 @@ def _params(st, trace: dict, cfg, stage_names) -> _Params:
                                      dtype=torch.uint8, device=dev)
         params.l2_pack = params.scratch.data_ptr()
     return params
+
+
+def instantiations() -> list[tuple[str, str]]:
+    """Every instantiation the library builds, in its dense order:
+    (composition name, placement name)."""
+    lib = _lib()
+    names = {code: n for n, code in (*COMPOSITIONS.values(),
+                                      *COLLECTED.values())}
+    places = {2 * l2 + t: k for k, (l2, t) in PLACEMENTS.items()}
+    out = []
+    for i in range(lib.mmu_step_instantiations()):
+        comp, place = ctypes.c_int(), ctypes.c_int()
+        if lib.mmu_step_instantiation(i, ctypes.byref(comp),
+                                      ctypes.byref(place)) != 0:
+            raise RuntimeError(f"no instantiation {i}")
+        out.append((names[comp.value], places[place.value]))
+    return out
 
 
 def plain_scan(step, st, trace: dict):

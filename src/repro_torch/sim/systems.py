@@ -1,7 +1,8 @@
 """Registry of evaluated systems (paper Table 3 + ablations); port of
 ``repro.sim.systems`` restricted to the systems this port simulates: the
 single-core systems built from the radix, Victima, L3-TLB and POM-TLB
-compositions, natively and under nested paging.
+compositions, natively and under nested paging, Table 2's feature
+collection, and Utopia and Revelator natively.
 
 Each ``System`` names its stage composition plus the SimConfig overrides
 that size it; its entry matches the reference's one for one.  A name the
@@ -19,6 +20,10 @@ _RADIX = ("l1_tlb", "l2_tlb", "ptw")
 _VICTIMA = ("l1_tlb", "l2_tlb", "victima", "ptw")
 _L3 = ("l1_tlb", "l2_tlb", "l3_tlb", "ptw")
 _POM = ("l1_tlb", "l2_tlb", "pom", "ptw")
+_UTOPIA = ("l1_tlb", "l2_tlb", "restseg", "ptw")
+_UTOPIA_VICTIMA = ("l1_tlb", "l2_tlb", "victima", "restseg", "ptw")
+_REV = ("l1_tlb", "l2_tlb", "rev", "ptw")
+_REV_VICTIMA = ("l1_tlb", "l2_tlb", "rev", "victima", "ptw")
 _NP = ("l1_tlb", "l2_tlb", "ptw2d")
 _VICTIMA_NP = ("l1_tlb", "l2_tlb", "victima", "ptw2d")
 _POM_NP = ("l1_tlb", "l2_tlb", "pom", "ptw2d")
@@ -42,15 +47,10 @@ REGISTRY: dict[str, System] = {}
 
 # reference systems not simulated here yet -> the ROADMAP.md item that
 # ports them
-_LATER_TABLES = "Queue 1, The paper tables on the port"
-_LATER_UR = "Queue 1, Utopia and Revelator"
+_LATER_UR_VIRT = "Queue 1, Utopia and Revelator under nested paging"
 _LATER_MULTICORE = "Queue 1, Multicore"
 LATER: dict[str, str] = {
-    "radix_collect": _LATER_TABLES + " (collect_feats, for Table 2)",
-    "utopia": _LATER_UR, "utopia_victima": _LATER_UR,
-    "utopia_rs8": _LATER_UR, "utopia_rs32": _LATER_UR,
-    "revelator": _LATER_UR, "revelator_victima": _LATER_UR,
-    "utopia_virt": _LATER_UR, "revelator_virt": _LATER_UR,
+    "utopia_virt": _LATER_UR_VIRT, "revelator_virt": _LATER_UR_VIRT,
     **{f"{k}_{c}c": _LATER_MULTICORE
        for k in ("radix", "victima", "pom", "victima_dramc")
        for c in (1, 2, 4)},
@@ -134,6 +134,38 @@ for _n, _sets in [("1m", 1024), ("4m", 4096), ("8m", 8192)]:
              tags=("native", "sensitivity"), victima=True, l2_sets=_sets)
     register(f"radix_l2_{_n}", _RADIX, f"radix with {_n}B L2 cache",
              tags=("native", "sensitivity"), l2_sets=_sets)
+
+# Table 2 feature collection
+register("radix_collect", _RADIX, "radix + per-page feature collection",
+         tags=("native", "collect"), collect=True)
+
+# ------------------------------------------------------------- utopia
+# Hybrid RestSeg/FlexSeg mapping: set-associative RestSegs resolve
+# translations with one tag probe; the FlexSeg falls back to the radix
+# walker.  The PTW-CP-guided migration engine shares Victima's predictor.
+register("utopia", _UTOPIA, "hybrid RestSeg/FlexSeg mapping + "
+         "PTW-CP-guided page migration", tags=("native", "headline",
+         "utopia"), utopia=True)
+register("utopia_victima", _UTOPIA_VICTIMA, "Utopia RestSegs + Victima "
+         "TLB blocks in L2$ (shared PTW-CP)", tags=("native", "utopia"),
+         utopia=True, victima=True)
+# RestSeg-associativity sensitivity
+for _w in (8, 32):
+    register(f"utopia_rs{_w}", _UTOPIA, f"Utopia with {_w}-way RestSegs",
+             tags=("native", "sensitivity", "utopia"),
+             utopia=True, restseg_ways=_w)
+
+# ------------------------------------------------------------ revelator
+# Hash-based speculative translation: a signature hit on an L2-TLB miss
+# resolves the translation at near-zero latency while the walk verifies
+# off the critical path; only a mispredict pays the walk.  Enrollment
+# reuses the PTW-CP predictor.
+register("revelator", _REV, "hash-based speculative translation + "
+         "verify-later walks", tags=("native", "headline", "revelator"),
+         revelator=True)
+register("revelator_victima", _REV_VICTIMA, "Revelator speculation over "
+         "Victima TLB blocks in L2$ (shared PTW-CP)",
+         tags=("native", "revelator"), revelator=True, victima=True)
 
 # --------------------------------------------------------------- virtualized
 register("np", _NP, "nested paging: 2-D walk + nested TLB",

@@ -212,7 +212,9 @@ WANT_PLACEMENT = {
                      "victima_noptwcp", "l2tlb_3k", "victima_l2_1m",
                      "radix_l2_1m", "pom", "l3tlb_64k_15", "l3tlb_64k_24",
                      "l3tlb_64k_39", "np", "victima_virt", "pom_virt",
-                     "isp"], "shared"),
+                     "isp", "radix_collect", "utopia", "utopia_victima",
+                     "utopia_rs8", "utopia_rs32", "revelator",
+                     "revelator_victima"], "shared"),
     **dict.fromkeys([f"l2tlb_{n}" for n in ("8k", "16k", "32k", "64k",
                                             "128k")]
                     + [f"l2tlb_{n}_real" for n in ("8k", "16k", "32k",
