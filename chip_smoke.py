@@ -19,9 +19,17 @@ parallel, and drives its three paths on the card:
   ``torch_fullsize_paper_stats.json``, timed, with each composition's
   latency floor and, from the kernel's profiled build, its cycles per
   access by stage;
+- the ladders (phases 2-4 and 4b): the two ladder instantiations of the
+  kernel (``ladder_native``, ``ladder_np``) against the plain dyn step
+  on both ladders' base configs, small and at Table 3, one lane a
+  member; ``run_ladder`` of both ladders at n = 20,000 against the
+  three JAX snapshots, every member and workload; the native ladder's
+  fill at n = 150,000 timed beside its 28 members' static kernel runs,
+  each lane equal to its member's;
 - the paper's tables (phase 12): every figure function of
-  ``repro_torch.sim.paper`` at n = 20,000 against the reference's rows
-  in ``torch_fullsize_paper_stats.json`` (Table 2's MLPs trained from the
+  ``repro_torch.sim.paper`` (ladder members through ``run_ladder``) at
+  n = 20,000 against the reference's rows in
+  ``torch_fullsize_paper_stats.json`` (Table 2's MLPs trained from the
   reference's initial weights, within ``MLP_TOL``), then the whole table
   at n = 150,000 from a fresh result cache, timed per figure;
 - serving granite-3-2b (phases 6-8): the ``flash_attention`` (prefill;
@@ -138,6 +146,26 @@ LIBRARIES = ("mmu_step", "mmu_step_prof", "load_latency", "flash_attention",
              "paged_attention", "ssd_scan")
 FULL_N = 20_000     # main path against the JAX snapshot
 TIMED_N = 150_000   # main path at the runner's default length
+# each ladder on small structures (tests/test_torch_ladder_gpu.py's): one
+# lane a member flavour whose union is the ladder's base composition
+SMALL = dict(l2tlb_sets=4, l2tlb_ways=4, l1d4_sets=2, l1d4_ways=2,
+             l1d2_sets=2, l1d2_ways=2, l2_sets=64, l2_ways=8, l3_sets=64,
+             l3_ways=8, n_pages4=1 << 12, n_pages2=1 << 8, n_pagesh=1 << 8,
+             l3tlb_ways=4, pom_sets=16, pom_ways=4, restseg4_sets=16,
+             restseg2_sets=8, restseg_ways=4, rev_sets=16, rev_ways=4,
+             rev_sig_bits=10)
+SMALL_LADDERS = {
+    "radix": [dict(), dict(utopia=True, victima=True, restseg_ways=8),
+              dict(revelator=True), dict(revelator=True, victima=True),
+              dict(pom=True), dict(l3tlb_sets=16, l3tlb_lat=24),
+              dict(victima=True, l2_sets=16, l2_ways=4),
+              dict(l2tlb_sets=2, l2tlb_ways=2, l2tlb_lat=17)],
+    "np": [dict(virt=True), dict(virt=True, victima=True, l2_sets=16,
+                                 l2_ways=4), dict(virt=True, pom=True)],
+}
+# the ladder instantiation each ladder's launches must run
+LADDER_COMP = {"radix": "ladder_native", "np": "ladder_np"}
+SMALL_N = 3000      # accesses of the small ladders' kernel-vs-plain check
 
 
 def plain_leaves(name: str, tr: dict) -> list:
@@ -154,6 +182,38 @@ def plain_leaves(name: str, tr: dict) -> list:
     cfg = systems.config(name)
     st = make_state(cfg, tr["vpn"].shape[1])
     mmu_step.plain_scan(mmu.make_step(cfg, default_stages(cfg)), st,
+                        {k: torch.from_numpy(np.ascontiguousarray(v))
+                         for k, v in tr.items()})
+    return [x.numpy() for x in state_leaves(st)]
+
+
+def ladder_setup(ladder: str, small: bool):
+    """(base config, per-lane Dyn on the CPU) of `ladder`: on small
+    structures (SMALL_LADDERS) or its registered members at Table 3, one
+    lane a member."""
+    from repro_torch.core.stages import SimConfig, dyn_of, stack_dyns
+    from repro_torch.sim import systems
+    if small:
+        cfgs = [SimConfig(**{**SMALL, **v}) for v in SMALL_LADDERS[ladder]]
+        return (systems.dyn_base_config(cfgs),
+                stack_dyns([dyn_of(c) for c in cfgs]))
+    members = systems.LADDERS[ladder]
+    return systems.ladder_base_config(ladder), systems.ladder_dyn(members)
+
+
+def plain_dyn_leaves(ladder: str, small: bool, tr: dict) -> list:
+    """The plain dyn step of `ladder` (``ladder_setup``) over the numpy
+    trace `tr` (leaves [T, lanes]), on the CPU of a worker process: its
+    state leaves."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.set_num_threads(1)
+    from repro_torch.core import mmu
+    from repro_torch.core.stages import (default_stages, make_state,
+                                         state_leaves)
+    from repro_torch.kernels import mmu_step
+    base, dyn = ladder_setup(ladder, small)
+    st = make_state(base, tr["vpn"].shape[1])
+    mmu_step.plain_scan(mmu.make_step(base, default_stages(base), dyn), st,
                         {k: torch.from_numpy(np.ascontiguousarray(v))
                          for k, v in tr.items()})
     return [x.numpy() for x in state_leaves(st)]
@@ -657,12 +717,14 @@ def ptxas_usage(log: str, entry: str) -> str:
     return "; ".join(out)
 
 
-def mmu_entry(code: int, placement: str) -> str:
+def mmu_entry(code: int, placement: str, dyn: bool = False) -> str:
     """The mangled-name part of the mmu_step kernel's instantiation for a
-    composition code and a placement (``ptxas_usage``'s entry)."""
+    composition code, a placement and the ladder flag (``ptxas_usage``'s
+    entry)."""
     from repro_torch.kernels import mmu_step
     l2s, ts = mmu_step.PLACEMENTS[placement]
-    return f"mmu_step_kernelILb{int(l2s)}ELb{int(ts)}ELi{code}EE"
+    return (f"mmu_step_kernelILb{int(l2s)}ELb{int(ts)}ELi{code}"
+            f"ELb{int(dyn)}EE")
 
 
 def paged_entry(hd: int, clustered: bool) -> str:
@@ -1366,7 +1428,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import metrics, mmu, timing
-    from repro_torch.core.stages import (SimConfig, default_stages,
+    from repro_torch.core.stages import (Dyn, SimConfig, default_stages,
                                          make_state, state_leaves)
     from repro_torch.kernels import build, mmu_step
     from repro_torch.sim import runner, systems, trace_gen
@@ -1396,10 +1458,20 @@ def main() -> int:
     l2_ns = load_latency_ns(chase, 16 << 20, dev)
     sm_ns = load_latency_ns(chase, 16 << 10, dev, shared=True)
     codes = dict((*mmu_step.COMPOSITIONS.values(),
-                  *mmu_step.COLLECTED.values()))
-    for comp, place in mmu_step.instantiations():
-        print(f"mmu_step {comp} ({place}): " + ptxas_usage(
-            builds["mmu_step"]["log"], mmu_entry(codes[comp], place)))
+                  *mmu_step.COLLECTED.values(),
+                  *mmu_step.LADDER_COMPOSITIONS.values()))
+    built = mmu_step.instantiations()
+    if len(built) != 20:
+        raise AssertionError(f"{len(built)} instantiations, want 20")
+    ladder_ptxas = {}
+    for comp, place in built:
+        dyn = comp in LADDER_COMP.values()
+        usage = ptxas_usage(builds["mmu_step"]["log"],
+                            mmu_entry(codes[comp], place, dyn))
+        if dyn:
+            ladder_ptxas[comp] = usage
+        print(f"mmu_step {comp} ({place}{', ladder' if dyn else ''}): "
+              + usage)
     print(f"dependent load: {l1_ns:.1f} ns at a 16 KiB footprint (L1 hit), "
           f"{l2_ns:.1f} ns at 16 MiB (L2 hit), {sm_ns:.1f} ns in shared "
           f"memory")
@@ -1462,11 +1534,31 @@ def main() -> int:
         (TIMED_N, len(gens))).copy()
     pair = [workloads.index("rnd"), workloads.index("bc")]
     check_tr = {k: v[:CHECK_N, pair] for k, v in main_tr.items()}
+
+    def ladder_trace(ladder, small):
+        """The ladder check's trace, one column a lane: per-lane mixed
+        traces on small structures; at Table 3 the member's workload, the
+        11 in turn."""
+        lanes = len(SMALL_LADDERS[ladder] if small
+                    else systems.LADDERS[ladder])
+        if small:
+            trs = [golden_trace(SMALL_N, seed) for seed in range(lanes)]
+            return {k: np.stack([tr[k] for tr in trs], axis=1)
+                    for k in trs[0]}
+        cols = [c % len(workloads) for c in range(lanes)]
+        return {k: np.ascontiguousarray(v[:CHECK_N, cols])
+                for k, v in main_tr.items()}
+
+    LADDER_CHECKS = [(lad, small) for lad in ("radix", "np")
+                     for small in (False, True)]
     # STAGED's plain versions run on the CPU, in worker processes, while
     # the card checks the others
     pool = ProcessPoolExecutor(PLAIN_WORKERS,
                                mp_context=multiprocessing.get_context("spawn"))
     try:
+        ladder_plain = {key: pool.submit(plain_dyn_leaves, *key,
+                                         ladder_trace(*key))
+                        for key in LADDER_CHECKS}
         staged_plain = {name: pool.submit(plain_leaves, name, check_tr)
                         for name in sorted(STAGED, key=lambda n: (
                             "virt" not in n and n != "np", n))
@@ -1540,6 +1632,42 @@ def main() -> int:
             raise AssertionError("the result depends on the trace-block "
                                  "size")
         print("victima with 97-access blocks == one block")
+        # the ladder instantiations against the plain dyn step
+        for ladder, small in LADDER_CHECKS:
+            t0 = time.perf_counter()
+            base, dyn = ladder_setup(ladder, small)
+            names = default_stages(base)
+            tr = ladder_trace(ladder, small)
+            lanes = tr["vpn"].shape[1]
+            comp = LADDER_COMP[ladder]
+            pl = mmu_step.ladder_placement(base, names)
+            before = dict(mmu_step.LAUNCHES_BY_COMPOSITION)
+            before_p = mmu_step.LAUNCHES_BY_PLACEMENT[pl.name]
+            stk = make_state(base, lanes, dev)
+            mmu_step.launch(stk, on_card(tr), base, names,
+                            dyn=dyn.to(dev))
+            got = {k: v - before[k] for k, v in
+                   mmu_step.LAUNCHES_BY_COMPOSITION.items() if v != before[k]}
+            if got != {comp: 1} or \
+                    mmu_step.LAUNCHES_BY_PLACEMENT[pl.name] != before_p + 1:
+                raise AssertionError(f"ladder {ladder}: launched {got}, want "
+                                     f"one {comp} in {pl.name}")
+            k = leaves(stk)
+            del stk
+            err = max_err(k, ladder_plain[ladder, small].result())
+            worst = max(worst, err)
+            if err != 0.0:
+                raise AssertionError(f"ladder {ladder} ({comp}, "
+                                     f"{'small' if small else 'Table 3'}): "
+                                     f"kernel differs from the plain dyn "
+                                     f"step (max abs err {err})")
+            n = tr["vpn"].shape[0]
+            where = ("small structures" if small
+                     else "Table 3, the registered members")
+            print(f"ladder {ladder} ({comp}, {pl.name}, {where}, "
+                  f"{lanes} lanes x {n} accesses): kernel == plain dyn step "
+                  f"(on the CPU) on all {len(k)} leaves (waited "
+                  f"{time.perf_counter() - t0:.1f} s)")
     finally:
         pool.shutdown(cancel_futures=True)
     print(f"phase 2: {time.perf_counter() - t:.1f} s")
@@ -1658,6 +1786,38 @@ def main() -> int:
         print(f"{name}: 11 workloads equal the JAX paper snapshot on every "
               f"Stats leaf and extra{digests} ({launches} launches, all "
               f"{composition[name]} in shared memory)")
+    # both ladders through run_ladder, from a fresh cache: every member's
+    # every workload against the snapshot that holds it
+    ladder_snap = {**snap["systems"], **snap3["systems"],
+                   **{n: v["workloads"] for n, v in snap2["systems"].items()}}
+    cache_dir = runner.CACHE_DIR
+    for ladder, comp in LADDER_COMP.items():
+        members = systems.LADDERS[ladder]
+        base = systems.ladder_base_config(ladder)
+        place = mmu_step.ladder_placement(base, default_stages(base)).name
+        runner.CACHE_DIR = tempfile.mkdtemp(prefix="ladder_")
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            out = runner.run_ladder(ladder, workloads, n=FULL_N, seed=0)
+            wall = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(runner.CACHE_DIR, ignore_errors=True)
+            runner.CACHE_DIR = cache_dir
+        by = {k: v for k, v in mmu_step.LAUNCHES_BY_PLACEMENT.items() if v}
+        by_c = {k: v for k, v in mmu_step.LAUNCHES_BY_COMPOSITION.items()
+                if v}
+        if not mmu_step.LAUNCHES or by != {place: mmu_step.LAUNCHES} or \
+                by_c != {comp: mmu_step.LAUNCHES}:
+            raise AssertionError(f"ladder {ladder}: launches by placement "
+                                 f"{by}, by composition {by_c}; want all "
+                                 f"{comp} in {place}")
+        for name in members:
+            snapshot_equal(name, out[name], ladder_snap[name], FULL_N)
+        print(f"run_ladder({ladder!r}): {len(members)} members x 11 "
+              f"workloads equal the JAX snapshots on every Stats leaf and "
+              f"extra ({mmu_step.LAUNCHES} launches, all {comp} in {place}; "
+              f"{wall:.2f} s)")
     print(f"phase 3: {time.perf_counter() - t:.1f} s")
 
     # ------------------------------------------------------------ 4
@@ -1704,6 +1864,98 @@ def main() -> int:
               f"{metrics.translation_reach_mb(vic):9.1f} "
               f"{(timing.speedup(base, vic, spec.ipa) - 1) * 100:7.1f}%")
     print(f"phase 4: {time.perf_counter() - t:.1f} s")
+
+    # ------------------------------------------------------------ 4b
+    t = phase(f"4b. the native ladder's fill at n={TIMED_N} beside its "
+              f"members' static kernel runs")
+    members = systems.LADDERS["radix"]
+    S = len(members)
+    base = systems.ladder_base_config("radix")
+    lnames = default_stages(base)
+    chunk = runner.CHUNK or runner.auto_chunk(W)
+    tmp = tempfile.mkdtemp(prefix="ladder_fill_")
+    cache_dir = runner.CACHE_DIR
+    try:
+        runner.CACHE_DIR = tmp
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        fill = runner.run_ladder("radix", workloads, n=TIMED_N, seed=0)
+        fill_wall = time.perf_counter() - t0
+    finally:
+        runner.CACHE_DIR = cache_dir
+        shutil.rmtree(tmp, ignore_errors=True)
+    fill_launches = mmu_step.LAUNCHES
+    fill_peak = torch.cuda.max_memory_allocated() / 2**20
+    by_c = {k: v for k, v in mmu_step.LAUNCHES_BY_COMPOSITION.items() if v}
+    if not fill_launches or by_c != {"ladder_native": fill_launches}:
+        raise AssertionError(f"the fill launched {by_c}, want all "
+                             f"ladder_native")
+    # the fill's kernel alone, chunk by chunk, on the fill's inputs (the
+    # last chunk padded by repeating its final workload, lanes
+    # system-major), between CUDA events
+    lanes = S * chunk
+    dyn = Dyn(*[x.to(dev).repeat_interleave(chunk)
+                for x in systems.ladder_dyn(members)])
+    fill_ms = 0.0
+    for lo in range(0, W, chunk):
+        cols = [min(c, W - 1) for c in range(lo, lo + chunk)]
+        ctr = on_card({k: np.tile(v[:, cols], (1, S))
+                       for k, v in main_tr.items()})
+        st = make_state(base, lanes, dev)
+        fill_ms += cuda_time(lambda: mmu_step.launch(st, ctr, base, lnames,
+                                                     dyn=dyn))
+        del st, ctr
+    # each member's static kernel run on the same inputs, timed; every
+    # lane of the fill must equal it on every Stats leaf and extra
+    static_ms = {}
+    ctr = on_card(main_tr)
+    for name in members:
+        cfg = systems.config(name)
+        st = make_state(cfg, W, dev)
+        static_ms[name] = cuda_time(lambda: mmu_step.launch(
+            st, ctr, cfg, default_stages(cfg)))
+        stats, *rest = mmu._finalize(st, cfg)
+        del st
+        for wi, w in enumerate(workloads):
+            got, got_ex, _ = fill[name][w]
+            want_ex = mmu._extras_of(cfg, *rest, index=lambda x, i=wi: x[i])
+            same = (all(np.array_equal(a[wi], b)
+                        for a, b in zip(stats, got))
+                    and sorted(want_ex) == sorted(got_ex)
+                    and all(np.array_equal(want_ex[k], got_ex[k])
+                            for k in want_ex))
+            if not same:
+                raise AssertionError(f"fill lane {name}/{w} differs from "
+                                     f"its static kernel run")
+    del ctr
+    static_sum = sum(static_ms.values())
+    acc = S * W * TIMED_N
+    ladder_fill = {
+        "ladder": "radix", "members": S, "workloads": W, "n": TIMED_N,
+        "chunk": chunk, "lanes_per_launch": lanes,
+        "launches": fill_launches, "wall_s": fill_wall, "kernel_ms": fill_ms,
+        "accesses_per_s_kernel": acc / fill_ms * 1e3,
+        "accesses_per_s_wall": acc / fill_wall,
+        "peak_device_mib": fill_peak, "placement": "device",
+        "members_static_kernel_ms": static_ms,
+        "members_static_kernel_ms_sum": static_sum,
+        "ptxas": ladder_ptxas}
+    print(f"run_ladder('radix') at n={TIMED_N} from a fresh cache: {S} "
+          f"members x {W} workloads, chunk {chunk}, {lanes} lanes a launch "
+          f"(ladder_native, device), {fill_launches} launches; fill wall "
+          f"{fill_wall:.2f} s, kernel {fill_ms:.1f} ms, "
+          f"{acc / fill_ms * 1e3:,.0f} accesses/s over all lanes (kernel), "
+          f"{acc / fill_wall:,.0f} (wall); peak device memory "
+          f"{fill_peak:.0f} MiB")
+    print(f"the {S} members' static kernel runs (11 lanes each) on the same "
+          f"inputs: {static_sum:.1f} ms in sum ("
+          + ", ".join(f"{n} {v:.1f}" for n, v in static_ms.items())
+          + f"); fill kernel / sum = {fill_ms / static_sum:.3f}")
+    print(f"every lane of the fill equals its member's static kernel run on "
+          f"every Stats leaf and extra")
+    print(f"phase 4b: {time.perf_counter() - t:.1f} s")
 
     # ------------------------------------------------------------ 5
     t = phase(f"5. kernel vs plain version: Victima, {UNIT_N} accesses x "
@@ -1840,9 +2092,19 @@ def main() -> int:
         small_launches = mmu_step.LAUNCHES
         small_by = {k: v for k, v in
                     mmu_step.LAUNCHES_BY_COMPOSITION.items() if v}
-        if set(small_by) != set(mmu_step.LAUNCHES_BY_COMPOSITION):
+        # every ladder member went through its ladder's instantiation: the
+        # compositions only ladder members have are never launched
+        of = {n: mmu_step.composition(systems.config(n), s.stages)[0]
+              for n, s in systems.REGISTRY.items()}
+        in_ladder = {m for ms in systems.LADDERS.values() for m in ms}
+        ladder_only = ({of[m] for m in in_ladder}
+                       - {c for n, c in of.items() if n not in in_ladder})
+        if not set(LADDER_COMP.values()) <= set(small_by) or \
+                ladder_only & set(small_by):
             raise AssertionError(f"the figures launched the compositions "
-                                 f"{sorted(small_by)}, not every one")
+                                 f"{sorted(small_by)}: want both ladder "
+                                 f"instantiations and none of "
+                                 f"{sorted(ladder_only)}")
         print(f"{len(paper.ALL)} figures: every row equals the reference's "
               f"(Table 2's MLP rows below); {small_launches} launches, by "
               f"composition {small_by}")
@@ -1942,8 +2204,9 @@ def main() -> int:
         "launches": main_launches["victima"],
         "launches_by_system": main_launches,
         "launches_by_placement": by_placement["victima"],
-        "compositions": [c for c, _ in (*mmu_step.COMPOSITIONS.values(),
-                                        *mmu_step.COLLECTED.values())],
+        "compositions": list(mmu_step.LAUNCHES_BY_COMPOSITION),
+        "instantiations": len(built),
+        "ladder_fill": ladder_fill,
         "paper_tables": {"n": TIMED_N, "wall_s": paper_wall,
                          "wall_s_by_figure": walls,
                          "launches": paper_launches,

@@ -152,22 +152,74 @@ def insert_lru(a: Assoc, key, now, enable=True):
     return a, ev_tag, ev_valid & en
 
 
+# ------------------------------------------------- dynamic-size LRU views
+#
+# A structure allocated at its ladder-maximum shape emulates any smaller
+# power-of-two geometry with per-lane size parameters: the set index is
+# masked with `set_mask` (= live sets - 1, ``[W]``) and victim selection
+# is restricted to ways below `n_ways` (``[W]``).  Inserts never touch
+# ways >= n_ways, so lookups and LRU choices equal those of a statically
+# allocated (live_sets, n_ways) structure.
+
+
+def way_mask(n_ways: torch.Tensor, ways: int) -> torch.Tensor:
+    """``[W, ways]`` bool: way w is live on a lane with ``n_ways`` ways."""
+    return _arange(ways, n_ways.device)[None, :] < n_ways[:, None]
+
+
+def lookup_dyn(a: Assoc, key, set_mask, n_ways):
+    """`lookup` against a dynamically sized view of `a`."""
+    s = (key & set_mask).long()
+    ln = lane_ids(key)
+    hits = (a.valid[ln, s] & (a.tags[ln, s] == key[:, None])
+            & way_mask(n_ways, a.n_ways))
+    return hits.any(1), first_true(hits), s
+
+
+def insert_lru_dyn(a: Assoc, key, now, set_mask, n_ways, enable=True):
+    """`insert_lru` against a dynamically sized view of `a`."""
+    s = (key & set_mask).long()
+    ln = lane_ids(key)
+    stamps = torch.where(way_mask(n_ways, a.n_ways),
+                         torch.where(a.valid[ln, s], a.meta[ln, s], -1),
+                         torch.iinfo(torch.int32).max)
+    e = row_offsets(a.tags, s) + stamps.argmin(1)
+    ev_tag = a.tags.take(e)
+    ev_valid = a.valid.take(e)
+    en = as_mask(enable, key)
+    if idle(en):
+        return a, ev_tag, ev_valid & en
+    a.tags.put_(e, torch.where(en, key, ev_tag))
+    a.valid.put_(e, ev_valid | en)
+    a.meta.put_(e, torch.where(en, now, a.meta.take(e)))
+    return a, ev_tag, ev_valid & en
+
+
 # ---------------------------------------------------------------- SRRIP
 
-def srrip_age_and_pick(rrpv_row: torch.Tensor, valid_row: torch.Tensor):
+def srrip_age_and_pick(rrpv_row: torch.Tensor, valid_row: torch.Tensor,
+                       way_ok: torch.Tensor | None = None):
     """Age the row so at least one way reaches RRIP_MAX and pick a victim.
 
-    Invalid ways are preferred (treated as RRPV=+inf).  Returns
-    (aged_row, victim_way) for ``[W, ways]`` rows.
+    Invalid ways are preferred (treated as RRPV=+inf).  `way_ok`
+    (``[W, ways]`` bool, optional) restricts both the aging max and the
+    victim pick to a dynamically sized view's live ways: masked-off ways
+    count -1, so they never dominate the max nor win the argmax.
+    Returns (aged_row, victim_way) for ``[W, ways]`` rows.
     """
     eff = torch.where(valid_row, rrpv_row, RRIP_MAX + 1)
+    if way_ok is not None:
+        eff = torch.where(way_ok, eff, -1)
     bump = (RRIP_MAX - eff.amax(1)).clamp_min(0)
     aged = torch.where(valid_row, rrpv_row + bump[:, None], rrpv_row)
     pick = torch.where(valid_row, aged, RRIP_MAX + 1)
+    if way_ok is not None:
+        pick = torch.where(way_ok, pick, -1)
     return aged, pick.argmax(1)
 
 
-def srrip_victim_tlb_aware(rrpv_row, valid_row, is_tlb_row, pressure):
+def srrip_victim_tlb_aware(rrpv_row, valid_row, is_tlb_row, pressure,
+                           way_ok=None):
     """Paper Listing 1 `chooseReplacementCandidate`.
 
     If the SRRIP victim is a TLB block and translation pressure is high,
@@ -175,8 +227,10 @@ def srrip_victim_tlb_aware(rrpv_row, valid_row, is_tlb_row, pressure):
     If none exists the TLB block is evicted after all.
     Returns (aged_row, victim_way).
     """
-    aged, v0 = srrip_age_and_pick(rrpv_row, valid_row)
+    aged, v0 = srrip_age_and_pick(rrpv_row, valid_row, way_ok)
     non_tlb_max = valid_row & ~is_tlb_row & (aged >= RRIP_MAX)
+    if way_ok is not None:
+        non_tlb_max = non_tlb_max & way_ok
     have_alt = non_tlb_max.any(1)
     v1 = first_true(non_tlb_max)
     ln = lane_ids(v0)

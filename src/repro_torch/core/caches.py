@@ -12,9 +12,10 @@ block carries a *block type* —
 Tag matching always requires the block type to match.  Reuse histograms
 (Figs. 11 & 24) and live TLB-block counts (Fig. 23 reach) are folded into
 the cache state on insert/evict.  Every array has a leading lane axis and
-is updated in place (see ``repro_torch.core.assoc``).  This slice runs
-the static geometry only; the DRAM-cache rung is compiled out (its
-placeholder state stays sized 1, as in the reference).
+is updated in place (see ``repro_torch.core.assoc``).  The L2 cache
+takes a per-lane view geometry (``L2Geom``) for ladder-batched runs;
+the DRAM-cache rung is compiled out (its placeholder state stays sized
+1, as in the reference).
 """
 from __future__ import annotations
 
@@ -26,10 +27,37 @@ from repro_torch.core.assoc import (RRIP_MAX, Assoc, as_mask, idle,
                                     insert_lru, lane_ids, lane_offsets,
                                     lookup, make, row_offsets, set_index,
                                     srrip_age_and_pick,
-                                    srrip_victim_tlb_aware, touch_lru)
+                                    srrip_victim_tlb_aware, touch_lru,
+                                    way_mask)
 
 BT_DATA, BT_TLB4, BT_TLB2, BT_NTLB = 0, 1, 2, 3
 REUSE_BUCKETS = 22  # reuse counts 0..20, bucket 21 = ">20" overflow
+
+
+class L2Geom(NamedTuple):
+    """Per-lane view geometry of a dynamically sized L2 cache.
+
+    A ladder-batched run allocates the L2 at the ladder's maximum shape;
+    each lane's live geometry is a set mask plus an effective way count
+    (``[W]`` int32 each).  Every insert masks its set index and picks
+    its victim among the ways below ``n_ways``, so the view equals a
+    statically allocated (live_sets, n_ways) cache.  ``geom=None``
+    everywhere below is the static path.
+    """
+
+    set_mask: torch.Tensor  # int32 [W] = live sets - 1
+    n_ways: torch.Tensor    # int32 [W] effective ways
+
+
+def _l2_set(l2: "L2Cache", key, geom: L2Geom | None) -> torch.Tensor:
+    if geom is None:
+        return set_index(key, l2.n_sets)
+    return (key & geom.set_mask).long()
+
+
+def _way_ok(l2: "L2Cache", geom: L2Geom | None):
+    return None if geom is None else way_mask(geom.n_ways,
+                                              l2.tags.shape[2])
 
 
 class L2Cache(NamedTuple):
@@ -79,8 +107,10 @@ def _add_live(l2: L2Cache, bt, delta: torch.Tensor) -> None:
             cnt.add_(delta * (bt == code))
 
 
-def l2_lookup(l2: L2Cache, key, btype):
-    s = set_index(key, l2.n_sets)
+def l2_lookup(l2: L2Cache, key, btype, geom: L2Geom | None = None):
+    # no way mask on a probe: inserts never touch ways past the view's
+    # limit, so those ways are never valid
+    s = _l2_set(l2, key, geom)
     ln = lane_ids(key)
     hits = (l2.valid[ln, s] & (l2.tags[ln, s] == key[:, None])
             & (l2.btype[ln, s] == _col(btype)))
@@ -124,8 +154,8 @@ def _account_evict(l2: L2Cache, bt, valid, reuse, evicting) -> None:
     _add_live(l2, bt, -gone.int())
 
 
-def l2_insert(l2: L2Cache, key, btype, pressure, tlb_aware: bool, enable
-              ) -> L2Cache:
+def l2_insert(l2: L2Cache, key, btype, pressure, tlb_aware: bool, enable,
+              geom: L2Geom | None = None) -> L2Cache:
     """Insert a block (Listing 1 `insertBlockInL2` + victim selection).
 
     Inserted TLB blocks under pressure get RRPV=0; everything else the
@@ -137,15 +167,17 @@ def l2_insert(l2: L2Cache, key, btype, pressure, tlb_aware: bool, enable
     en = as_mask(enable, key)
     if idle(en):
         return l2
-    s = set_index(key, l2.n_sets)
+    s = _l2_set(l2, key, geom)
+    way_ok = _way_ok(l2, geom)
     ln = lane_ids(key)
     row_rrpv, row_valid = l2.rrpv[ln, s], l2.valid[ln, s]
     row_btype = l2.btype[ln, s]
     if tlb_aware:
         aged, w = srrip_victim_tlb_aware(row_rrpv, row_valid,
-                                         row_btype != BT_DATA, pressure)
+                                         row_btype != BT_DATA, pressure,
+                                         way_ok)
     else:
-        aged, w = srrip_age_and_pick(row_rrpv, row_valid)
+        aged, w = srrip_age_and_pick(row_rrpv, row_valid, way_ok)
     e = row_offsets(l2.tags, s) + w
     old_bt, old_valid = l2.btype.take(e), l2.valid.take(e)
     old_reuse = l2.reuse.take(e)
@@ -166,15 +198,16 @@ def l2_insert(l2: L2Cache, key, btype, pressure, tlb_aware: bool, enable
 
 
 def l2_retag_to_tlb(l2: L2Cache, key, btype, pressure, tlb_aware: bool,
-                    enable) -> L2Cache:
+                    enable, geom: L2Geom | None = None) -> L2Cache:
     """Victima §5.2: transform the cache line holding the fetched leaf PTEs
     into a TLB block, *unless* one already exists for this region
     (modeled as an insert at set(key), as in the reference)."""
     en = as_mask(enable, key)
     if idle(en):
         return l2
-    exists, _, _ = l2_lookup(l2, key, btype)
-    return l2_insert(l2, key, btype, pressure, tlb_aware, en & ~exists)
+    exists, _, _ = l2_lookup(l2, key, btype, geom)
+    return l2_insert(l2, key, btype, pressure, tlb_aware, en & ~exists,
+                     geom)
 
 
 # ---------------------------------------------------------------- L3 (SRRIP)
@@ -263,7 +296,8 @@ _BG_SALTS = (-1640531527, -2048144789)
 _BG_MASK = (1 << 26) - 1
 
 
-def access_data(h: Hier, line, now, pressure, tlb_aware: bool, lat: Lat):
+def access_data(h: Hier, line, now, pressure, tlb_aware: bool, lat: Lat,
+                geom: L2Geom | None = None):
     """Demand data access L1D→L2→L3→DRAM with fills. Returns (h, cycles).
 
     The L1D is touched unconditionally: on a miss this stamps way 0 of
@@ -273,18 +307,19 @@ def access_data(h: Hier, line, now, pressure, tlb_aware: bool, lat: Lat):
     hit1, w1, s1 = lookup(h.l1d, line)
     touch_lru(h.l1d, s1, w1, now)
 
-    hit2, w2, s2 = l2_lookup(h.l2, line, BT_DATA)
+    hit2, w2, s2 = l2_lookup(h.l2, line, BT_DATA, geom)
     go_l2 = ~hit1
     l2_touch(h.l2, s2, w2, pressure, tlb_aware, go_l2 & hit2)
 
     go_l3 = go_l2 & ~hit2
     _, hit3 = l3_access(h.l3, line, go_l3)
     # fill L2 on L2 miss (from L3 or DRAM)
-    l2_insert(h.l2, line, BT_DATA, pressure, tlb_aware, go_l3)
+    l2_insert(h.l2, line, BT_DATA, pressure, tlb_aware, go_l3, geom)
     # stream prefetcher at L2 (Table 3): next-line fill on L2 miss
     nxt = line + 1
-    pf_hit, _, _ = l2_lookup(h.l2, nxt, BT_DATA)
-    l2_insert(h.l2, nxt, BT_DATA, pressure, tlb_aware, go_l3 & ~pf_hit)
+    pf_hit, _, _ = l2_lookup(h.l2, nxt, BT_DATA, geom)
+    l2_insert(h.l2, nxt, BT_DATA, pressure, tlb_aware, go_l3 & ~pf_hit,
+              geom)
     # fill L1D on any L1 miss
     insert_lru(h.l1d, line, now, go_l2)
 
@@ -294,7 +329,8 @@ def access_data(h: Hier, line, now, pressure, tlb_aware: bool, lat: Lat):
     for salt in _BG_SALTS:
         bg_line = ((now * _BG_MUL) ^ salt) & _BG_MASK
         _, bg_hit3 = l3_access(h.l3, bg_line, True)
-        l2_insert(h.l2, bg_line, BT_DATA, pressure, tlb_aware, ~bg_hit3)
+        l2_insert(h.l2, bg_line, BT_DATA, pressure, tlb_aware, ~bg_hit3,
+                  geom)
 
     cycles = torch.where(hit1, lat.l1d, _miss_cycles(hit2, hit3, lat))
     h.n_l2_access.add_(go_l2.int())
@@ -304,16 +340,16 @@ def access_data(h: Hier, line, now, pressure, tlb_aware: bool, lat: Lat):
 
 
 def access_pte(h: Hier, line, pressure, tlb_aware: bool, lat: Lat, enable,
-               bt: int = BT_DATA):
+               bt: int = BT_DATA, geom: L2Geom | None = None):
     """Page-table-walker access (starts at L2). Returns (h, cycles, dram)."""
     en = as_mask(enable, line)
     if idle(en):
         return h, torch.zeros_like(line), torch.zeros_like(en)
-    hit2, w2, s2 = l2_lookup(h.l2, line, bt)
+    hit2, w2, s2 = l2_lookup(h.l2, line, bt, geom)
     l2_touch(h.l2, s2, w2, pressure, tlb_aware, en & hit2)
     go_l3 = en & ~hit2
     _, hit3 = l3_access(h.l3, line, go_l3)
-    l2_insert(h.l2, line, bt, pressure, tlb_aware, go_l3)
+    l2_insert(h.l2, line, bt, pressure, tlb_aware, go_l3, geom)
     dram = go_l3 & ~hit3
     cycles = torch.where(en, _miss_cycles(hit2, hit3, lat), 0)
     h.n_l3_access.add_(go_l3.int())

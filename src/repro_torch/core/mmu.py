@@ -1,5 +1,5 @@
 """MMU translation-pipeline driver (paper §§4-6, Table 3); port of
-``repro.core.mmu`` for the single-core, static-geometry compositions.
+``repro.core.mmu`` for the single-core compositions.
 
 The translation path is a statically composed list of stages (see
 ``repro_torch.core.stages``): L1 TLB -> L2 TLB -> [Victima L2-cache
@@ -11,11 +11,14 @@ it over a trace through ``repro_torch.kernels.mmu_step.blocked_scan``,
 which launches the hand-written CUDA kernel when the state lies on the
 card and runs the step itself, access by access, when it lies on the CPU.
 
-Two entry points share the step:
+Three entry points share the step:
   simulate         — one (config, trace)
   simulate_batch   — one config, W workloads in lock-step (traces [T, W])
+  simulate_systems — S ladder members x W workloads in one scan: the
+                     S x W grid flattened to S·W lanes, each with its own
+                     ``Dyn`` geometry and stage gates
 
-Both run on ``device="cuda"`` unless the caller passes ``device="cpu"``;
+All run on ``device="cuda"`` unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request they raise.
 """
 from __future__ import annotations
@@ -25,17 +28,18 @@ import torch
 
 from repro_torch.core import ptwcp
 from repro_torch.core.caches import BT_DATA, REUSE_BUCKETS, access_data
-from repro_torch.core.stages import (MMUState, Request, STAGES, SimConfig,
-                                     Stats, WALK_HIST_BUCKETS,
+from repro_torch.core.stages import (Dyn, MMUState, Request, STAGES,
+                                     SimConfig, Stats, WALK_HIST_BUCKETS,
                                      Feats, default_stages, fill_order,
-                                     make_state, validate_stages)
+                                     l2_geom_of, make_state,
+                                     validate_stages)
 from repro_torch.core.stages.fold import accum_stats, collect_feats
 from repro_torch.kernels import mmu_step
 
 __all__ = [
-    "MMUState", "SimConfig", "Stats", "WALK_HIST_BUCKETS", "make_state",
-    "make_step", "resolve_device", "scan_accesses", "simulate",
-    "simulate_batch",
+    "Dyn", "MMUState", "SimConfig", "Stats", "WALK_HIST_BUCKETS",
+    "make_state", "make_step", "make_systems_runner", "resolve_device",
+    "scan_accesses", "simulate", "simulate_batch", "simulate_systems",
 ]
 
 # trace leaves the step reads, with their dtypes
@@ -55,18 +59,21 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def make_step(cfg: SimConfig, stage_names=None):
+def make_step(cfg: SimConfig, stage_names=None, dyn: Dyn | None = None):
     """Build the per-access step for this configuration.
 
     ``step(state, access) -> state`` updates the lane-batched state in
     place.  ``access`` maps ``vpn`` (int32 4K-VPN), ``is2m`` (bool),
     ``line`` (int32 data line id) and ``ipa`` (float32 instructions per
-    access) to ``[W]`` tensors.
+    access) to ``[W]`` tensors.  `dyn` carries each lane's sizing and
+    stage gates for ladder-batched runs (``[W]`` leaves on the state's
+    device; `cfg` is then the ladder's maximal base config).
     """
     names = tuple(stage_names) if stage_names else default_stages(cfg)
     validate_stages(cfg, names)
     stages = [STAGES[n] for n in names]
     fills = [STAGES[n] for n in fill_order(names)]
+    geom = l2_geom_of(dyn)  # the L2 cache's per-lane view (None = static)
 
     def step(st: MMUState, acc) -> MMUState:
         vpn, is2m, ipa = acc["vpn"], acc["is2m"], acc["ipa"]
@@ -84,7 +91,7 @@ def make_step(cfg: SimConfig, stage_names=None):
         req = Request(
             vpn=vpn, is2m=is2m, line=acc["line"], ipa=ipa, vpn2=vpn2,
             vpn_sz=vpn_sz, key2=(vpn_sz << 1) | is2m.int(), now=now,
-            pressure=pressure, l2_bypass=l2_bypass,
+            pressure=pressure, l2_bypass=l2_bypass, dyn=dyn,
         )
 
         # ---------------- lookup pass: fold the composition
@@ -109,7 +116,7 @@ def make_step(cfg: SimConfig, stage_names=None):
 
         # ---------------- the data access itself
         _, dcyc = access_data(st.hier, req.line, now, pressure,
-                              cfg.tlb_aware, cfg.lat)
+                              cfg.tlb_aware, cfg.lat, geom)
         accum_stats(st.stats, st, out, walk_res, trans, past_l2, dcyc)
         if cfg.collect:
             collect_feats(cfg, st, req, out, walk_res)
@@ -119,14 +126,15 @@ def make_step(cfg: SimConfig, stage_names=None):
 
 
 def scan_accesses(step, st0: MMUState, trace: dict, cfg: SimConfig,
-                  stage_names) -> MMUState:
+                  stage_names, dyn: Dyn | None = None) -> MMUState:
     """Run the per-access ``step`` over ``trace`` (leaves ``[T, W]``).
 
     Updates ``st0`` in place and returns it.  The kernel wrapper picks
     the path from the state's device: the CUDA kernel on the card, the
-    plain step on the CPU.
+    plain step on the CPU.  `dyn` is the step's per-lane ``Dyn``, which
+    the kernel reads too.
     """
-    return mmu_step.blocked_scan(step, st0, trace, cfg, stage_names)
+    return mmu_step.blocked_scan(step, st0, trace, cfg, stage_names, dyn)
 
 
 def _final_hists(l2):
@@ -225,3 +233,47 @@ def simulate_batch(cfg: SimConfig, traces: dict, stage_names=None,
     extras = [_extras_of(cfg, *rest, index=lambda x, i=i: x[i])
               for i in range(W)]
     return per, extras
+
+
+def make_systems_runner(cfg: SimConfig, stage_names=None, device=None):
+    """A reusable S x W runner for one ladder base config.
+
+    Returns ``run(dyns, traces) -> (per, extras)``: `dyns` has ``[S]``
+    leaves (``sim.systems.ladder_dyn``), traces leaves are ``[T, W]``,
+    shared by the systems.  The grid runs as S·W lanes, system-major
+    (lane ``s * W + w``): each Dyn leaf repeated W times, the traces
+    tiled S times.  ``per[s][w]`` is system s's Stats on workload w and
+    ``extras[s][w]`` its extras, as numpy.
+    """
+    dev = resolve_device(device)
+    names = tuple(stage_names) if stage_names else default_stages(cfg)
+
+    def run(dyns: Dyn, traces: dict):
+        S = dyns.l2tlb_lat.shape[0]
+        tr = _lane_trace(traces, cfg, dev, lanes=True)
+        W = tr["vpn"].shape[1]
+        tr = {k: x.repeat(1, S) for k, x in tr.items()}
+        dyn = Dyn(*[x.to(dev).repeat_interleave(W) for x in dyns])
+        st = scan_accesses(make_step(cfg, names, dyn),
+                           make_state(cfg, S * W, dev), tr, cfg, names, dyn)
+        stats, *rest = _finalize(st, cfg)
+        per = [[Stats(*[x[s * W + w] for x in stats]) for w in range(W)]
+               for s in range(S)]
+        extras = [[_extras_of(cfg, *rest, index=lambda x, i=s * W + w: x[i])
+                   for w in range(W)] for s in range(S)]
+        return per, extras
+
+    return run
+
+
+def simulate_systems(cfg: SimConfig, dyns: Dyn, traces: dict,
+                     stage_names=None, device=None):
+    """Run S shape-compatible systems x W workloads in one scan.
+
+    `cfg` is the ladder's base config (structures at the ladder maximum,
+    every gated stage in its composition); `dyns` has ``[S]`` leaves of
+    per-system sizing and gates; traces leaves are ``[T, W]``.  Returns
+    (list[S] of list[W] Stats, extras likewise).  The one-shot form of
+    ``make_systems_runner``.
+    """
+    return make_systems_runner(cfg, stage_names, device)(dyns, traces)

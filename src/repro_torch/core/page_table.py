@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core.assoc import (Assoc, as_mask, idle, insert_lru, lookup,
                                     make)
-from repro_torch.core.caches import Hier, Lat, access_pte
+from repro_torch.core.caches import Hier, L2Geom, Lat, access_pte
 
 # line-id bases (disjoint regions; all < 2^30, int32-safe)
 _B = 1 << 29
@@ -57,12 +57,13 @@ def make_pwcs(sets=8, ways=4, lanes: int = 1, device="cpu") -> PWCs:
 
 
 def walk(h: Hier, pwcs: PWCs, vpn4k, is2m, now, pressure, tlb_aware: bool,
-         lat: Lat, enable):
+         lat: Lat, enable, geom: L2Geom | None = None):
     """One native radix walk.
 
     Returns (hier, pwcs, cycles, n_dram).  `cycles` includes the PWC
     probe.  The PWCs are probed on the state before the walk and `start`
     is fixed before any fill; all state updates are masked by `enable`.
+    `geom` is the L2 cache's per-lane view (None = static geometry).
     """
     en = as_mask(enable, vpn4k)
     if idle(en):
@@ -99,7 +100,7 @@ def walk(h: Hier, pwcs: PWCs, vpn4k, is2m, now, pressure, tlb_aware: bool,
     for slot in range(4):
         slot_en = en & (start <= slot) & (n_levels > slot)
         h, c, d = access_pte(h, lines[slot], pressure, tlb_aware, lat,
-                             slot_en)
+                             slot_en, geom=geom)
         cycles = cycles + c
         n_dram = n_dram + d.int()
 
@@ -119,7 +120,8 @@ def _host_lines(gpn):
     )
 
 
-def host_walk(h: Hier, gpn, pressure, tlb_aware: bool, lat: Lat, enable):
+def host_walk(h: Hier, gpn, pressure, tlb_aware: bool, lat: Lat, enable,
+              geom: L2Geom | None = None):
     """Host-PT walk (virt., no PWCs -- paper Fig. 3 gives the host walker a
     nested TLB instead): 4 sequential PTE-line accesses through the
     caches.  Returns (hier, cycles, n_dram, leaf_line)."""
@@ -130,7 +132,7 @@ def host_walk(h: Hier, gpn, pressure, tlb_aware: bool, lat: Lat, enable):
     if idle(en):
         return h, cycles, n_dram, lines[3]
     for ln in lines:
-        h, c, d = access_pte(h, ln, pressure, tlb_aware, lat, en)
+        h, c, d = access_pte(h, ln, pressure, tlb_aware, lat, en, geom=geom)
         cycles = cycles + c
         n_dram = n_dram + d.int()
     return h, cycles, n_dram, lines[3]

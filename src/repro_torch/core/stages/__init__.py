@@ -10,10 +10,12 @@ from a SimConfig.
 """
 from __future__ import annotations
 
-from repro_torch.core.stages.base import (Feats, MMUState, Request,
-                                          SimConfig, Stage, StageResult,
-                                          Stats, WALK_HIST_BUCKETS,
-                                          make_state, state_from_numpy,
+from repro_torch.core.stages.base import (DYN_FIELDS, Dyn, Feats,
+                                          MMUState, Request, SimConfig,
+                                          Stage, StageResult, Stats,
+                                          WALK_HIST_BUCKETS, dramc_of,
+                                          dyn_of, l2_geom_of, make_state,
+                                          stack_dyns, state_from_numpy,
                                           state_leaves, state_to_numpy,
                                           zero_feats, zero_stats)
 from repro_torch.core.stages.l1_tlb import L1TLBStage
@@ -80,9 +82,9 @@ def fill_order(names: tuple[str, ...]) -> tuple[str, ...]:
 
 
 __all__ = [
-    "Feats", "MMUState", "Request", "STAGES", "SimConfig", "Stage",
-    "StageResult", "Stats", "WALK_HIST_BUCKETS", "default_stages",
-    "fill_order", "make_state", "state_from_numpy",
-    "state_leaves",
+    "DYN_FIELDS", "Dyn", "Feats", "MMUState", "Request", "STAGES",
+    "SimConfig", "Stage", "StageResult", "Stats", "WALK_HIST_BUCKETS",
+    "default_stages", "dramc_of", "dyn_of", "fill_order", "l2_geom_of",
+    "make_state", "stack_dyns", "state_from_numpy", "state_leaves",
     "state_to_numpy", "validate_stages", "zero_feats", "zero_stats",
 ]

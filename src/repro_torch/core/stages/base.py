@@ -16,8 +16,9 @@ Differences from the reference, all forced by torch:
 - ``SimConfig`` keeps every reference field, so configs carry over one
   for one, but rejects on construction any value this port cannot
   simulate yet, naming the field;
-- the ``Dyn`` ladder views are not ported yet, so ``Request`` has no
-  ``dyn`` field and every geometry is static;
+- ``Dyn``'s leaves are ``[W]`` tensors on the state's device, one value
+  a lane, where the reference vmaps scalars; it keeps ``dramc_en``, always
+  False (the DRAM-cache rung is not ported);
 - the Table-2 feature counters keep the reference's uint16, but CPU
   torch neither adds nor puts into uint16, so ``collect_feats`` works on
   int16 views of them: int16 addition wraps modulo 2^16 as the
@@ -33,7 +34,7 @@ import torch
 
 from repro_torch.core import ptwcp
 from repro_torch.core.assoc import Assoc, make
-from repro_torch.core.caches import Hier, Lat, make_hier
+from repro_torch.core.caches import Hier, L2Geom, Lat, make_hier
 from repro_torch.core.page_table import PWCs, make_pwcs
 
 WALK_HIST_BUCKETS = 64  # 10-cycle buckets for the Fig.4 PTW latency CDF
@@ -126,6 +127,76 @@ class SimConfig:
                 "simulates Utopia and Revelator natively only so far; "
                 "ROADMAP.md Queue 1, Utopia and Revelator under nested "
                 "paging ports them")
+
+
+class Dyn(NamedTuple):
+    """Per-lane sizing, latency and stage-gate overrides for
+    ladder-batched simulation, each a ``[W]`` tensor.
+
+    A batched ladder allocates its structures at the ladder's maximum
+    shape (``sim.systems.dyn_base_config``); systems whose configs
+    differ only in ``DYN_FIELDS`` then run as lanes of one step.  A lane
+    whose gate is off masks every state write of that stage, bit-exactly
+    reproducing the composition without it.
+    """
+
+    l2tlb_set_mask: torch.Tensor  # int32, = live L2-TLB sets - 1
+    l2tlb_ways: torch.Tensor      # int32 effective ways
+    l2tlb_lat: torch.Tensor       # int32 probe latency
+    l3tlb_lat: torch.Tensor       # int32 probe latency (unused if no L3 TLB)
+    l2_set_mask: torch.Tensor     # int32, = live L2-cache sets - 1
+    l2_ways: torch.Tensor         # int32 effective L2-cache ways
+    victima_en: torch.Tensor      # bool: the Victima stage is live
+    utopia_en: torch.Tensor       # bool: the RestSeg stage is live
+    restseg_ways: torch.Tensor    # int32 effective RestSeg ways
+    l3tlb_en: torch.Tensor        # bool: the hardware L3 TLB is live
+    pom_en: torch.Tensor          # bool: the POM-TLB is live
+    rev_en: torch.Tensor          # bool: Revelator's stage is live
+    dramc_en: torch.Tensor        # bool: always False (no DRAM cache here)
+
+    def to(self, device) -> "Dyn":
+        return Dyn(*[x.to(device) for x in self])
+
+
+# SimConfig fields a batched ladder may vary across members (the
+# reference's list).  "victima", "utopia", "pom", "l3tlb_sets" and
+# "revelator" are stage flags that a lane gates
+# (sim.systems.DYN_GATED_STAGES), not geometry.
+DYN_FIELDS = ("l2tlb_sets", "l2tlb_ways", "l2tlb_lat", "l3tlb_lat",
+              "l2_sets", "l2_ways", "victima",
+              "utopia", "restseg_ways", "l3tlb_sets", "pom", "revelator",
+              "dram_cache_sets")
+
+
+def dyn_of(cfg: "SimConfig") -> Dyn:
+    """The Dyn equivalent to `cfg`'s static sizing: one lane, on the CPU
+    (``stack_dyns`` joins lanes, ``Dyn.to`` moves them)."""
+    vals = (cfg.l2tlb_sets - 1, cfg.l2tlb_ways, cfg.l2tlb_lat,
+            cfg.l3tlb_lat, cfg.l2_sets - 1, cfg.l2_ways, cfg.victima,
+            cfg.utopia, cfg.restseg_ways, cfg.l3tlb_sets > 0, cfg.pom,
+            cfg.revelator, cfg.dram_cache_sets > 0)
+    return Dyn(*[torch.full((1,), v, dtype=torch.bool if isinstance(v, bool)
+                            else torch.int32) for v in vals])
+
+
+def stack_dyns(dyns) -> Dyn:
+    """One Dyn whose lanes are those of `dyns`, in order."""
+    return Dyn(*[torch.cat(xs) for xs in zip(*dyns)])
+
+
+def l2_geom_of(dyn: Dyn | None) -> L2Geom | None:
+    """The per-lane L2-cache view a request carries (None = static)."""
+    if dyn is None:
+        return None
+    return L2Geom(set_mask=dyn.l2_set_mask, n_ways=dyn.l2_ways)
+
+
+def dramc_of(cfg: "SimConfig", dyn: Dyn | None = None):
+    """The die-stacked DRAM-cache gate: None (the probe compiled out), as
+    the reference's for every configuration with ``dram_cache_sets ==
+    0`` -- the only ones this port simulates: ``SimConfig`` refuses any
+    other value, naming the ROADMAP item that ports the gate."""
+    return None
 
 
 class Stats(NamedTuple):
@@ -335,6 +406,7 @@ class Request(NamedTuple):
     now: torch.Tensor       # logical time (LRU stamp)
     pressure: torch.Tensor  # bool — translation pressure (L2-TLB MPKI > thr)
     l2_bypass: torch.Tensor  # bool — L2$ MPKI high: bypass the PTW-CP
+    dyn: Dyn | None = None  # ladder-batched overrides (None = static)
 
 
 class StageResult(NamedTuple):

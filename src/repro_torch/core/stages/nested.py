@@ -1,5 +1,5 @@
 """Stage: nested-paging 2-D page-table walk (virtualized, paper §9.3);
-port of ``repro.core.stages.nested`` with the static geometry only.
+port of ``repro.core.stages.nested``.
 
 Every guest-PT access first resolves its own gPA -> hPA through the
 nested TLB, optionally Victima's nested-TLB blocks in the L2 cache, and
@@ -8,7 +8,10 @@ last (identity gPA map: gpn = vpn).  The side effects keep the
 reference's order exactly; the two host-page counter updates of one
 translation (demand walk, then the nested-TLB eviction's background
 walk) are two in-place writes, so the second wins when their indices
-meet, as there.
+meet, as there.  With ``Dyn`` overrides the L2 cache is each lane's view,
+and a lane whose ``victima_en`` is off probes no nested-TLB block and
+installs none, and walks nothing in the background: a plain nested-paging
+lane.
 """
 from __future__ import annotations
 
@@ -20,14 +23,18 @@ from repro_torch.core.caches import (BT_NTLB, access_pte, l2_lookup,
                                      l2_retag_to_tlb, l2_touch)
 from repro_torch.core.page_table import (LEAF4_BASE, PD_BASE, PDP_BASE,
                                          PML4_BASE, PWC_LAT, host_walk)
-from repro_torch.core.stages.base import Stage, StageResult, hash_h
+from repro_torch.core.stages.base import (Stage, StageResult, hash_h,
+                                          l2_geom_of)
 from repro_torch.core.stages.ptw import fill_walk_counters
 
 
-def nested_translate(cfg, st, gpn, pressure, l2_bypass, enable):
+def nested_translate(cfg, st, gpn, pressure, l2_bypass, enable, geom=None,
+                     ven=None):
     """gPA-page -> hPA (virt.): nested TLB -> [Victima nested-TLB block] ->
     host walk.  Returns (st, cycles, host_walked, ntlb_hit, nvictima_hit),
-    each ``[W]``; the state is updated in place."""
+    each ``[W]``; the state is updated in place.  `geom` is the L2
+    cache's per-lane view, `ven` the per-lane Victima gate (None:
+    static)."""
     en = as_mask(enable, gpn)
     zero = torch.zeros_like(en)
     if idle(en):
@@ -42,8 +49,10 @@ def nested_translate(cfg, st, gpn, pressure, l2_bypass, enable):
 
     # Victima: probe the L2 cache for a nested TLB block
     if cfg.victima:
-        vh, vw, vs = l2_lookup(st.hier.l2, gpn >> 3, BT_NTLB)
+        vh, vw, vs = l2_lookup(st.hier.l2, gpn >> 3, BT_NTLB, geom)
         vhit = miss & vh
+        if ven is not None:
+            vhit = vhit & ven
         l2_touch(st.hier.l2, vs, vw, pressure, cfg.tlb_aware, vhit)
         cycles = cycles + cfg.lat.l2 * vhit.int()
     else:
@@ -51,7 +60,7 @@ def nested_translate(cfg, st, gpn, pressure, l2_bypass, enable):
 
     need_walk = miss & ~vhit
     _, wc, ndram, _ = host_walk(st.hier, gpn, pressure, cfg.tlb_aware,
-                                cfg.lat, need_walk)
+                                cfg.lat, need_walk, geom)
     cycles = cycles + wc
 
     # host-page PTW-CP counters + nested-TLB-block insertion
@@ -60,8 +69,11 @@ def nested_translate(cfg, st, gpn, pressure, l2_bypass, enable):
     if cfg.victima:
         pred = (ptwcp.predict_page(st.pch, hidx) if cfg.use_ptwcp
                 else torch.ones_like(en))
+        ins = need_walk & (pred | l2_bypass)
+        if ven is not None:
+            ins = ins & ven
         l2_retag_to_tlb(st.hier.l2, gpn >> 3, BT_NTLB, pressure,
-                        cfg.tlb_aware, need_walk & (pred | l2_bypass))
+                        cfg.tlb_aware, ins, geom)
 
     # refill the nested TLB; the evicted entry triggers a background walk
     _, ev_tag, ev_valid = insert_lru(st.ntlb, gpn, now, miss)
@@ -70,16 +82,19 @@ def nested_translate(cfg, st, gpn, pressure, l2_bypass, enable):
         epred = (ptwcp.predict_page(st.pch, eidx) if cfg.use_ptwcp
                  else torch.ones_like(en))
         bg = miss & ev_valid & (epred | l2_bypass)
+        if ven is not None:
+            bg = bg & ven
         _, _, bdram, _ = host_walk(st.hier, ev_tag, pressure, cfg.tlb_aware,
-                                   cfg.lat, bg)
+                                   cfg.lat, bg, geom)
         ptwcp.update_counters(st.pch, eidx, bdram >= 1, bg)
         l2_retag_to_tlb(st.hier.l2, ev_tag >> 3, BT_NTLB, pressure,
-                        cfg.tlb_aware, bg)
+                        cfg.tlb_aware, bg, geom)
 
     return st, cycles, need_walk, en & hit_n, vhit
 
 
-def guest_walk_2d(cfg, st, vpn, is2m, pressure, l2_bypass, enable):
+def guest_walk_2d(cfg, st, vpn, is2m, pressure, l2_bypass, enable,
+                  geom=None, ven=None):
     """Nested-paging 2-D walk: every guest-PT access first resolves its own
     gPA->hPA via ``nested_translate``.  Returns (st, cycles, n_dram,
     n_host_walks, n_ntlb_hits, n_nvictima_hits)."""
@@ -121,12 +136,13 @@ def guest_walk_2d(cfg, st, vpn, is2m, pressure, l2_bypass, enable):
         slot_en = en & (start <= slot) & (n_levels > slot)
         # translate the guest-PT line's gPA page first
         st, ncyc, walked, nth, nvh = nested_translate(
-            cfg, st, lines[slot] >> 6, pressure, l2_bypass, slot_en)
+            cfg, st, lines[slot] >> 6, pressure, l2_bypass, slot_en, geom,
+            ven)
         n_host = n_host + (walked & slot_en).int()
         n_nt_hit = n_nt_hit + nth.int()
         n_nv_hit = n_nv_hit + nvh.int()
         _, c, d = access_pte(st.hier, lines[slot], pressure, cfg.tlb_aware,
-                             cfg.lat, slot_en)
+                             cfg.lat, slot_en, geom=geom)
         cycles = cycles + ncyc + c
         n_dram = n_dram + d.int()
 
@@ -136,7 +152,7 @@ def guest_walk_2d(cfg, st, vpn, is2m, pressure, l2_bypass, enable):
 
     # finally translate the data page's own gPA (gpn = vpn, identity map)
     st, ncyc, walked, nth, nvh = nested_translate(
-        cfg, st, vpn, pressure, l2_bypass, en)
+        cfg, st, vpn, pressure, l2_bypass, en, geom, ven)
     n_host = n_host + (walked & en).int()
     n_nt_hit = n_nt_hit + nth.int()
     n_nv_hit = n_nv_hit + nvh.int()
@@ -147,8 +163,10 @@ class NestedWalkStage(Stage):
     name = "ptw2d"
 
     def lookup(self, cfg, st, req, need):
+        ven = None if req.dyn is None else req.dyn.victima_en
         st, wcyc, ndram, nhost, n_nt_hit, n_nv_hit = guest_walk_2d(
-            cfg, st, req.vpn, req.is2m, req.pressure, req.l2_bypass, need)
+            cfg, st, req.vpn, req.is2m, req.pressure, req.l2_bypass, need,
+            l2_geom_of(req.dyn), ven)
         info = {"walk_en": need, "ndram": ndram, "nhost": nhost,
                 "n_nt_hit": n_nt_hit, "n_nv_hit": n_nv_hit}
         return st, StageResult(hit=need, cycles=wcyc, info=info)

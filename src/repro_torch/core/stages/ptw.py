@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.core import ptwcp
 from repro_torch.core.page_table import walk
-from repro_torch.core.stages.base import Stage, StageResult
+from repro_torch.core.stages.base import Stage, StageResult, l2_geom_of
 
 
 def fill_walk_counters(cfg, st, req, out):
@@ -31,7 +31,7 @@ class RadixWalkStage(Stage):
     def lookup(self, cfg, st, req, need):
         _, _, wcyc, ndram = walk(st.hier, st.pwcs, req.vpn, req.is2m,
                                  req.now, req.pressure, cfg.tlb_aware,
-                                 cfg.lat, need)
+                                 cfg.lat, need, l2_geom_of(req.dyn))
         zero = torch.zeros_like(ndram)
         info = {"walk_en": need, "ndram": ndram, "nhost": zero,
                 "n_nt_hit": zero, "n_nv_hit": zero}

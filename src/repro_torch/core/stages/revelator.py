@@ -10,7 +10,9 @@ skipped.  The verification walk runs in ``lookup`` with real cache and
 page-table traffic; only a misprediction (the enrolled page differs from
 this one: an alias) puts its cycles on the critical path, and it repairs
 the aliased entry in place.  Enrollment in ``fill`` is PTW-CP-guided,
-after the walker's or Victima's counter update.
+after the walker's or Victima's counter update.  With ``Dyn`` overrides
+a lane whose ``rev_en`` is off probes nothing, walks nothing and enrolls
+nothing, and the verification walk sees the lane's L2-cache view.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from repro_torch.core.assoc import (first_true, lane_ids, lru_victim,
                                     set_index)
 from repro_torch.core.page_table import walk
 from repro_torch.core.stages.base import (RevTable, Stage, StageResult,
-                                          ptwcp_walk_verdict)
+                                          l2_geom_of, ptwcp_walk_verdict)
 
 # the signature's multiplier; the int32 product wraps, as in the
 # reference (torch's int32 ``*`` does on the CPU and on CUDA)
@@ -57,7 +59,8 @@ class RevelatorStage(Stage):
         row_hits = tab.valid[ln, s] & (tab.tags[ln, s] == sig[:, None])
         # the lowest matching way: enrollment can leave a signature twice
         w = first_true(row_hits)
-        sig_hit = need & row_hits.any(1)
+        probe = need if req.dyn is None else need & req.dyn.rev_en
+        sig_hit = probe & row_hits.any(1)
         # a lossy-signature hit whose enrolled page differs is the
         # misprediction: the speculative frame belonged to the alias
         correct = sig_hit & (st.rev.vpn[ln, s, w] == req.key2)
@@ -71,7 +74,8 @@ class RevelatorStage(Stage):
         # the verification walk: real page-table and cache traffic, off
         # the critical path unless the prediction was wrong
         _, _, vcyc, _ = walk(st.hier, st.pwcs, req.vpn, req.is2m, req.now,
-                             req.pressure, cfg.tlb_aware, cfg.lat, sig_hit)
+                             req.pressure, cfg.tlb_aware, cfg.lat, sig_hit,
+                             l2_geom_of(req.dyn))
         vcyc = vcyc * sig_hit.int()
         cycles = (cfg.rev_lat + vcyc * mispred.int()) * sig_hit.int()
         return st, StageResult(hit=sig_hit, cycles=cycles,
@@ -85,6 +89,8 @@ class RevelatorStage(Stage):
         walked page is costly enough to enroll."""
         enroll = ptwcp_walk_verdict(cfg, st, req,
                                     out["_walk"].info["walk_en"])
+        if req.dyn is not None:
+            enroll = enroll & req.dyn.rev_en
         sig = rev_sig(req.key2, cfg.rev_sig_bits)
         _rev_insert(st.rev, sig, req.key2, req.now, enroll)
         out[self.name].info["n_enroll"] = enroll.int()

@@ -23,15 +23,32 @@
 //   revelator  l1_tlb, l2_tlb, rev, ptw        fills: ptw, l2_tlb, rev, l1_tlb
 //   revelator_victima  l1_tlb, l2_tlb, rev, victima, ptw
 //                                 fills: l2_tlb, victima, rev, l1_tlb
+//   ladder_native  l1_tlb, l2_tlb, rev, victima, l3_tlb, pom, restseg, ptw
+//                  fills: l2_tlb, victima, restseg, rev, pom, l3_tlb, l1_tlb
+//   ladder_np  l1_tlb, l2_tlb, victima, pom, ptw2d
+//                                 fills: l2_tlb, victima, pom, l1_tlb
 // (ideal shadow paging runs the radix instantiation: its nested TLB is
 // allocated and given its room in shared memory, and never touched;
 // utopia_rs8 and utopia_rs32 run utopia's, the RestSeg ways a parameter).
+// The last two are the ladders' base compositions (sim.systems.LADDERS:
+// the native family of 28 systems, the nested one of 3), built with DYN:
+// each lane reads a row of parameters (stages.base.Dyn) at launch start,
+// its L2 TLB's and L2 cache's set mask and live ways, the RestSegs' ways,
+// the two latencies and the gates of the victima, restseg, l3_tlb, pom and
+// rev stages.  A structure keeps its allocated row stride and is read
+// through the lane's view (assoc.lookup_dyn: the set index masked, every
+// ballot, argmin and SRRIP pick over the live ways); a gated-off stage
+// neither charges cycles nor moves a line or a counter, as the reference's
+// gated step, and a radix lane runs Victima's fill order with Victima's
+// counter slot 1 redirected onto the demand page (stages.victima).
 // It must equal the plain PyTorch step (repro_torch.core.mmu.make_step)
 // bit for bit, so every operation follows that code's order; the
 // comments name the reference function each block mirrors.
 //
-// Design.  One warp (a block of 32 threads) per lane, one block per SM;
-// thread w owns way w of every row.  The Pallas kernel kept the lane's
+// Design.  One warp (a block of 32 threads) per lane; thread w owns way w
+// of every row.  A system's launch has a block on each of its 11 lanes'
+// SMs; a ladder's has hundreds of lanes, several blocks an SM, as many as
+// their registers and shared memory allow.  The Pallas kernel kept the lane's
 // state resident in VMEM across its grid; here it stays resident in the
 // block's dynamic shared memory for the whole launch.  At launch start
 // the warp copies the lane's structures in, packing the L2 cache's
@@ -93,7 +110,8 @@
 // compare decides the next row.  A step on a shared-memory row costs a
 // shared load, a ballot or a redux and the arithmetic between them; a
 // step on an L3 row or a counter adds an L2-cache hit of the card.  With
-// one warp an SM there is nothing to hide either behind, so the kernel
+// one warp an SM there is nothing to hide either behind (a ladder's few
+// warps an SM hide little of each other's), so the kernel
 // is bound by the latency of that chain of loads and dependent
 // instructions; the card's bytes and operations are far from their
 // rates, and 121 of 132 SMs are idle at 11 lanes.  chip_smoke.py's
@@ -147,6 +165,14 @@ constexpr uint32_t BG_SALT0 = static_cast<uint32_t>(-1640531527);
 constexpr uint32_t BG_SALT1 = static_cast<uint32_t>(-2048144789);
 constexpr uint32_t BG_MASK = (1u << 26) - 1;
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one block
+// a ladder lane's parameters (stages.base.Dyn): the L2 TLB's set mask,
+// ways and latency, the L3 TLB's latency, the L2 cache's set mask and
+// ways, the RestSegs' ways, then the stage gates
+enum {
+  DYN_L2TLB_MASK, DYN_L2TLB_WAYS, DYN_L2TLB_LAT, DYN_L3TLB_LAT, DYN_L2_MASK,
+  DYN_L2_WAYS, DYN_RS_WAYS, DYN_VICTIMA, DYN_UTOPIA, DYN_L3TLB, DYN_POM,
+  DYN_REV, NDYN
+};
 
 }  // namespace
 
@@ -238,6 +264,9 @@ struct Params {
   int32_t* rev_vpn;
   FeatsP feats;  // sized 1 unless the configuration collects
   int32_t rev_lat, rev_sig_bits;
+  // a ladder launch's per-lane parameters, [lanes, NDYN] (the DYN_* order
+  // below; mmu_step.DYN_PARAMS), or null for a launch of one system
+  int32_t* dyn;
   // plan(*this), filled in by mmu_step_launch: the kernel reads its
   // offsets here, so a pointer it needs again costs one constant load
   // (the compiler rematerialises the pointers in the loop rather than
@@ -291,19 +320,24 @@ __device__ __forceinline__ int argmin_way(int v, bool act) {
 // The L1 TLBs, the L2 TLB, the PWCs and the L1D: tag, LRU stamp and valid
 // per entry, in shared memory or (an L2 TLB too large for it) in the
 // state tensors themselves.
+// `sets` and `ways` are the live geometry, `stride` the allocated ways
+// of a row: they differ only in a ladder instantiation (DYN), where a lane
+// uses a view of its structure (assoc.lookup_dyn) and `sets` is its set
+// mask plus one.
 struct Lru {
   int32_t* tag;
   int32_t* stamp;
   uint8_t* valid;
-  int sets, ways;
+  int sets, ways, stride;
 };
 
 // A row in registers: thread w holds way w.  Threads past the row's ways
 // read the last way too (no branch around a load, so the loads of several
 // rows are in flight together and nothing waits for them before their
 // first use) and are masked out by `act` wherever the row is used.
-__device__ __forceinline__ int row_index(int key, int sets, int ways) {
-  return (key & (sets - 1)) * ways + min(lane(), ways - 1);
+__device__ __forceinline__ int row_index(int key, int sets, int ways,
+                                         int stride) {
+  return (key & (sets - 1)) * stride + min(lane(), ways - 1);
 }
 
 struct LruRow {
@@ -317,7 +351,7 @@ struct LruRow {
 __device__ __forceinline__ LruRow load_row(const Lru& a, int key) {
   LruRow r;
   r.act = lane() < a.ways;
-  r.i = row_index(key, a.sets, a.ways);
+  r.i = row_index(key, a.sets, a.ways, a.stride);
   r.tag = a.tag[r.i];
   r.stamp = a.stamp[r.i];
   r.v = a.valid[r.i];
@@ -382,7 +416,7 @@ struct L2c {
   int32_t* reuse;
   int32_t* hist_data;  // shared memory; bucket b owned by thread b
   int32_t* hist_tlb;
-  int sets, ways;
+  int sets, ways, stride;  // as an Lru's
 };
 
 struct L2Row {
@@ -400,16 +434,17 @@ __device__ __forceinline__ unsigned pack(bool valid, int bt, int rrpv) {
 // w of the row of keys[h].
 __device__ __forceinline__ int half() { return lane() >> 4; }
 
-__device__ __forceinline__ int pair_index(int key, int sets, int ways) {
-  return (key & (sets - 1)) * ways + min(lane() & 15, ways - 1);
+__device__ __forceinline__ int pair_index(int key, int sets, int ways,
+                                          int stride) {
+  return (key & (sets - 1)) * stride + min(lane() & 15, ways - 1);
 }
 
 __device__ __forceinline__ L2Row load_row(const L2c& c, int key,
                                           bool paired = false) {
   L2Row r;
   r.act = (paired ? lane() & 15 : lane()) < c.ways;
-  r.i = paired ? pair_index(key, c.sets, c.ways)
-               : row_index(key, c.sets, c.ways);
+  r.i = paired ? pair_index(key, c.sets, c.ways, c.stride)
+               : row_index(key, c.sets, c.ways, c.stride);
   r.tag = c.tag[r.i];
   r.pk = c.pk[r.i];
   r.r8 = c.r8[r.i];
@@ -511,8 +546,8 @@ __device__ __forceinline__ L3Row load_row(const L3c& a, int key,
                                           bool paired = false) {
   L3Row r;
   r.act = (paired ? lane() & 15 : lane()) < a.ways;
-  r.i = paired ? pair_index(key, a.sets, a.ways)
-               : row_index(key, a.sets, a.ways);
+  r.i = paired ? pair_index(key, a.sets, a.ways, a.ways)
+               : row_index(key, a.sets, a.ways, a.ways);
   r.tag = a.tag[r.i];
   r.meta = a.meta[r.i];
   r.v = a.valid[r.i];
@@ -847,7 +882,7 @@ struct Nested {
 template <bool VICTIMA>
 __device__ __forceinline__ Nested nested_translate(Lane& L, int gpn, int now,
                                                    bool pressure,
-                                                   bool bypass) {
+                                                   bool bypass, bool ven) {
   LruRow rn = load_row(L.ntlb, gpn);
   const int hidx = hash_h(gpn, L.nh);
   int f = L.fh[hidx], c = L.ch[hidx];
@@ -858,7 +893,7 @@ __device__ __forceinline__ Nested nested_translate(Lane& L, int gpn, int now,
     o.nt_hit = true;
     return o;
   }
-  if (VICTIMA) {
+  if (VICTIMA && ven) {  // a gated-off lane probes no nested-TLB block
     const int vk = gpn >> 3;
     L2Row r = load_row(L.l2, vk);
     const unsigned mv = hits(r, vk, BT_NTLB);
@@ -878,7 +913,7 @@ __device__ __forceinline__ Nested nested_translate(Lane& L, int gpn, int now,
       L.fh[hidx] = static_cast<uint8_t>(f);
       L.ch[hidx] = static_cast<uint8_t>(c);
     }
-    if (VICTIMA && (!L.use_ptwcp || predict(f, c) || bypass))
+    if (VICTIMA && ven && (!L.use_ptwcp || predict(f, c) || bypass))
       retag_to_tlb(L, gpn >> 3, BT_NTLB, pressure);
   }
   // refill the nested TLB (the row is as loaded: a miss stamps nothing)
@@ -886,7 +921,7 @@ __device__ __forceinline__ Nested nested_translate(Lane& L, int gpn, int now,
   const int ev_tag = __shfl_sync(kFull, rn.tag, tv);
   const bool ev_valid = (__ballot_sync(kFull, rn.valid()) >> tv) & 1u;
   fill(L.ntlb, rn, tv, gpn, now);
-  if (VICTIMA && ev_valid) {
+  if (VICTIMA && ven && ev_valid) {
     const int eidx = hash_h(ev_tag, L.nh);
     const int fe = eidx == hidx ? f : L.fh[eidx];
     const int ce = eidx == hidx ? c : L.ch[eidx];
@@ -917,7 +952,7 @@ struct Walk2d {
 template <bool VICTIMA>
 __device__ __forceinline__ Walk2d walk2d(Lane& L, PwcRows& w, int vpn,
                                         bool is2m, int now, bool pressure,
-                                        bool bypass) {
+                                        bool bypass, bool ven) {
   const int k4 = vpn >> 27, k3 = vpn >> 18, k2 = vpn >> 9;
   const bool hit4 = hits(w.r4, k4) != 0;
   const bool hit3 = hits(w.r3, k3) != 0;
@@ -932,7 +967,7 @@ __device__ __forceinline__ Walk2d walk2d(Lane& L, PwcRows& w, int vpn,
     const int up = 3 - min(lv, 3);
     const int line = LINE_B + up * LINE_W + ((vpn >> 9 * up) >> 3);
     const Nested n = nested_translate<VICTIMA>(L, lv < 4 ? line >> 6 : vpn,
-                                               now, pressure, bypass);
+                                               now, pressure, bypass, ven);
     o.cycles += n.cycles;
     o.nhost += n.walked;
     o.nt_hit += n.nt_hit;
@@ -1045,11 +1080,11 @@ __device__ __forceinline__ uint8_t pack_checked(int valid, int bt, int rr,
 __device__ Lru lru_in(const AssocP& a, int b, bool shared, char* smem,
                       int o32, int o8) {
   const size_t o = static_cast<size_t>(b) * a.sets * a.ways;
-  Lru l = {a.tags + o, a.meta + o, a.valid + o, a.sets, a.ways};
+  Lru l = {a.tags + o, a.meta + o, a.valid + o, a.sets, a.ways, a.ways};
   if (!shared) return l;
   Lru s = {reinterpret_cast<int32_t*>(smem + o32),
            reinterpret_cast<int32_t*>(smem + o32) + entries(a),
-           reinterpret_cast<uint8_t*>(smem + o8), a.sets, a.ways};
+           reinterpret_cast<uint8_t*>(smem + o8), a.sets, a.ways, a.ways};
   batched(
       entries(a),
       [&](size_t i) {
@@ -1077,7 +1112,7 @@ __device__ void lru_out(const AssocP& a, int b, const Lru& s) {
       });
 }
 
-template <bool L2S, bool TS, int COMP>
+template <bool L2S, bool TS, int COMP, bool DYN>
 __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
   extern __shared__ __align__(16) char smem[];
   constexpr bool victima = (COMP & C_VICTIMA) != 0;
@@ -1124,7 +1159,8 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
           L2S ? reinterpret_cast<uint8_t*>(smem + pl.l2_r8)
               : p.l2_pack + 2 * o2 + n2,
           p.l2.reuse + o2, hist + WALK_HIST_BUCKETS,
-          hist + WALK_HIST_BUCKETS + REUSE_BUCKETS, p.l2.sets, p.l2.ways};
+          hist + WALK_HIST_BUCKETS + REUSE_BUCKETS, p.l2.sets, p.l2.ways,
+          p.l2.ways};
   {
     const size_t o3 = static_cast<size_t>(b) * p.l3.sets * p.l3.ways;
     L.l3 = {p.l3.tags + o3, p.l3.valid + o3, p.l3.meta + o3, p.l3.sets,
@@ -1208,6 +1244,25 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
   L.n_l2_miss = p.hier.n_l2_miss[b];
   L.n_l3_access = p.hier.n_l3_access[b];
   L.n_l3_trans = p.hier.n_l3_trans[b];
+  // a ladder lane: its geometry views and latencies, and the gates of its
+  // stages (stages.base.Dyn); a launch of one system has all gates on
+  int dyn_l2tlb_lat = 0, dyn_l3tlb_lat = 0;
+  bool ven = true, uen = true, l3en = true, pen = true, ren = true;
+  if constexpr (DYN) {
+    const int32_t* d = p.dyn + static_cast<size_t>(b) * NDYN;
+    L.l2tlb.sets = d[DYN_L2TLB_MASK] + 1;
+    L.l2tlb.ways = d[DYN_L2TLB_WAYS];
+    L.l2.sets = d[DYN_L2_MASK] + 1;
+    L.l2.ways = d[DYN_L2_WAYS];
+    if constexpr (restseg) L.rs4.ways = L.rs2.ways = d[DYN_RS_WAYS];
+    dyn_l2tlb_lat = d[DYN_L2TLB_LAT];
+    dyn_l3tlb_lat = d[DYN_L3TLB_LAT];
+    ven = d[DYN_VICTIMA] != 0;
+    uen = d[DYN_UTOPIA] != 0;
+    l3en = d[DYN_L3TLB] != 0;
+    pen = d[DYN_POM] != 0;
+    ren = d[DYN_REV] != 0;
+  }
 
   const StatsP& S = p.stats;
   int now = p.now[b];
@@ -1342,14 +1397,15 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     const unsigned mt = hits(qt, key2);
     const bool l2hit = miss1 && mt != 0;
     if (l2hit) touch(L.l2tlb, qt, __ffs(mt) - 1, now);
-    trans += miss1 ? p.l2tlb_lat : 0;
+    trans += miss1 ? (DYN ? dyn_l2tlb_lat : p.l2tlb_lat) : 0;
     const bool miss2 = miss1 && !l2hit;
     bool need = miss2;
     int past = 0;
 
     // Victima: the L2-TLB victim is fixed now (nothing below touches the
     // L2 TLB before its fill), so both counter slots are known: they are
-    // loaded here and used after the walk
+    // loaded here and used after the walk.  A lane whose Victima gate is
+    // off points slot 1 at the demand page (stages.victima's redirect)
     int tv = 0, ev_tag = 0;
     bool ev_valid = false;
     int i4[2] = {0, 0}, i2[2] = {0, 0};
@@ -1361,9 +1417,9 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
       const int ev_vpn = ev_tag >> 1;
       const int bg_vpn4 = (ev_tag & 1) ? ev_vpn << 9 : ev_vpn;
       i4[0] = vpn & (L.n4 - 1);
-      i4[1] = bg_vpn4 & (L.n4 - 1);
+      i4[1] = ven ? bg_vpn4 & (L.n4 - 1) : i4[0];
       i2[0] = vpn2 & (L.n2 - 1);
-      i2[1] = ev_vpn & (L.n2 - 1);
+      i2[1] = ven ? ev_vpn & (L.n2 - 1) : i2[0];
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
         f4[k] = L.f4[i4[k]];
@@ -1384,7 +1440,7 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     if (rev) {
       const unsigned mr = hits(qrv, sig);
       const int w = first_way(mr);
-      rvhit = need && mr != 0;
+      rvhit = ren && need && mr != 0;
       rv_correct = rvhit && __shfl_sync(kFull, rv_vpn, w) == key2;
       rv_mispred = rvhit && !rv_correct;
       if (rvhit) {
@@ -1401,7 +1457,7 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     bool vhit = false;
     if (victima) {
       const unsigned mv = hits(qv, vkey, vbt);
-      vhit = need && mv != 0;
+      vhit = ven && need && mv != 0;
       if (vhit) l2_touch(L.l2, qv, __ffs(mv) - 1, pressure, tlb_aware);
       past += vhit ? L.lat_l2 : 0;
       need = need && !vhit;
@@ -1410,18 +1466,18 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     // stages.l3_tlb lookup: the probe latency is paid by every access
     // that reaches this level
     bool l3hit = false;
-    if (l3tlb && need) {
+    if (l3tlb && need && l3en) {
       const unsigned m3 = hits(q3, key2);
       l3hit = m3 != 0;
       if (l3hit) touch(L.l3tlb, q3, __ffs(m3) - 1, now);
-      past += p.l3tlb_lat;
+      past += DYN ? dyn_l3tlb_lat : p.l3tlb_lat;
       need = !l3hit;
     }
 
     // stages.pom lookup: the POM-TLB line through the caches (typed as a
     // TLB block), then the shadow structure
     bool pomhit = false;
-    if (pom && need) {
+    if (pom && need && pen) {
       bool d;
       past += access_pte(L, LINE_B + POM_LINES + ((key2 & p.pom_mask) >> 2),
                          pressure, &d, BT_TLB4);
@@ -1433,7 +1489,7 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
 
     // stages.utopia lookup: the set's tag line through the caches (typed
     // as a TLB block), then both RestSegs; the page size picks the hit
-    const bool rprobed = restseg && need;
+    const bool rprobed = restseg && need && uen;
     bool rshit = false;
     int rcyc = 0;
     if (rprobed) {
@@ -1458,7 +1514,7 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     if (walk_en) {
       if constexpr (nested) {
         const Walk2d w2 = walk2d<victima>(L, pw, vpn, is2m, now, pressure,
-                                          bypass);
+                                          bypass, ven);
         wcyc = w2.cycles;
         ndram = w2.n_dram;
         nhost = w2.nhost;
@@ -1489,8 +1545,9 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
                         predict(min(fpost, FREQ_MAX), min(cpost, COST_MAX));
       const bool epred = !p.use_ptwcp ||
                          predict(ev2m ? f2[1] : f4[1], ev2m ? c2[1] : c4[1]);
-      if (walk_en && (pred || bypass)) retag_to_tlb(L, vkey, vbt, pressure);
-      bg = miss2 && ev_valid && (epred || bypass);
+      if (walk_en && (pred || bypass) && ven)
+        retag_to_tlb(L, vkey, vbt, pressure);
+      bg = miss2 && ev_valid && (epred || bypass) && ven;
       int bdram = 0;
       if (bg) {
         const int bg_vpn4 = ev2m ? ev_vpn << 9 : ev_vpn;
@@ -1498,10 +1555,13 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
         walk(L, bw, bg_vpn4, ev2m, now, pressure, &bdram);
         retag_to_tlb(L, ev_vpn >> 3, ev2m ? BT_TLB2 : BT_TLB4, pressure);
       }
-      // fused counter writeback: slot 0 then slot 1 (slot 1 wins a tie)
-      const bool en4[2] = {walk_en && !is2m, bg && !ev2m};
-      const bool en2[2] = {walk_en && is2m, bg && ev2m};
-      const bool dr[2] = {ndram >= 1, bdram >= 1};
+      // fused counter writeback: slot 0 then slot 1 (slot 1 wins a tie);
+      // with the gate off slot 1 is slot 0's entry and carries its update
+      const bool en4[2] = {walk_en && !is2m, ven ? bg && !ev2m
+                                                 : walk_en && !is2m};
+      const bool en2[2] = {walk_en && is2m, ven ? bg && ev2m
+                                                : walk_en && is2m};
+      const bool dr[2] = {ndram >= 1, ven ? bdram >= 1 : ndram >= 1};
       if (restseg || rev) {
         // the demand page's counters as the writeback leaves them, for
         // the promotion verdict below
@@ -1558,21 +1618,33 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     }
     // stages.utopia fill (the migration engine; a set conflict demotes
     // the LRU resident), then stages.revelator fill (enrollment: the
-    // signature in the LRU way, with its page).  No composition has
-    // these with the POM-TLB or the L3 TLB, whose fills the reference
-    // orders after them.
+    // signature in the LRU way, with its page), each under its gate
     if (restseg) {
-      const bool c4 = insert_lru_evicts(L.rs4, qr4, vpn, now, promote && !is2m);
-      const bool c2 = insert_lru_evicts(L.rs2, qr2, vpn2, now, promote && is2m);
-      n_rs_mig += promote;
+      const bool mig = promote && uen;
+      const bool c4 = insert_lru_evicts(L.rs4, qr4, vpn, now, mig && !is2m);
+      const bool c2 = insert_lru_evicts(L.rs2, qr2, vpn2, now, mig && is2m);
+      n_rs_mig += mig;
       n_rs_conf += c4 || c2;
     }
-    if (rev && promote) {
+    if (rev && promote && ren) {
       const int w = lru_victim(qrv);
       fill(L.rev, qrv, w, sig, now);
       if (lane() == w) L.rev_vpn[qrv.i] = key2;
     }
-    n_rv_enroll += rev && promote;
+    n_rv_enroll += rev && promote && ren;
+    // the POM-TLB's and the L3 TLB's fills after Victima's (the ladder
+    // compositions; without Victima they come after the walker's above):
+    // the walked entry, then the L2 TLB's evicted one, each under its gate
+    if (victima && pom && pen) {
+      insert_lru(L.pom, qp, key2, now, walk_en);
+      if (ev_valid) {
+        LruRow qe = qp;  // the same set: the row as the first fill left it
+        if (((ev_tag ^ key2) & (L.pom.sets - 1)) != 0)
+          qe = load_row(L.pom, ev_tag);
+        insert_lru(L.pom, qe, ev_tag, now, true);
+      }
+    }
+    if (victima && l3tlb) insert_lru(L.l3tlb, q3, key2, now, walk_en && l3en);
     PROF_STAMP(ST_FILL);
     // stages.l1_tlb fill
     insert_lru(L.l1d4, q4, vpn, now, miss1 && !is2m);
@@ -1742,22 +1814,36 @@ using KernelFn = void (*)(const Params);
 struct Instantiation {
   int comp;
   bool l2_shared, l2tlb_shared;
+  bool dyn;  // a ladder's: per-lane parameters (Params::dyn)
   KernelFn fn;
 };
 
 template <int C>
 constexpr Instantiation shared_only() {
-  return {C, true, true, mmu_step_kernel<true, true, C>};
+  return {C, true, true, false, mmu_step_kernel<true, true, C, false>};
 }
 
 template <int C>
 constexpr Instantiation placed(bool l2s, bool ts) {
-  return {C, l2s, ts,
-          l2s ? (ts ? mmu_step_kernel<true, true, C>
-                    : mmu_step_kernel<true, false, C>)
-              : (ts ? mmu_step_kernel<false, true, C>
-                    : mmu_step_kernel<false, false, C>)};
+  return {C, l2s, ts, false,
+          l2s ? (ts ? mmu_step_kernel<true, true, C, false>
+                    : mmu_step_kernel<true, false, C, false>)
+              : (ts ? mmu_step_kernel<false, true, C, false>
+                    : mmu_step_kernel<false, false, C, false>)};
 }
+
+// a ladder's base composition, in the one placement its geometry takes
+template <int C, bool L2S, bool TS>
+constexpr Instantiation ladder() {
+  return {C, L2S, TS, true, mmu_step_kernel<L2S, TS, C, true>};
+}
+
+// the ladders' base compositions (sim.systems.ladder_base_config): the
+// native family's union of every gated stage, at the ladder maximum (an
+// 8192 x 16 L2 cache and L2 TLB: placement `device`), and the nested
+// family's, at Table 3 (placement `shared`)
+constexpr int C_LADDER_NATIVE = C_VICTIMA | C_L3TLB | C_POM | C_RESTSEG | C_REV;
+constexpr int C_LADDER_NP = C_NESTED | C_VICTIMA | C_POM;
 
 const Instantiation kInstantiations[] = {
     placed<0>(true, true), placed<0>(true, false), placed<0>(false, true),
@@ -1769,6 +1855,7 @@ const Instantiation kInstantiations[] = {
     shared_only<C_COLLECT>(), shared_only<C_RESTSEG>(),
     shared_only<C_RESTSEG | C_VICTIMA>(), shared_only<C_REV>(),
     shared_only<C_REV | C_VICTIMA>(),
+    ladder<C_LADDER_NATIVE, false, false>(), ladder<C_LADDER_NP, true, true>(),
 };
 constexpr int kNumInstantiations =
     sizeof(kInstantiations) / sizeof(kInstantiations[0]);
@@ -1779,7 +1866,8 @@ int instantiation_of(const Params& p) {
   for (int i = 0; i < kNumInstantiations; ++i) {
     const Instantiation& k = kInstantiations[i];
     if (k.comp == p.comp && k.l2_shared == (p.l2_shared != 0) &&
-        k.l2tlb_shared == (p.l2tlb_shared != 0))
+        k.l2tlb_shared == (p.l2tlb_shared != 0) &&
+        k.dyn == (p.dyn != nullptr))
       return i;
   }
   return -1;
@@ -1793,14 +1881,16 @@ extern "C" {
 
 int mmu_step_params_size(void) { return static_cast<int>(sizeof(Params)); }
 
-// the number of instantiations, and the composition code and placement
-// (bit 1: L2 cache, bit 0: L2 TLB in shared memory) of instantiation i
+// the number of instantiations, and the composition code, placement
+// (bit 1: L2 cache, bit 0: L2 TLB in shared memory) and ladder flag of
+// instantiation i
 int mmu_step_instantiations(void) { return kNumInstantiations; }
-int mmu_step_instantiation(int i, int* comp, int* placement) {
+int mmu_step_instantiation(int i, int* comp, int* placement, int* dyn) {
   if (i < 0 || i >= kNumInstantiations) return -1;
   *comp = kInstantiations[i].comp;
   *placement = 2 * kInstantiations[i].l2_shared +
                kInstantiations[i].l2tlb_shared;
+  *dyn = kInstantiations[i].dyn;
   return 0;
 }
 
@@ -1837,8 +1927,8 @@ const char* mmu_step_error_string(int err) {
     return "shared-memory bytes of the launch disagree with the kernel's "
            "plan, or exceed a block's 232,448";
   if (err == -2)
-    return "no instantiation of the kernel for this composition and "
-           "placement";
+    return "no instantiation of the kernel for this composition, placement "
+           "and ladder flag";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -16,7 +16,13 @@ composition (``COMPOSITIONS``: radix, Victima, the L3 TLB, the POM-TLB,
 each under nested paging where the reference has it, Utopia and
 Revelator alone and with Victima; and ``radix_collect``, the radix
 composition with the Table-2 feature stream) in
-``LAUNCHES_BY_COMPOSITION``.
+``LAUNCHES_BY_COMPOSITION``.  A ladder of systems
+(``sim.systems.LADDERS``) runs its base composition in a ladder
+instantiation (``LADDER_COMPOSITIONS``: ``ladder_native``, the union of
+every gated stage, and ``ladder_np``, the nested family's), one launch a
+trace block for every (member, workload) lane, each lane reading its own
+geometry views and stage gates (``stages.base.Dyn``) from a row of
+per-lane parameters.
 
 The kernel is bound by latency, not by bytes or operations: each access
 is a chain of dependent row reads (see the source's note).
@@ -68,8 +74,10 @@ class Placement(NamedTuple):
     smem_bytes: int     # dynamic shared memory of one block
 
 
-def placement(cfg) -> Placement:
-    """Where the kernel keeps a lane of ``cfg``, from its geometry alone.
+def placement(cfg, want: str | None = None) -> Placement:
+    """Where the kernel keeps a lane of ``cfg``, from its geometry alone
+    (or, given `want`, a key of ``PLACEMENTS``, that placement, which
+    must fit: a ladder instantiation is built in one placement only).
 
     Shared memory takes, in this order and while they fit in
     ``SMEM_LIMIT``: the histograms and the small LRU arrays (L1 TLBs,
@@ -93,9 +101,17 @@ def placement(cfg) -> Placement:
                          f"{' (and nested TLB)' if cfg.virt else ''} take "
                          f"{nbytes} bytes, more than a block's {SMEM_LIMIT}")
     l2 = _L2_BYTES * cfg.l2_sets * cfg.l2_ways
+    tlb = _LRU_BYTES * cfg.l2tlb_sets * cfg.l2tlb_ways
+    if want is not None:
+        l2_shared, tlb_shared = PLACEMENTS[want]
+        nbytes += l2 * l2_shared + tlb * tlb_shared
+        if nbytes > SMEM_LIMIT:
+            raise ValueError(f"placement {want} takes {nbytes} bytes of "
+                             f"shared memory, more than a block's "
+                             f"{SMEM_LIMIT}")
+        return Placement(want, l2_shared, tlb_shared, nbytes)
     l2_shared = nbytes + l2 <= SMEM_LIMIT
     nbytes += l2 if l2_shared else 0
-    tlb = _LRU_BYTES * cfg.l2tlb_sets * cfg.l2tlb_ways
     tlb_shared = nbytes + tlb <= SMEM_LIMIT
     nbytes += tlb if tlb_shared else 0
     name = next(k for k, v in PLACEMENTS.items()
@@ -131,22 +147,50 @@ COLLECTED = {("l1_tlb", "l2_tlb", "ptw"): ("radix_collect", C_COLLECT)}
 # compositions built in every placement; the others only in "shared",
 # the placement of every system the port registers with them
 EVERY_PLACEMENT = ("radix", "victima")
+# the ladders' base compositions (sim.systems.ladder_base_config) ->
+# (name, code), each built in one placement, that of its ladder's
+# geometry: the native family's union of the gated stages at the ladder
+# maximum (8192 x 16 L2 cache and L2 TLB), the nested family's at Table 3
+LADDER_COMPOSITIONS = {
+    ("l1_tlb", "l2_tlb", "rev", "victima", "l3_tlb", "pom", "restseg",
+     "ptw"): ("ladder_native", C_VICTIMA | C_L3TLB | C_POM | C_RESTSEG
+              | C_REV),
+    ("l1_tlb", "l2_tlb", "victima", "pom", "ptw2d"): (
+        "ladder_np", C_NESTED | C_VICTIMA | C_POM),
+}
+LADDER_PLACEMENT = {"ladder_native": "device", "ladder_np": "shared"}
+
+
+def ladder_placement(cfg, stage_names) -> Placement:
+    """The placement of a ladder launch on base config ``cfg``: its
+    instantiation's, whatever the geometry (it raises where that does not
+    fit)."""
+    comp, _ = composition(cfg, stage_names, dyn=True)
+    return placement(cfg, LADDER_PLACEMENT[comp])
+# a ladder lane's row of parameters, in csrc/mmu_step.cu's DYN_* order:
+# stages.base.Dyn's fields but dramc_en (always False here)
+DYN_PARAMS = ("l2tlb_set_mask", "l2tlb_ways", "l2tlb_lat", "l3tlb_lat",
+              "l2_set_mask", "l2_ways", "restseg_ways", "victima_en",
+              "utopia_en", "l3tlb_en", "pom_en", "rev_en")
 
 # kernel launches per composition since import
 LAUNCHES_BY_COMPOSITION = dict.fromkeys(
-    [n for n, _ in (*COMPOSITIONS.values(), *COLLECTED.values())], 0)
+    [n for n, _ in (*COMPOSITIONS.values(), *COLLECTED.values(),
+                    *LADDER_COMPOSITIONS.values())], 0)
 
 
-def composition(cfg, stage_names) -> tuple[str, int]:
-    """The kernel's (name, code) for ``stage_names`` under ``cfg``;
-    raises for a composition it does not write out."""
+def composition(cfg, stage_names, dyn: bool = False) -> tuple[str, int]:
+    """The kernel's (name, code) for ``stage_names`` under ``cfg`` (with
+    `dyn`, a ladder's base composition); raises for a composition it does
+    not write out."""
     names = tuple(stage_names)
-    table = COLLECTED if cfg.collect else COMPOSITIONS
+    table = (LADDER_COMPOSITIONS if dyn
+             else COLLECTED if cfg.collect else COMPOSITIONS)
     if names not in table:
+        what = (" for a ladder" if dyn
+                else " with collect" if cfg.collect else "")
         raise ValueError(f"the mmu_step kernel runs the compositions "
-                         f"{list(table)}"
-                         f"{' with collect' if cfg.collect else ''}, not "
-                         f"{names}")
+                         f"{list(table)}{what}, not {names}")
     return table[names]
 
 _p = ctypes.c_void_p
@@ -211,7 +255,7 @@ class _Params(ctypes.Structure):
                              "pad")]
         + [(n, _AssocP) for n in ("restseg4", "restseg2", "rev")]
         + [("rev_vpn", _p), ("feats", _FeatsP), ("rev_lat", _i),
-           ("rev_sig_bits", _i)]
+           ("rev_sig_bits", _i), ("dyn", _p)]
         + [("plan", _PlanP)])
 
 
@@ -238,7 +282,7 @@ def _lib(name: str = "mmu_step") -> ctypes.CDLL:
         lib.mmu_step_instantiations.restype = ctypes.c_int
         lib.mmu_step_instantiation.argtypes = [
             ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_int)]
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
         lib.mmu_step_instantiation.restype = ctypes.c_int
         got = lib.mmu_step_params_size()
         if got != ctypes.sizeof(_Params):
@@ -275,18 +319,47 @@ def _assoc(a, sets, ways, lanes, what, device) -> _AssocP:
                    sets, ways)
 
 
-def _params(st, trace: dict, cfg, stage_names) -> _Params:
+def _dyn_rows(dyn, cfg, lanes: int, dev) -> torch.Tensor:
+    """A ladder launch's per-lane parameters, int32 ``[lanes, NDYN]`` on
+    `dev`, after checking each lane's view against the allocation."""
+    for f in dyn._fields:
+        x = getattr(dyn, f)
+        if x.device != dev or tuple(x.shape) != (lanes,):
+            raise ValueError(f"dyn.{f} is {tuple(x.shape)} on {x.device}, "
+                             f"want ({lanes},) on {dev}")
+    d = dyn.to("cpu")
+    views = [("L2-TLB", d.l2tlb_set_mask + 1, d.l2tlb_ways, cfg.l2tlb_sets,
+              cfg.l2tlb_ways),
+             ("L2-cache", d.l2_set_mask + 1, d.l2_ways, cfg.l2_sets,
+              cfg.l2_ways)]
+    if cfg.utopia:  # the RestSegs' set counts are static
+        views.append(("RestSeg", torch.ones(1, dtype=torch.int32),
+                      d.restseg_ways, 1, cfg.restseg_ways))
+    for what, sets, ways, sets_max, ways_max in views:
+        if ((sets < 1) | (sets > sets_max) | ((sets & (sets - 1)) != 0)
+                | (ways < 1) | (ways > ways_max)).any():
+            raise ValueError(f"a lane's {what} view lies outside its "
+                             f"{sets_max} x {ways_max} allocation")
+    if d.dramc_en.any():
+        raise ValueError("a lane gates a DRAM cache on; the kernel has none")
+    return torch.stack([getattr(dyn, f).to(torch.int32) for f in DYN_PARAMS],
+                       dim=1).contiguous()
+
+
+def _params(st, trace: dict, cfg, stage_names, dyn=None) -> _Params:
     """The kernel's parameter struct, checking every tensor it touches
     (device, dtype, shape, contiguity) against the state's device; with
     the L2 cache outside shared memory it also holds the scratch tensor
-    of its packed bytes (``torch.empty``, filled by the kernel)."""
+    of its packed bytes (``torch.empty``, filled by the kernel), and for
+    a ladder (`dyn`, the lanes' ``stages.base.Dyn``) the tensor of the
+    lanes' parameters."""
     names = tuple(stage_names)
-    comp, code = composition(cfg, names)
+    comp, code = composition(cfg, names, dyn is not None)
     if names != default_stages(cfg):
         raise ValueError(f"composition {names} disagrees with the "
                          f"configuration's {default_stages(cfg)}")
-    pl = placement(cfg)
-    if comp not in EVERY_PLACEMENT and pl.name != "shared":
+    pl = placement(cfg) if dyn is None else ladder_placement(cfg, names)
+    if dyn is None and comp not in EVERY_PLACEMENT and pl.name != "shared":
         raise ValueError(f"the mmu_step kernel runs composition {comp} "
                          f"only with the lane in shared memory; this "
                          f"geometry takes placement {pl.name}")
@@ -395,6 +468,9 @@ def _params(st, trace: dict, cfg, stage_names) -> _Params:
         feats=feats, rev_lat=cfg.rev_lat, rev_sig_bits=cfg.rev_sig_bits)
     params.placement = pl.name
     params.composition = comp
+    if dyn is not None:
+        params.dyn_rows = _dyn_rows(dyn, cfg, W, dev)
+        params.dyn = params.dyn_rows.data_ptr()
     if not pl.l2_shared:
         params.scratch = torch.empty((W, 2, cfg.l2_sets * cfg.l2_ways),
                                      dtype=torch.uint8, device=dev)
@@ -406,16 +482,20 @@ def instantiations() -> list[tuple[str, str]]:
     """Every instantiation the library builds, in its dense order:
     (composition name, placement name)."""
     lib = _lib()
-    names = {code: n for n, code in (*COMPOSITIONS.values(),
-                                      *COLLECTED.values())}
+    names = {(code, False): n for n, code in (*COMPOSITIONS.values(),
+                                               *COLLECTED.values())}
+    names.update({(code, True): n
+                  for n, code in LADDER_COMPOSITIONS.values()})
     places = {2 * l2 + t: k for k, (l2, t) in PLACEMENTS.items()}
     out = []
     for i in range(lib.mmu_step_instantiations()):
-        comp, place = ctypes.c_int(), ctypes.c_int()
+        comp, place, dyn = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         if lib.mmu_step_instantiation(i, ctypes.byref(comp),
-                                      ctypes.byref(place)) != 0:
+                                      ctypes.byref(place),
+                                      ctypes.byref(dyn)) != 0:
             raise RuntimeError(f"no instantiation {i}")
-        out.append((names[comp.value], places[place.value]))
+        out.append((names[comp.value, bool(dyn.value)],
+                    places[place.value]))
     return out
 
 
@@ -458,13 +538,16 @@ def _check_cuda(st):
                          f"state is on {st.now.device}")
 
 
-def launch(st, trace: dict, cfg, stage_names, block: int | None = None):
+def launch(st, trace: dict, cfg, stage_names, block: int | None = None,
+           dyn=None):
     """Run the CUDA kernel over ``trace`` (leaves ``[T, W]``), one launch
-    per ``block`` rows, updating ``st`` in place.  Raises on anything the
-    kernel does not take, and when a launch is refused."""
+    per ``block`` rows, updating ``st`` in place; with `dyn` (the lanes'
+    ``stages.base.Dyn``, ``cfg`` their ladder's base config) in the
+    ladder instantiation.  Raises on anything the kernel does not take,
+    and when a launch is refused."""
     global LAUNCHES
     _check_cuda(st)
-    params = _params(st, trace, cfg, stage_names)
+    params = _params(st, trace, cfg, stage_names, dyn)
     for _ in _launches(_lib(), params, st, trace, block):
         LAUNCHES += 1
         LAUNCHES_BY_PLACEMENT[params.placement] += 1
@@ -489,16 +572,17 @@ def stage_cycles(st, trace: dict, cfg, stage_names,
     return prof
 
 
-def blocked_scan(step, st0, trace: dict, cfg, stage_names):
+def blocked_scan(step, st0, trace: dict, cfg, stage_names, dyn=None):
     """Scan the MMU step over ``trace`` (time axis 0, lanes axis 1).
 
     Updates ``st0`` in place and returns it.  On the card this launches
-    the CUDA kernel (``BLOCK`` rows per launch); on the CPU it runs
-    ``plain_scan(step, ...)``.
+    the CUDA kernel (``BLOCK`` rows per launch; with `dyn`, the per-lane
+    ``Dyn`` that `step` was built with, a ladder instantiation); on the
+    CPU it runs ``plain_scan(step, ...)``.
     """
     dev = st0.now.device
     if dev.type == "cuda":
-        return launch(st0, trace, cfg, stage_names)
+        return launch(st0, trace, cfg, stage_names, dyn=dyn)
     if dev.type == "cpu":
         return plain_scan(step, st0, trace)
     raise ValueError(f"no mmu_step path for device {dev}")

@@ -1,5 +1,5 @@
 """Simulation driver: cached runs over the system registry; port of
-``repro.sim.runner`` (``run`` and ``run_batch``).
+``repro.sim.runner`` (``run``, ``run_batch`` and ``run_ladder``).
 
 Results are cached on disk per (system, workload, n, seed, overrides) in
 the port's own directory, ``.sim_cache_torch/`` at the repository root
@@ -8,25 +8,63 @@ never read, since its pickles hold the reference's types.  Cache writes
 are crash-safe (temp file + atomic rename) and unreadable entries count
 as missing.  The device never enters a key: the card and the CPU give
 the same Stats bit for bit.
+
+``run_ladder`` fills a whole ladder of systems through one batched scan
+(``mmu.make_systems_runner``), as a producer/consumer pipeline: trace
+generation runs on a thread pool while the previous chunk of workloads
+simulates, and every chunk has the same width, the last padded by
+repeating its final workload.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import pickle
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from repro_torch.core.mmu import simulate, simulate_batch
+from repro_torch.core.mmu import (make_systems_runner, simulate,
+                                  simulate_batch)
 from repro_torch.sim import systems, trace_gen
 
 CACHE_DIR = os.environ.get(
     "REPRO_TORCH_SIM_CACHE",
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
                  "..", ".sim_cache_torch"))
+
+# ladder dispatch width: workloads per batched call.  The last chunk
+# pads by repeating its final workload, so every chunk of a fill has the
+# same [S, chunk] shape, and trace generation overlaps with the previous
+# chunk.  REPRO_SIM_CHUNK=auto (the default) derives the width from the
+# workload count (``auto_chunk``); an integer pins it.
+_chunk_env = os.environ.get("REPRO_SIM_CHUNK", "auto").strip().lower()
+CHUNK: int | None = None if _chunk_env in ("", "auto") else int(_chunk_env)
+
+# auto_chunk's ceiling on the width
+CHUNK_MAX = int(os.environ.get("REPRO_SIM_CHUNK_MAX", 8))
+
+# trace-generation threads of run_ladder's producer pool
+GEN_WORKERS = int(os.environ.get("REPRO_GEN_WORKERS", 4))
+
+
+def auto_chunk(n_workloads: int, cap: int | None = None) -> int:
+    """The ladder dispatch width for a workload count: fewest
+    dispatches first, then the fewest padded lanes, then the narrower
+    chunk.  ``cap`` bounds it (default ``CHUNK_MAX``).  It is derived
+    from the full workload list, not the missing count, so a partly
+    cached rerun keeps the same shape."""
+    if n_workloads <= 0:
+        raise ValueError(f"no workloads to chunk (n={n_workloads})")
+    cap = cap or CHUNK_MAX
+    return min(range(1, min(cap, n_workloads) + 1),
+               key=lambda c: (math.ceil(n_workloads / c),
+                              c * math.ceil(n_workloads / c) - n_workloads,
+                              c))
 
 
 def _sim_config(system: str, overrides: dict | None):
@@ -168,3 +206,69 @@ def run(system: str, workload: str, n: int = 150_000, seed: int = 0,
     if cache:
         _store(_path(system, workload, n, seed, overrides), result)
     return result
+
+
+def run_ladder(ladder: str, workloads=None, n: int = 150_000, seed: int = 0,
+               cache: bool = True, members=None, chunk: int | None = None,
+               device=None):
+    """Fill the cache for a whole system ladder through one batched scan.
+
+    Every member of ``systems.LADDERS[ladder]`` (or of `members`, a
+    subset) runs as lanes beside the others, each with its own ``Dyn``
+    geometry and gates (``mmu.make_systems_runner``; on the card one
+    ``mmu_step`` launch a trace block covers them all).  Cached cells
+    are reused as they are, neither recomputed nor rewritten; a workload
+    re-simulates only when a member's cell is missing.  Missing
+    workloads go in chunks of ``chunk`` (default ``CHUNK``, else
+    ``auto_chunk`` of the full workload list), the last padded by
+    repeating its final workload; padded lanes are never stored.  Trace
+    generation runs on a pool of ``GEN_WORKERS`` threads while the
+    previous chunk simulates.  Entries equal, byte for byte, those
+    ``run_batch`` writes for the same (system, workload, n, seed).
+    Returns dict system -> dict workload -> result.
+    """
+    if ladder not in systems.LADDERS and ladder in systems.LATER:
+        raise NotImplementedError(
+            f"ladder {ladder!r} is not simulated by this port yet; "
+            f"ROADMAP.md {systems.LATER[ladder]} ports it")
+    members = tuple(members or systems.LADDERS[ladder])
+    strays = sorted(set(members) - set(systems.LADDERS[ladder]))
+    if strays:
+        raise ValueError(f"{strays} are not members of ladder {ladder!r}")
+    workloads = list(workloads or trace_gen.all_workloads())
+    out = {s: {} for s in members}
+    missing = []
+    for w in workloads:
+        got = {s: _cached(s, w, n, seed, None, cache) for s in members}
+        for s, r in got.items():
+            if r is not None:
+                out[s][w] = r
+        if any(r is None for r in got.values()):
+            missing.append(w)
+    if not missing:
+        return out
+    # the whole ladder's base config, even for a subset of its members:
+    # each lane's view makes it exact, and it is the composition the
+    # kernel's ladder instantiation runs
+    cfg = systems.ladder_base_config(ladder)
+    dyns = systems.ladder_dyn(members)
+    chunk = chunk or CHUNK or auto_chunk(len(workloads))
+    run_fn = make_systems_runner(cfg, device=device)
+    with ThreadPoolExecutor(max_workers=min(len(missing),
+                                            GEN_WORKERS)) as pool:
+        futs = {w: pool.submit(trace_gen.generate, w, n=n, seed=seed)
+                for w in missing}
+        for lo in range(0, len(missing), chunk):
+            group = missing[lo:lo + chunk]
+            gens = [futs[w].result() for w in group]
+            padded = gens + [gens[-1]] * (chunk - len(gens))
+            per, extras = run_fn(dyns, _stack_traces(padded, n))
+            for si, s in enumerate(members):
+                for wi, (w, g) in enumerate(zip(group, gens)):
+                    if w in out[s]:
+                        continue  # a cached cell keeps its bytes
+                    result = (per[si][wi], extras[si][wi], g["spec"])
+                    if cache:
+                        _store(_path(s, w, n, seed, None), result)
+                    out[s][w] = result
+    return out

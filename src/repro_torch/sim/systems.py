@@ -7,14 +7,21 @@ collection, and Utopia and Revelator natively.
 Each ``System`` names its stage composition plus the SimConfig overrides
 that size it; its entry matches the reference's one for one.  A name the
 reference registers but this port does not simulate yet raises and names
-the ROADMAP.md queue item that will port it.  Ladders (the ``Dyn``
-batched form) wait for that queue's lane-batching item.
+the ROADMAP.md queue item that will port it.
+
+Ladders are discovered as in the reference (``discover_ladders``):
+systems whose configs differ only in ``DYN_FIELDS`` (L2-TLB geometry and
+latency, L3-TLB latency, L2-cache geometry, RestSeg ways and the gated
+rev/victima/restseg/l3_tlb/pom stage flags) run as lanes of one
+batched step (``mmu.simulate_systems``), the whole family in one kernel
+launch per trace block.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.core.stages import SimConfig, default_stages
+from repro_torch.core.stages import (DYN_FIELDS, Dyn, SimConfig,
+                                     default_stages, dyn_of, stack_dyns)
 
 _RADIX = ("l1_tlb", "l2_tlb", "ptw")
 _VICTIMA = ("l1_tlb", "l2_tlb", "victima", "ptw")
@@ -177,3 +184,89 @@ register("pom_virt", _POM_NP, "POM-TLB under nested paging",
          tags=("virt",), virt=True, pom=True)
 register("isp", _RADIX, "ideal shadow paging: 1-D walk, free updates",
          tags=("virt",), virt=True, ideal_shadow=True)
+
+
+# --------------------------------------------------------------- ladders
+#
+# Ladders are DISCOVERED, not declared: any group of registered systems
+# whose configs agree after pinning DYN_FIELDS -- and whose compositions
+# agree after dropping the gated stages -- runs as one batched call.
+
+# stages a batched ladder switches off per lane through a Dyn gate (the
+# stage still runs, its state writes masked to a no-op): stage name ->
+# (SimConfig field, Dyn gate).  dyn_of derives the gate from the field
+# (l3_tlb from l3tlb_sets > 0; the others from their bool flag).
+DYN_GATED_STAGES: dict[str, tuple[str, str]] = {
+    "rev": ("revelator", "rev_en"),
+    "victima": ("victima", "victima_en"),
+    "restseg": ("utopia", "utopia_en"),
+    "l3_tlb": ("l3tlb_sets", "l3tlb_en"),
+    "pom": ("pom", "pom_en"),
+}
+
+
+def _ladder_key(sys_: System):
+    """Systems with equal keys are shape-compatible ladder mates."""
+    cfg = sys_.config()
+    pinned = dataclasses.replace(
+        cfg, **{f: getattr(SimConfig(), f) for f in DYN_FIELDS})
+    stages = tuple(s for s in sys_.stages if s not in DYN_GATED_STAGES)
+    return stages, pinned
+
+
+def discover_ladders(registry: dict[str, System] | None = None
+                     ) -> dict[str, tuple[str, ...]]:
+    """Group registry systems into shape-compatible ladders:
+    {ladder name: member names} for every group of two or more, named
+    after its first-registered member."""
+    registry = REGISTRY if registry is None else registry
+    groups: dict = {}
+    for name, sys_ in registry.items():
+        groups.setdefault(_ladder_key(sys_), []).append(name)
+    return {g[0]: tuple(g) for g in groups.values() if len(g) >= 2}
+
+
+def ladder_base_config(ladder: str | None = None, members=None) -> SimConfig:
+    """Static config for a ladder: its structures at the ladder maximum.
+
+    Members may differ only in DYN_FIELDS; every dyn field takes its
+    ladder maximum (stage flags are ORed, so the base composition holds
+    every stage any member needs).  The L3 TLB has a gate but no set
+    mask, so a member that has one must have the maximum's.
+    """
+    members = members or LADDERS[ladder]
+    cfgs = [config(n) for n in members]
+    pinned = {f: getattr(cfgs[0], f) for f in DYN_FIELDS}
+    if len({dataclasses.replace(c, **pinned) for c in cfgs}) != 1:
+        raise ValueError(
+            f"ladder {ladder or members[0]!r} members differ beyond "
+            f"{DYN_FIELDS}")
+    l3max = max(c.l3tlb_sets for c in cfgs)
+    for n, c in zip(members, cfgs):
+        if c.l3tlb_sets not in (0, l3max):
+            raise ValueError(
+                f"ladder member {n!r}: l3tlb_sets={c.l3tlb_sets} differs "
+                f"from the ladder maximum {l3max} (the L3 TLB is "
+                f"gateable but not geometry-virtualized)")
+    return dyn_base_config(cfgs)
+
+
+def dyn_base_config(cfgs) -> SimConfig:
+    """The maximal static allocation covering every config's live view:
+    each DYN_FIELDS entry takes its maximum (stage flags are ORed)."""
+    maxima = {}
+    for f in DYN_FIELDS:
+        vals = [getattr(c, f) for c in cfgs]
+        maxima[f] = (any(vals) if isinstance(getattr(SimConfig(), f), bool)
+                     else max(vals))
+    return dataclasses.replace(cfgs[0], **maxima)
+
+
+def ladder_dyn(members) -> Dyn:
+    """Per-member Dyn values stacked into ``[S]`` leaves on the CPU
+    (``dyn_of`` of each member, so the field-to-config mapping lives in
+    one place)."""
+    return stack_dyns([dyn_of(config(n)) for n in members])
+
+
+LADDERS: dict[str, tuple[str, ...]] = discover_ladders()

@@ -95,23 +95,36 @@ _GEOMETRY = {"shared": {}, "l2tlb_device": dict(l2tlb_sets=8192,
              "device": dict(l2_sets=4096, l2tlb_sets=8192, l2tlb_ways=16)}
 
 
+# the ladder instantiations: composition -> ladder
+_LADDER_OF = {"ladder_native": "radix", "ladder_np": "np"}
+
+
 @pytest.mark.gpu
 def test_every_instantiation_launches_in_one_process(cuda):
     """Each instantiation raises its own shared-memory limit once (its
     flag is indexed by its dense number): launched one after the other,
     at the geometries that take up to 217 KB of shared memory, every one
-    runs."""
+    runs; the two ladder instantiations on their ladder's base config,
+    two members a launch."""
     built = mmu_step.instantiations()
-    assert len(built) == 18 == len(set(built))
+    assert len(built) == 20 == len(set(built))
     tr = {k: torch.from_numpy(v).to(cuda)
           for k, v in workload_traces(["rnd", "bc"], 64).items()}
     for comp, place in built:
-        cfg = dataclasses.replace(systems.config(_SYSTEM_OF[comp]),
-                                  **_GEOMETRY[place])
-        assert mmu_step.placement(cfg).name == place, (comp, place)
+        dyn = None
+        if comp in _LADDER_OF:
+            cfg = systems.ladder_base_config(_LADDER_OF[comp])
+            dyn = systems.ladder_dyn(
+                systems.LADDERS[_LADDER_OF[comp]][:2]).to(cuda)
+            assert mmu_step.ladder_placement(
+                cfg, default_stages(cfg)).name == place, (comp, place)
+        else:
+            cfg = dataclasses.replace(systems.config(_SYSTEM_OF[comp]),
+                                      **_GEOMETRY[place])
+            assert mmu_step.placement(cfg).name == place, (comp, place)
         st = make_state(cfg, 2, cuda)
         before = _counts()
-        mmu_step.launch(st, tr, cfg, default_stages(cfg))
+        mmu_step.launch(st, tr, cfg, default_stages(cfg), dyn=dyn)
         torch.cuda.synchronize()
         assert _counts()[comp] == before[comp] + 1, (comp, place)
         assert st.stats.n_access.tolist() == [64, 64], (comp, place)

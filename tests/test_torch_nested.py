@@ -193,7 +193,7 @@ def test_victima_virt_background_walk_is_the_radix_walk(monkeypatch):
 
     def spy_walk(*args):
         calls["radix"] += 1
-        calls["bg"] += int(args[-1].sum())
+        calls["bg"] += int(args[8].sum())  # walk's `enable`
         return walk(*args)
 
     def spy_2d(*args):
