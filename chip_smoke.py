@@ -19,17 +19,28 @@ parallel, and drives its three paths on the card:
   ``torch_fullsize_paper_stats.json``, timed, with each composition's
   latency floor and, from the kernel's profiled build, its cycles per
   access by stage;
-- the ladders (phases 2-4 and 4b): the two ladder instantiations of the
-  kernel (``ladder_native``, ``ladder_np``) against the plain dyn step
-  on both ladders' base configs, small and at Table 3, one lane a
-  member; ``run_ladder`` of both ladders at n = 20,000 against the
-  three JAX snapshots, every member and workload; the native ladder's
-  fill at n = 150,000 timed beside its 28 members' static kernel runs,
-  each lane equal to its member's;
+- the last systems (phases 2-4): Utopia and Revelator under nested
+  paging (``VIRT2``) and the twelve multicore systems (``MULTICORE``,
+  each on ``sim.paper.MC_MIX`` over its cores, the mix's first
+  component at one core) against the plain version (at Table 3, and the
+  DRAM-cache systems also on small structures where the DRAM cache
+  hits), against ``tests/golden/torch_fullsize_multicore_stats.json``
+  at n = 20,000 core by core, and timed at n = 150,000 with floors that
+  count the DRAM-cache probes;
+- the ladders (phases 2-4 and 4b): the three ladder instantiations of
+  the kernel (``ladder_native``, ``ladder_np``, ``ladder_mc``) against
+  the plain dyn step on the native, nested and ``radix_2c`` ladders'
+  base configs, small and at Table 3, one lane a member (a multicore
+  member's lanes one a core); ``run_ladder`` of all five ladders at
+  n = 20,000 against the four JAX snapshots, every member and workload
+  (the multicore ones on their mix); the native ladder's fill at
+  n = 150,000 timed beside its 28 members' static kernel runs, each
+  lane equal to its member's;
 - the paper's tables (phase 12): every figure function of
   ``repro_torch.sim.paper`` (ladder members through ``run_ladder``) at
   n = 20,000 against the reference's rows in
-  ``torch_fullsize_paper_stats.json`` (Table 2's MLPs trained from the
+  ``torch_fullsize_paper_stats.json`` and, for ``multicore_scaling``,
+  ``torch_fullsize_multicore_stats.json`` (Table 2's MLPs trained from the
   reference's initial weights, within ``MLP_TOL``), then the whole table
   at n = 150,000 from a fresh result cache, timed per figure;
 - serving granite-3-2b (phases 6-8): the ``flash_attention`` (prefill;
@@ -72,6 +83,7 @@ line before it is the ``{"kernels": [...]}`` record.  Imports neither
 jax nor the JAX package.
 """
 import ctypes
+import dataclasses
 import hashlib
 import json
 import multiprocessing
@@ -125,6 +137,25 @@ PAPER = {"radix_collect": "radix_collect", "utopia": "utopia",
          "utopia_victima": "utopia_victima", "revelator": "revelator",
          "revelator_victima": "revelator_victima"}
 PAPER_PLAIN = [n for n in PAPER if n != "utopia_rs8"]
+# Utopia and Revelator under nested paging -> their composition; phase 2
+# checks both against the plain version
+VIRT2 = {"utopia_virt": "utopia_np", "revelator_virt": "revelator_np"}
+# the multicore systems -> their composition (the one-core members but
+# victima_dramc_1c run the single-core instantiations); each runs on
+# MC_MIX (its first component alone at one core), as multicore_scaling
+# gives it them
+_MC_COMP = {"radix": "radix_mc", "victima": "victima_mc", "pom": "pom_mc",
+            "victima_dramc": "victima_dramc"}
+MULTICORE = {f"{k}_{c}c": _MC_COMP[k] if c > 1 or k == "victima_dramc" else k
+             for c in (1, 2, 4) for k in _MC_COMP}
+# phase 2's multicore checks against the plain version at Table 3: one
+# 2-core and one 4-core system of each kind
+MULTICORE_PLAIN = [f"{k}_{c}c" for k in ("radix", "victima", "pom",
+                                         "victima_dramc") for c in (2, 4)]
+# and on small structures (SMALL, a 64 x 8 DRAM cache), where the DRAM
+# cache hits
+MC_SMALL = {"victima_dramc_2c": dict(dram_cache_sets=64, dram_cache_ways=8),
+            "victima_dramc_4c": dict(dram_cache_sets=64, dram_cache_ways=8)}
 # Table 2's MLPs trained on the card from the reference's initial weights
 # against the reference's results: accuracy, precision, recall and F1
 # within this (the two trainers' float32 sums differ in order)
@@ -161,17 +192,25 @@ SMALL_LADDERS = {
               dict(victima=True, l2_sets=16, l2_ways=4),
               dict(l2tlb_sets=2, l2tlb_ways=2, l2tlb_lat=17)],
     "np": [dict(virt=True), dict(virt=True, victima=True, l2_sets=16,
-                                 l2_ways=4), dict(virt=True, pom=True)],
+                                 l2_ways=4), dict(virt=True, pom=True),
+           dict(virt=True, utopia=True), dict(virt=True, revelator=True)],
+    "radix_2c": [dict(n_cores=2, shared_tier_stats=True, **v) for v in (
+        dict(), dict(victima=True), dict(pom=True),
+        dict(victima=True, dram_cache_sets=64, dram_cache_ways=8))],
 }
 # the ladder instantiation each ladder's launches must run
-LADDER_COMP = {"radix": "ladder_native", "np": "ladder_np"}
+LADDER_COMP = {"radix": "ladder_native", "np": "ladder_np",
+               "radix_2c": "ladder_mc"}
+# the multicore ladders (all of ladder_mc); phase 3 fills each on its mix
+MC_LADDERS = ("radix_1c", "radix_2c", "radix_4c")
 SMALL_N = 3000      # accesses of the small ladders' kernel-vs-plain check
 
 
-def plain_leaves(name: str, tr: dict) -> list:
+def plain_leaves(name: str, tr: dict, over=None) -> list:
     """The plain version (the port's stage pipeline, access by access) of
-    system `name` at the Table-3 defaults over the numpy trace `tr`
-    (leaves [T, W]), on the CPU of a worker process: its state leaves."""
+    system `name` at its registered sizes (changed by `over`) over the
+    numpy trace `tr` (leaves [T, W]), on the CPU of a worker process: its
+    state leaves."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     torch.set_num_threads(1)
     from repro_torch.core import mmu
@@ -179,7 +218,7 @@ def plain_leaves(name: str, tr: dict) -> list:
                                          state_leaves)
     from repro_torch.kernels import mmu_step
     from repro_torch.sim import systems
-    cfg = systems.config(name)
+    cfg = dataclasses.replace(systems.config(name), **(over or {}))
     st = make_state(cfg, tr["vpn"].shape[1])
     mmu_step.plain_scan(mmu.make_step(cfg, default_stages(cfg)), st,
                         {k: torch.from_numpy(np.ascontiguousarray(v))
@@ -190,15 +229,17 @@ def plain_leaves(name: str, tr: dict) -> list:
 def ladder_setup(ladder: str, small: bool):
     """(base config, per-lane Dyn on the CPU) of `ladder`: on small
     structures (SMALL_LADDERS) or its registered members at Table 3, one
-    lane a member."""
-    from repro_torch.core.stages import SimConfig, dyn_of, stack_dyns
+    lane a member, a multicore member's lanes one a core."""
+    from repro_torch.core.stages import Dyn, SimConfig, dyn_of, stack_dyns
     from repro_torch.sim import systems
     if small:
         cfgs = [SimConfig(**{**SMALL, **v}) for v in SMALL_LADDERS[ladder]]
-        return (systems.dyn_base_config(cfgs),
-                stack_dyns([dyn_of(c) for c in cfgs]))
-    members = systems.LADDERS[ladder]
-    return systems.ladder_base_config(ladder), systems.ladder_dyn(members)
+        base = systems.dyn_base_config(cfgs)
+        dyn = stack_dyns([dyn_of(c) for c in cfgs])
+    else:
+        base = systems.ladder_base_config(ladder)
+        dyn = systems.ladder_dyn(systems.LADDERS[ladder])
+    return base, Dyn(*[x.repeat_interleave(base.n_cores) for x in dyn])
 
 
 def plain_dyn_leaves(ladder: str, small: bool, tr: dict) -> list:
@@ -323,13 +364,14 @@ def latency_floor(cfg, st, sm_ns: float, l1_ns: float, l2_ns: float):
     background walk its PWC rows and the retag's L2 row; the two
     background lines' L3 rows (read together); on an L1D miss the data
     line's L2 row (the prefetch's is read with it), and on an L2 miss its
-    L3 row.  The instructions between the rounds, the rounds whose count
-    the Stats do not hold (walk levels beyond one a walk or one an L3
-    probe, L2 inserts after a background line, a Victima retag of a
-    demand walk or a translation, the nested-TLB evictions' background
-    host walks) and the counter reads (issued ahead of their use) are
-    left out, so this is a floor.  Lanes run side by side: the floor is
-    the slowest lane's.
+    L3 row; with a DRAM cache, each of its probes (an L3 miss of the data
+    line or of a PTE line) one row more.  The instructions between the
+    rounds, the rounds whose count the Stats do not hold (walk levels
+    beyond one a walk or one an L3 probe, L2 inserts after a background
+    line, a Victima retag of a demand walk or a translation, the
+    nested-TLB evictions' background host walks) and the counter reads
+    (issued ahead of their use) are left out, so this is a floor.  Lanes
+    run side by side: the floor is the slowest lane's.
     """
     from repro_torch.kernels import mmu_step
     pl = mmu_step.placement(cfg)
@@ -373,10 +415,13 @@ def latency_floor(cfg, st, sm_ns: float, l1_ns: float, l2_ns: float):
         l2_rounds = l2_rounds + bgw + host + s.n_nvictima_hit.double()
     l3_rounds = h.n_l3_trans.double() + acc + l2m
     sm_rounds = bgw + nested
+    dc_rounds = h.n_dramc_access.double()
+    dc_place = dev_ns(9 * max(cfg.dram_cache_sets, 1) * cfg.dram_cache_ways)
     ns = (acc * first + sm_rounds * sm_ns + l2_rounds * l2_place
-          + l3_rounds * l3_place)
+          + l3_rounds * l3_place + dc_rounds * dc_place)
     return (float(ns.max()) / 1e6,
-            float(((acc + sm_rounds + l2_rounds + l3_rounds) / acc).mean()))
+            float(((acc + sm_rounds + l2_rounds + l3_rounds + dc_rounds)
+                   / acc).mean()))
 
 
 def latency_floor_device(cfg, st, l1_ns: float, l2_ns: float):
@@ -1431,7 +1476,7 @@ def main() -> int:
     from repro_torch.core.stages import (Dyn, SimConfig, default_stages,
                                          make_state, state_leaves)
     from repro_torch.kernels import build, mmu_step
-    from repro_torch.sim import runner, systems, trace_gen
+    from repro_torch.sim import paper, runner, systems, trace_gen
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -1461,13 +1506,14 @@ def main() -> int:
                   *mmu_step.COLLECTED.values(),
                   *mmu_step.LADDER_COMPOSITIONS.values()))
     built = mmu_step.instantiations()
-    if len(built) != 20:
-        raise AssertionError(f"{len(built)} instantiations, want 20")
-    ladder_ptxas = {}
+    if len(built) != 27:
+        raise AssertionError(f"{len(built)} instantiations, want 27")
+    ladder_ptxas, inst_ptxas = {}, {}
     for comp, place in built:
         dyn = comp in LADDER_COMP.values()
         usage = ptxas_usage(builds["mmu_step"]["log"],
                             mmu_entry(codes[comp], place, dyn))
+        inst_ptxas[f"{comp}/{place}"] = usage
         if dyn:
             ladder_ptxas[comp] = usage
         print(f"mmu_step {comp} ({place}{', ladder' if dyn else ''}): "
@@ -1489,6 +1535,12 @@ def main() -> int:
             err = max(err, float(np.max(np.abs(
                 x.astype(np.float64) - y.astype(np.float64)), initial=0.0)))
         return err
+
+    def leaf_index(cfg, pick):
+        """The position of the leaf `pick(state)` in ``state_leaves``."""
+        st = make_state(cfg, 1, "meta")
+        want = pick(st)
+        return next(i for i, x in enumerate(state_leaves(st)) if x is want)
 
     def on_card(tr):
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
@@ -1534,23 +1586,49 @@ def main() -> int:
         (TIMED_N, len(gens))).copy()
     pair = [workloads.index("rnd"), workloads.index("bc")]
     check_tr = {k: v[:CHECK_N, pair] for k, v in main_tr.items()}
+    # the multicore systems' traces: MC_MIX over their cores (its first
+    # component alone at one core), as multicore_scaling runs them
+    mix_wl = {c: paper.MC_MIX if c > 1 else
+              trace_gen.parse_mix(paper.MC_MIX)[0] for c in (1, 2, 4)}
+
+    def mix_trace(c, n):
+        g = trace_gen.generate_mix(mix_wl[c], n=n, seed=0, n_cores=c)
+        return {k: np.ascontiguousarray(v) for k, v in g["trace"].items()}
+
+    def small_mix_trace(c, n, seeds):
+        """Per-lane golden traces, lane l being core l % c."""
+        trs = [golden_trace(n, seed) for seed in seeds]
+        tr = {k: np.stack([x[k] for x in trs], axis=1) for k in trs[0]}
+        tr["core"] = (np.arange(len(trs), dtype=np.int32) % c)[None, :] \
+            .repeat(n, 0)
+        return tr
 
     def ladder_trace(ladder, small):
         """The ladder check's trace, one column a lane: per-lane mixed
         traces on small structures; at Table 3 the member's workload, the
-        11 in turn."""
-        lanes = len(SMALL_LADDERS[ladder] if small
-                    else systems.LADDERS[ladder])
+        11 in turn, or a multicore member's mix, one lane a core."""
+        members = SMALL_LADDERS[ladder] if small else systems.LADDERS[ladder]
+        cores = systems.mix_cores(systems.LADDERS[ladder])
+        lanes = len(members) * cores
         if small:
-            trs = [golden_trace(SMALL_N, seed) for seed in range(lanes)]
-            return {k: np.stack([tr[k] for tr in trs], axis=1)
-                    for k in trs[0]}
+            return small_mix_trace(cores, SMALL_N, range(lanes))
+        if cores > 1:
+            return {k: np.tile(v, (1, len(members)))
+                    for k, v in mix_trace(cores, CHECK_N).items()}
         cols = [c % len(workloads) for c in range(lanes)]
         return {k: np.ascontiguousarray(v[:CHECK_N, cols])
                 for k, v in main_tr.items()}
 
-    LADDER_CHECKS = [(lad, small) for lad in ("radix", "np")
+    LADDER_CHECKS = [(lad, small) for lad in ("radix", "np", "radix_2c")
                      for small in (False, True)]
+    # the new systems' checks against the plain version (on the CPU
+    # workers): name -> (trace, config overrides)
+    new_checks = {n: (check_tr, {}) for n in VIRT2}
+    new_checks.update({n: (mix_trace(systems.config(n).n_cores, CHECK_N),
+                           {}) for n in MULTICORE_PLAIN})
+    new_checks.update({f"{n} (small)": (small_mix_trace(
+        systems.config(n).n_cores, SMALL_N, range(systems.config(n).n_cores)),
+        {**SMALL, **over}) for n, over in MC_SMALL.items()})
     # STAGED's plain versions run on the CPU, in worker processes, while
     # the card checks the others
     pool = ProcessPoolExecutor(PLAIN_WORKERS,
@@ -1563,6 +1641,8 @@ def main() -> int:
                         for name in sorted(STAGED, key=lambda n: (
                             "virt" not in n and n != "np", n))
                         + PAPER_PLAIN}
+        new_plain = {key: pool.submit(plain_leaves, key.split()[0], tr, over)
+                     for key, (tr, over) in new_checks.items()}
         worst, kernel_leaves = 0.0, {}
         for name in SYSTEMS:
             t0 = time.perf_counter()
@@ -1611,6 +1691,35 @@ def main() -> int:
                   f"Table-3, rnd+bc, {CHECK_N} accesses: kernel == plain (on "
                   f"the CPU) on all {len(k)} leaves (waited "
                   f"{time.perf_counter() - t0:.1f} s)")
+        # Utopia and Revelator under nested paging at Table 3 (rnd+bc);
+        # the multicore systems at Table 3 on their mix and, with the DRAM
+        # cache, on small structures where it hits
+        for key, (tr, over) in new_checks.items():
+            t0 = time.perf_counter()
+            name = key.split()[0]
+            cfg = dataclasses.replace(systems.config(name), **over)
+            comp = {**VIRT2, **MULTICORE}[name]
+            if mmu_step.placement(cfg).name != "shared" or \
+                    mmu_step.composition(cfg, default_stages(cfg))[0] != comp:
+                raise AssertionError(f"{key}: want composition {comp} in "
+                                     f"shared memory")
+            k = run_kernel(cfg, tr)
+            err = max_err(k, new_plain[key].result())
+            worst = max(worst, err)
+            if err != 0.0:
+                raise AssertionError(f"{key}: kernel differs from the plain "
+                                     f"version (max abs err {err})")
+            hit = ""
+            if cfg.dram_cache_sets:
+                hits = k[leaf_index(cfg, lambda st: st.hier.n_dramc_hit)]
+                if "small" in key and int(hits.min()) <= 0:
+                    raise AssertionError(f"{key}: the DRAM cache never hit")
+                hit = f", DRAM-cache hits {hits.tolist()}"
+            what = "rnd+bc" if tr is check_tr else "its mix"
+            print(f"{key} ({comp}), {what}, {tr['vpn'].shape[0]} accesses "
+                  f"x {tr['vpn'].shape[1]} "
+                  f"lanes: kernel == plain (on the CPU) on all {len(k)} "
+                  f"leaves{hit} (waited {time.perf_counter() - t0:.1f} s)")
         with open(os.path.join(ROOT, "tests", "golden",
                                "mmu_stats.json")) as f:
             golden = json.load(f)
@@ -1689,7 +1798,8 @@ def main() -> int:
             raise AssertionError(f"{w}: the port's trace differs from the "
                                  f"one the snapshot was made from")
     print("traces: all 11 equal the snapshot's (sha256)")
-    composition = {**{n: n for n in SYSTEMS}, **STAGED, **PAPER}
+    composition = {**{n: n for n in SYSTEMS}, **STAGED, **PAPER, **VIRT2,
+                   **MULTICORE}
 
     def main_path_launches(name):
         """Launches since the counts were set to 0; every one must have
@@ -1786,12 +1896,69 @@ def main() -> int:
         print(f"{name}: 11 workloads equal the JAX paper snapshot on every "
               f"Stats leaf and extra{digests} ({launches} launches, all "
               f"{composition[name]} in shared memory)")
-    # both ladders through run_ladder, from a fresh cache: every member's
+    # the last systems: Utopia and Revelator under nested paging over
+    # the 11 workloads, the multicore systems on their mixes
+    with open(os.path.join(ROOT, "tests", "golden",
+                           "torch_fullsize_multicore_stats.json")) as f:
+        snap4 = json.load(f)
+    assert (snap4["n"], snap4["seed"], snap4["workloads"], snap4["mix"]) \
+        == (FULL_N, 0, workloads, paper.MC_MIX), "multicore snapshot settings"
+    if snap4["trace_sha256"] != snap["trace_sha256"]:
+        raise AssertionError("the multicore snapshot was made from other "
+                             "traces")
+    for c, wl in mix_wl.items():
+        if sha256_of(*[v for _, v in sorted(mix_trace(c, FULL_N).items())]) \
+                != snap4["mix_sha256"][f"{wl}@{c}"]:
+            raise AssertionError(f"{wl} at {c} cores: the port's mix "
+                                 f"differs from the snapshot's")
+    print(f"multicore snapshot mixes: {', '.join(snap4['mix_sha256'])} "
+          f"equal (sha256)")
+    for name in VIRT2:
+        zero_counts()
+        out = runner.run_batch(name, n=FULL_N, seed=0, cache=False)
+        launches, _ = main_path_launches(name)
+        snapshot_equal(name, out, snap4["systems"][name], FULL_N)
+        print(f"{name}: 11 workloads equal the JAX multicore snapshot on "
+              f"every Stats leaf and extra ({launches} launches, all "
+              f"{composition[name]} in shared memory)")
+
+    def cores_equal(name, got, want):
+        """A multicore cell (a single-core one at one core) equals the
+        snapshot's per-core entries on every Stats leaf and extra."""
+        stats, extras, _ = got
+        if systems.config(name).n_cores == 1:
+            stats, extras = (stats,), (extras,)
+        if len(stats) != len(want["cores"]):
+            raise AssertionError(f"{name}: {len(stats)} core lanes")
+        for c, (st, ex, w) in enumerate(zip(stats, extras, want["cores"])):
+            for field, v in w["stats"].items():
+                if np.asarray(getattr(st, field)).tolist() != v:
+                    raise AssertionError(f"{name}/core {c}: Stats.{field} "
+                                         f"differs from the snapshot")
+            if sorted(ex) != sorted(w["extras"]) or any(
+                    np.asarray(ex[k]).tolist() != v
+                    for k, v in w["extras"].items()):
+                raise AssertionError(f"{name}/core {c}: extras differ from "
+                                     f"the snapshot")
+
+    for name in MULTICORE:
+        want = snap4["multicore"][name]
+        zero_counts()
+        got = runner.run(name, want["workload"], n=FULL_N, seed=0,
+                         cache=False)
+        launches, _ = main_path_launches(name)
+        cores_equal(name, got, want)
+        print(f"{name} on {want['workload']}: every core lane equals the "
+              f"JAX multicore snapshot on every Stats leaf and extra "
+              f"({launches} launches, all {composition[name]})")
+    # the ladders through run_ladder, from a fresh cache: every member's
     # every workload against the snapshot that holds it
-    ladder_snap = {**snap["systems"], **snap3["systems"],
+    ladder_snap = {**snap["systems"], **snap3["systems"], **snap4["systems"],
                    **{n: v["workloads"] for n, v in snap2["systems"].items()}}
     cache_dir = runner.CACHE_DIR
     for ladder, comp in LADDER_COMP.items():
+        if ladder in MC_LADDERS:
+            continue
         members = systems.LADDERS[ladder]
         base = systems.ladder_base_config(ladder)
         place = mmu_step.ladder_placement(base, default_stages(base)).name
@@ -1818,6 +1985,33 @@ def main() -> int:
               f"workloads equal the JAX snapshots on every Stats leaf and "
               f"extra ({mmu_step.LAUNCHES} launches, all {comp} in {place}; "
               f"{wall:.2f} s)")
+    for ladder in MC_LADDERS:
+        members = systems.LADDERS[ladder]
+        wl = snap4["multicore"][members[0]]["workload"]
+        runner.CACHE_DIR = tempfile.mkdtemp(prefix="ladder_")
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            out = runner.run_ladder(ladder, [wl], n=FULL_N, seed=0)
+            wall = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(runner.CACHE_DIR, ignore_errors=True)
+            runner.CACHE_DIR = cache_dir
+        by = {k: v for k, v in mmu_step.LAUNCHES_BY_PLACEMENT.items() if v}
+        by_c = {k: v for k, v in mmu_step.LAUNCHES_BY_COMPOSITION.items()
+                if v}
+        if not mmu_step.LAUNCHES or by != {"shared": mmu_step.LAUNCHES} or \
+                by_c != {"ladder_mc": mmu_step.LAUNCHES}:
+            raise AssertionError(f"ladder {ladder}: launches by placement "
+                                 f"{by}, by composition {by_c}; want all "
+                                 f"ladder_mc in shared")
+        for name in members:
+            cores_equal(name, out[name][wl], snap4["multicore"][name])
+        print(f"run_ladder({ladder!r}) on {wl}: {len(members)} members x "
+              f"{systems.mix_cores(members)} cores equal the JAX multicore "
+              f"snapshot on every Stats leaf and extra "
+              f"({mmu_step.LAUNCHES} launches, all ladder_mc in shared; "
+              f"{wall:.2f} s)")
     print(f"phase 3: {time.perf_counter() - t:.1f} s")
 
     # ------------------------------------------------------------ 4
@@ -1827,7 +2021,7 @@ def main() -> int:
           f"{gen_s:.2f} s")
     results, main_launches, by_placement, main_ms = {}, {}, {}, {}
     main_floor, main_wall = {}, {}
-    for name in SYSTEMS + tuple(STAGED) + tuple(PAPER):
+    for name in SYSTEMS + tuple(STAGED) + tuple(PAPER) + tuple(VIRT2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
@@ -1854,6 +2048,53 @@ def main() -> int:
               f"peak device memory {peak:.0f} MiB; latency floor "
               f"{floor_ms:.1f} ms ({rounds:.1f} rounds per access, "
               f"{kms / floor_ms:.1f}x)")
+    # the multicore systems on their mixes: run (its wall), then the
+    # kernel alone on the same inputs; the floor counts the DRAM-cache
+    # probes
+    for name in MULTICORE:
+        cfg = systems.config(name)
+        c = cfg.n_cores
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        results[name] = runner.run(name, mix_wl[c], n=TIMED_N, seed=0,
+                                   cache=False)
+        wall = time.perf_counter() - t0
+        main_launches[name], by_placement[name] = main_path_launches(name)
+        tr = mix_trace(c, TIMED_N)
+        if c == 1:
+            tr.pop("core")
+        st = make_state(cfg, c, dev)
+        ctr = on_card(tr)
+        kms = cuda_time(lambda: mmu_step.launch(st, ctr, cfg,
+                                                default_stages(cfg)))
+        main_ms[name], main_wall[name] = kms, wall
+        floor_ms, rounds = latency_floor(cfg, st, sm_ns, l1_ns, l2_ns)
+        main_floor[name] = floor_ms
+        probes = max(int(st.hier.n_dramc_access.sum()), 1)
+        dc = (f", DRAM-cache hit rate "
+              f"{int(st.hier.n_dramc_hit.sum()) / probes:.3f}"
+              if cfg.dram_cache_sets else "")
+        print(f"{name} ({composition[name]}) on {mix_wl[c]}: run wall "
+              f"{wall:.2f} s, kernel {kms:.1f} ms ({main_launches[name]} "
+              f"launches, {c} lanes), {TIMED_N / kms * 1e3:,.0f} accesses/s "
+              f"per lane, {TIMED_N * c / kms * 1e3:,.0f} over {c} lanes; "
+              f"latency floor {floor_ms:.1f} ms ({rounds:.1f} rounds per "
+              f"access, {kms / floor_ms:.1f}x){dc}")
+        # the single-core system on the same lanes (the core leaf
+        # dropped): what the shared tier costs, the inputs held equal
+        single = name[:-len(f"_{c}c")]
+        if c > 1 and single in systems.names():
+            cfg1 = systems.config(single)
+            tr1 = {k: v for k, v in tr.items() if k != "core"}
+            st1, ctr1 = make_state(cfg1, c, dev), on_card(tr1)
+            kms1 = cuda_time(lambda: mmu_step.launch(
+                st1, ctr1, cfg1, default_stages(cfg1)))
+            print(f"  {single} ({composition[single]}) on the same {c} "
+                  f"lanes: kernel {kms1:.1f} ms; {name} "
+                  f"{(kms / kms1 - 1) * 100:+.1f}%")
+            del st1, ctr1
+        del st, ctr
     print(f"{'workload':9s} {'PTW red.':>9s} {'Victima hits':>13s} "
           f"{'reach MB':>9s} {'speedup':>8s}")
     for w in workloads:
@@ -2063,8 +2304,7 @@ def main() -> int:
     t = phase(f"12. the paper tables: every figure at n={FULL_N} against "
               f"the reference's rows, then at n={TIMED_N}")
     from repro_torch.core import ptwcp_nn
-    from repro_torch.sim import paper
-    figs = snap3["figures"]
+    figs = {**snap3["figures"], **snap4["figures"]}
     assert sorted(figs) == sorted(f.__name__ for f in paper.ALL)
     t2 = snap3["table2"]
     inits = {name: [(np.asarray(w, np.float32), np.asarray(b, np.float32))
@@ -2175,6 +2415,20 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 12: {time.perf_counter() - t:.1f} s")
 
+    # each registered system's static instantiation (composition/placement)
+    # and, for a ladder member, the ladder instantiation the tables run
+    ladder_of = {m: lad for lad, ms in systems.LADDERS.items() for m in ms}
+    instantiation_by_system = {}
+    for name, sys_ in systems.REGISTRY.items():
+        cfg = sys_.config()
+        got = [f"{mmu_step.composition(cfg, sys_.stages)[0]}/"
+               f"{mmu_step.placement(cfg).name}"]
+        if name in ladder_of:
+            base = systems.ladder_base_config(ladder_of[name])
+            names = default_stages(base)
+            got.append(f"{mmu_step.composition(base, names, dyn=True)[0]}/"
+                       f"{mmu_step.ladder_placement(base, names).name}")
+        instantiation_by_system[name] = got
     shape = {"flash_attention": f"granite-3-2b prefill: B={SERVE_B}, "
                                 f"S={SERVE_PROMPT}, H=32, K=8, hd=64, bf16, "
                                 f"causal",
@@ -2213,6 +2467,8 @@ def main() -> int:
                          "rows_equal_reference_at_n": FULL_N,
                          "table2_mlp_max_abs_diff": mlp_err},
         "composition_by_system": composition,
+        "instantiation_by_system": instantiation_by_system,
+        "ptxas_by_instantiation": inst_ptxas,
         "main_path_wall_s": main_wall, "main_path_floor_ms": main_floor,
         "placement": pl.name, "smem_bytes": pl.smem_bytes,
         "main_path_ms": main_ms, "stage_cycles_per_access": breakdown,

@@ -13,9 +13,10 @@ Tag matching always requires the block type to match.  Reuse histograms
 (Figs. 11 & 24) and live TLB-block counts (Fig. 23 reach) are folded into
 the cache state on insert/evict.  Every array has a leading lane axis and
 is updated in place (see ``repro_torch.core.assoc``).  The L2 cache
-takes a per-lane view geometry (``L2Geom``) for ladder-batched runs;
-the DRAM-cache rung is compiled out (its placeholder state stays sized
-1, as in the reference).
+takes a per-lane view geometry (``L2Geom``) for ladder-batched runs.
+A die-stacked DRAM cache below the L3 (an SRRIP ``Assoc``, sized 1 when
+the configuration has none) is probed on an L3 miss when the caller
+passes its gate (``stages.base.dramc_of``).
 """
 from __future__ import annotations
 
@@ -248,15 +249,16 @@ class Hier(NamedTuple):
     l1d: Assoc
     l2: L2Cache
     l3: Assoc
-    dramc: Assoc                # die-stacked DRAM cache (sized 1: off)
+    dramc: Assoc                # die-stacked DRAM cache (sized 1 when off)
     # running counters for MPKI-style signals
     n_l2_access: torch.Tensor   # int32 [W] — demand data accesses at L2
     n_l2_miss: torch.Tensor     # int32 [W]
     # shared-tier occupancy counters
     n_l3_access: torch.Tensor   # int32 [W]
     n_l3_trans: torch.Tensor    # int32 [W] — translation-typed L3 probes
-    n_dramc_access: torch.Tensor  # int32 [W] (always 0 in this slice)
-    n_dramc_hit: torch.Tensor     # int32 [W] (always 0 in this slice)
+    n_dramc_access: torch.Tensor  # int32 [W] — L3 misses probing the DRAM
+    #                               cache
+    n_dramc_hit: torch.Tensor     # int32 [W]
 
 
 def make_hier(l1_sets=64, l1_ways=8, l2_sets=2048, l2_ways=16,
@@ -282,12 +284,33 @@ class Lat(NamedTuple):
     l2: int = 16
     l3: int = 35
     dram: int = 160  # full DRAM round trip (beyond L3 probe)
-    dramc: int = 58  # die-stacked DRAM-cache hit (unused in this slice)
+    dramc: int = 58  # die-stacked DRAM-cache hit (beyond the L3 probe)
 
 
-def _miss_cycles(hit2, hit3, lat: Lat) -> torch.Tensor:
+def _dramc_probe(h: Hier, line, miss3, lat: Lat, dramc):
+    """Probe the die-stacked DRAM cache on an L3 miss (SRRIP, as the L3:
+    ``l3_access`` on ``h.dramc``).
+
+    ``dramc`` is the gate (``stages.base.dramc_of``): None leaves the
+    probe out, and a False lane masks it off bit-exactly.  Returns
+    (miss_cyc, dram): the cycles beyond the L3 probe and the accesses
+    that still went to main memory (a DRAM-cache hit never left the
+    package)."""
+    if dramc is None:
+        return lat.dram, miss3
+    gate = as_mask(dramc, line) & miss3
+    _, hitd = l3_access(h.dramc, line, gate)
+    h.n_dramc_access.add_(gate.int())
+    h.n_dramc_hit.add_((gate & hitd).int())
+    dram = miss3 & ~(gate & hitd)
+    miss_cyc = torch.where(gate, lat.dramc + lat.dram * (~hitd).int(),
+                           lat.dram)
+    return miss_cyc, dram
+
+
+def _miss_cycles(hit2, hit3, lat: Lat, miss_cyc) -> torch.Tensor:
     return torch.where(hit2, lat.l2, torch.where(hit3, lat.l3,
-                                                 lat.l3 + lat.dram))
+                                                 lat.l3 + miss_cyc))
 
 
 # salts of the two background lines per access (int32 constants)
@@ -297,8 +320,10 @@ _BG_MASK = (1 << 26) - 1
 
 
 def access_data(h: Hier, line, now, pressure, tlb_aware: bool, lat: Lat,
-                geom: L2Geom | None = None):
-    """Demand data access L1D→L2→L3→DRAM with fills. Returns (h, cycles).
+                geom: L2Geom | None = None, dramc=None):
+    """Demand data access L1D→L2→L3→[DRAM cache]→DRAM with fills.
+    Returns (h, cycles).  ``dramc`` gates the DRAM-cache probe (None:
+    absent).
 
     The L1D is touched unconditionally: on a miss this stamps way 0 of
     the set (the argmax of an all-false row), and the L1 fill then picks
@@ -332,7 +357,11 @@ def access_data(h: Hier, line, now, pressure, tlb_aware: bool, lat: Lat,
         l2_insert(h.l2, bg_line, BT_DATA, pressure, tlb_aware, ~bg_hit3,
                   geom)
 
-    cycles = torch.where(hit1, lat.l1d, _miss_cycles(hit2, hit3, lat))
+    # the DRAM cache below the L3 (background lines never probe it: they
+    # model pressure only and are never charged)
+    miss_cyc, _ = _dramc_probe(h, line, go_l3 & ~hit3, lat, dramc)
+    cycles = torch.where(hit1, lat.l1d,
+                         _miss_cycles(hit2, hit3, lat, miss_cyc))
     h.n_l2_access.add_(go_l2.int())
     h.n_l2_miss.add_(go_l3.int())
     h.n_l3_access.add_(go_l3.int())
@@ -340,8 +369,11 @@ def access_data(h: Hier, line, now, pressure, tlb_aware: bool, lat: Lat,
 
 
 def access_pte(h: Hier, line, pressure, tlb_aware: bool, lat: Lat, enable,
-               bt: int = BT_DATA, geom: L2Geom | None = None):
-    """Page-table-walker access (starts at L2). Returns (h, cycles, dram)."""
+               bt: int = BT_DATA, geom: L2Geom | None = None, dramc=None):
+    """Page-table-walker access (starts at L2). Returns (h, cycles, dram).
+
+    ``dramc`` gates the DRAM-cache probe (None: absent); a DRAM-cache hit
+    counts as ``dram=False``, which the PTW-CP counters read."""
     en = as_mask(enable, line)
     if idle(en):
         return h, torch.zeros_like(line), torch.zeros_like(en)
@@ -350,8 +382,8 @@ def access_pte(h: Hier, line, pressure, tlb_aware: bool, lat: Lat, enable,
     go_l3 = en & ~hit2
     _, hit3 = l3_access(h.l3, line, go_l3)
     l2_insert(h.l2, line, bt, pressure, tlb_aware, go_l3, geom)
-    dram = go_l3 & ~hit3
-    cycles = torch.where(en, _miss_cycles(hit2, hit3, lat), 0)
+    miss_cyc, dram = _dramc_probe(h, line, go_l3 & ~hit3, lat, dramc)
+    cycles = torch.where(en, _miss_cycles(hit2, hit3, lat, miss_cyc), 0)
     h.n_l3_access.add_(go_l3.int())
     h.n_l3_trans.add_(go_l3.int())
     return h, cycles.int(), dram

@@ -1,5 +1,5 @@
 """MMU translation-pipeline driver (paper §§4-6, Table 3); port of
-``repro.core.mmu`` for the single-core compositions.
+``repro.core.mmu``.
 
 The translation path is a statically composed list of stages (see
 ``repro_torch.core.stages``): L1 TLB -> L2 TLB -> [Victima L2-cache
@@ -13,10 +13,12 @@ card and runs the step itself, access by access, when it lies on the CPU.
 
 Three entry points share the step:
   simulate         — one (config, trace)
-  simulate_batch   — one config, W workloads in lock-step (traces [T, W])
+  simulate_batch   — one config, W workloads in lock-step (traces [T, W];
+                     a multicore config's core lanes, [T, C])
   simulate_systems — S ladder members x W workloads in one scan: the
                      S x W grid flattened to S·W lanes, each with its own
-                     ``Dyn`` geometry and stage gates
+                     ``Dyn`` geometry and stage gates; multicore traces
+                     [T, W, C] flatten to S·W·C lanes, system-major
 
 All run on ``device="cuda"`` unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request they raise.
@@ -30,8 +32,8 @@ from repro_torch.core import ptwcp
 from repro_torch.core.caches import BT_DATA, REUSE_BUCKETS, access_data
 from repro_torch.core.stages import (Dyn, MMUState, Request, STAGES,
                                      SimConfig, Stats, WALK_HIST_BUCKETS,
-                                     Feats, default_stages, fill_order,
-                                     l2_geom_of, make_state,
+                                     Feats, default_stages, dramc_of,
+                                     fill_order, l2_geom_of, make_state,
                                      validate_stages)
 from repro_torch.core.stages.fold import accum_stats, collect_feats
 from repro_torch.kernels import mmu_step
@@ -42,9 +44,11 @@ __all__ = [
     "scan_accesses", "simulate", "simulate_batch", "simulate_systems",
 ]
 
-# trace leaves the step reads, with their dtypes
+# trace leaves the step reads, with their dtypes (``core``, the lane's
+# core id, only in multiprogrammed-mix traces: ``trace_gen.generate_mix``)
 TRACE_DTYPES = {"vpn": torch.int32, "is2m": torch.bool,
-                "line": torch.int32, "ipa": torch.float32}
+                "line": torch.int32, "ipa": torch.float32,
+                "core": torch.int32}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -74,6 +78,7 @@ def make_step(cfg: SimConfig, stage_names=None, dyn: Dyn | None = None):
     stages = [STAGES[n] for n in names]
     fills = [STAGES[n] for n in fill_order(names)]
     geom = l2_geom_of(dyn)  # the L2 cache's per-lane view (None = static)
+    dramc = dramc_of(cfg, dyn)  # the DRAM-cache gate (None = absent)
 
     def step(st: MMUState, acc) -> MMUState:
         vpn, is2m, ipa = acc["vpn"], acc["is2m"], acc["ipa"]
@@ -112,11 +117,20 @@ def make_step(cfg: SimConfig, stage_names=None, dyn: Dyn | None = None):
         # ---------------- fill pass: refills, learning, background walks
         for stg in fills:
             st = stg.fill(cfg, st, req, out)
+
+        # shared-tier port contention (multicore only): an access past
+        # the private L2 TLB waits its core's rotating arbitration slot,
+        # a function of (core, now) alone, so core lanes stay independent
+        if cfg.n_cores > 1:
+            core = acc.get("core", 0)
+            slot = (core + now) % cfg.n_cores
+            past_l2 = past_l2 + (cfg.shared_port_cyc * slot
+                                 * out["l2_tlb"].need.int())
         trans = trans + past_l2
 
         # ---------------- the data access itself
         _, dcyc = access_data(st.hier, req.line, now, pressure,
-                              cfg.tlb_aware, cfg.lat, geom)
+                              cfg.tlb_aware, cfg.lat, geom, dramc)
         accum_stats(st.stats, st, out, walk_res, trans, past_l2, dcyc)
         if cfg.collect:
             collect_feats(cfg, st, req, out, walk_res)
@@ -151,26 +165,41 @@ def _final_hists(l2):
 
 def _finalize(st: MMUState, cfg: SimConfig):
     """The finished state as host numpy: (Stats, l2a, l2m, hd, ht, feats,
-    pc4) with a leading lane axis on every leaf (feats and pc4 are None
-    unless ``cfg.collect``)."""
+    pc4, shared) with a leading lane axis on every leaf (feats and pc4 are
+    None unless ``cfg.collect``; shared is the L3 and DRAM-cache counters
+    ``(n_l3_access, n_l3_trans, n_dramc_access, n_dramc_hit)``)."""
     hd, ht = _final_hists(st.hier.l2)
 
     def host(x):
         return x.cpu().numpy()
 
+    h = st.hier
     stats = Stats(*[host(x) for x in st.stats])
-    return (stats, host(st.hier.n_l2_access), host(st.hier.n_l2_miss),
+    return (stats, host(h.n_l2_access), host(h.n_l2_miss),
             host(hd), host(ht),
             Feats(*[host(x) for x in st.feats]) if cfg.collect else None,
             ptwcp.PageCounters(*[host(x) for x in st.pc4])
-            if cfg.collect else None)
+            if cfg.collect else None,
+            tuple(host(x) for x in (h.n_l3_access, h.n_l3_trans,
+                                    h.n_dramc_access, h.n_dramc_hit)))
 
 
-def _extras_of(cfg, l2a, l2m, hd, ht, feats, pc4,
+def _shared_tier_extras(cfg) -> bool:
+    """Whether the shared-tier (L3 and DRAM-cache) counters go into the
+    extras: single-core extras keep the reference's keys exactly."""
+    return (cfg.n_cores > 1 or cfg.dram_cache_sets > 0
+            or cfg.shared_tier_stats)
+
+
+def _extras_of(cfg, l2a, l2m, hd, ht, feats, pc4, shared=None,
                index=lambda x: x) -> dict:
     e = {"l2_access": int(index(l2a)), "l2_miss": int(index(l2m)),
          "hist_reuse_data": np.asarray(index(hd)),
          "hist_reuse_tlb": np.asarray(index(ht))}
+    if shared is not None and _shared_tier_extras(cfg):
+        for k, x in zip(("l3_access", "l3_trans", "dramc_access",
+                         "dramc_hit"), shared):
+            e[k] = int(index(x))
     if cfg.collect:
         e["feats"] = type(feats)(*[np.asarray(index(x)) for x in feats])
         e["pc4"] = type(pc4)(*[np.asarray(index(x)) for x in pc4])
@@ -180,11 +209,12 @@ def _extras_of(cfg, l2a, l2m, hd, ht, feats, pc4,
 def _lane_trace(trace: dict, cfg: SimConfig, device, lanes: int | None):
     """Trace leaves as ``[T, W]`` tensors on `device` (``lanes=None``:
     one ``[T]`` trace, given one lane).  A missing ``ipa`` leaf takes
-    ``cfg.ipa``, as in the reference; other dtypes must match exactly."""
+    ``cfg.ipa``, as in the reference, and ``core`` may be absent; other
+    dtypes must match exactly."""
     out = {}
     for k, dtype in TRACE_DTYPES.items():
         if k not in trace:
-            if k != "ipa":
+            if k not in ("ipa", "core"):
                 raise KeyError(f"trace has no {k!r} leaf")
             continue
         x = torch.tensor(np.asarray(trace[k]))
@@ -218,7 +248,9 @@ def simulate(cfg: SimConfig, trace: dict, stage_names=None, device=None):
 
 def simulate_batch(cfg: SimConfig, traces: dict, stage_names=None,
                    device=None):
-    """Run W workloads in lock-step: traces leaves are [T, W].
+    """Run W workloads in lock-step: traces leaves are [T, W] (a
+    multicore config's core lanes: ``trace_gen.generate_mix``'s [T, C]
+    leaves, ``core`` among them).
 
     Returns (list of W Stats, list of W extras dicts), as numpy.
     """
@@ -243,24 +275,43 @@ def make_systems_runner(cfg: SimConfig, stage_names=None, device=None):
     shared by the systems.  The grid runs as S·W lanes, system-major
     (lane ``s * W + w``): each Dyn leaf repeated W times, the traces
     tiled S times.  ``per[s][w]`` is system s's Stats on workload w and
-    ``extras[s][w]`` its extras, as numpy.
+    ``extras[s][w]`` its extras, as numpy.  Multicore traces ``[T, W,
+    C]`` (mixes stacked on axis 1) run as S·W·C lanes, lane ``(s * W +
+    w) * C + c``, and ``per[s][w]`` and ``extras[s][w]`` are lists of C.
     """
     dev = resolve_device(device)
     names = tuple(stage_names) if stage_names else default_stages(cfg)
 
     def run(dyns: Dyn, traces: dict):
         S = dyns.l2tlb_lat.shape[0]
+        vpn = np.asarray(traces["vpn"])
+        W = vpn.shape[1]
+        C = vpn.shape[2] if vpn.ndim == 3 else None
+        if C is not None:  # core lanes ride the workload axis
+            traces = {k: np.asarray(v).reshape((v.shape[0], W * C))
+                      for k, v in traces.items()}
         tr = _lane_trace(traces, cfg, dev, lanes=True)
-        W = tr["vpn"].shape[1]
+        L = tr["vpn"].shape[1]
         tr = {k: x.repeat(1, S) for k, x in tr.items()}
-        dyn = Dyn(*[x.to(dev).repeat_interleave(W) for x in dyns])
+        dyn = Dyn(*[x.to(dev).repeat_interleave(L) for x in dyns])
         st = scan_accesses(make_step(cfg, names, dyn),
-                           make_state(cfg, S * W, dev), tr, cfg, names, dyn)
+                           make_state(cfg, S * L, dev), tr, cfg, names, dyn)
         stats, *rest = _finalize(st, cfg)
-        per = [[Stats(*[x[s * W + w] for x in stats]) for w in range(W)]
-               for s in range(S)]
-        extras = [[_extras_of(cfg, *rest, index=lambda x, i=s * W + w: x[i])
-                   for w in range(W)] for s in range(S)]
+
+        def lane(i):
+            return (Stats(*[x[i] for x in stats]),
+                    _extras_of(cfg, *rest, index=lambda x: x[i]))
+
+        per = [[None] * W for _ in range(S)]
+        extras = [[None] * W for _ in range(S)]
+        for s in range(S):
+            for w in range(W):
+                if C is None:
+                    per[s][w], extras[s][w] = lane(s * W + w)
+                else:  # lane (s * W + w) * C + c, per-core lists
+                    cores = [lane((s * W + w) * C + c) for c in range(C)]
+                    per[s][w] = [p for p, _ in cores]
+                    extras[s][w] = [e for _, e in cores]
         return per, extras
 
     return run
@@ -272,8 +323,9 @@ def simulate_systems(cfg: SimConfig, dyns: Dyn, traces: dict,
 
     `cfg` is the ladder's base config (structures at the ladder maximum,
     every gated stage in its composition); `dyns` has ``[S]`` leaves of
-    per-system sizing and gates; traces leaves are ``[T, W]``.  Returns
-    (list[S] of list[W] Stats, extras likewise).  The one-shot form of
-    ``make_systems_runner``.
+    per-system sizing and gates; traces leaves are ``[T, W]``, or ``[T,
+    W, C]`` for multicore mixes.  Returns (list[S] of list[W] Stats,
+    extras likewise; per-core lists of C for mixes).  The one-shot form
+    of ``make_systems_runner``.
     """
     return make_systems_runner(cfg, stage_names, device)(dyns, traces)

@@ -57,13 +57,14 @@ def make_pwcs(sets=8, ways=4, lanes: int = 1, device="cpu") -> PWCs:
 
 
 def walk(h: Hier, pwcs: PWCs, vpn4k, is2m, now, pressure, tlb_aware: bool,
-         lat: Lat, enable, geom: L2Geom | None = None):
-    """One native radix walk.
+         lat: Lat, enable, geom: L2Geom | None = None, dramc=None):
+    """One native (or guest-PT-only) radix walk.
 
     Returns (hier, pwcs, cycles, n_dram).  `cycles` includes the PWC
     probe.  The PWCs are probed on the state before the walk and `start`
     is fixed before any fill; all state updates are masked by `enable`.
-    `geom` is the L2 cache's per-lane view (None = static geometry).
+    `geom` is the L2 cache's per-lane view (None = static geometry),
+    `dramc` the DRAM-cache gate (None = absent).
     """
     en = as_mask(enable, vpn4k)
     if idle(en):
@@ -100,7 +101,7 @@ def walk(h: Hier, pwcs: PWCs, vpn4k, is2m, now, pressure, tlb_aware: bool,
     for slot in range(4):
         slot_en = en & (start <= slot) & (n_levels > slot)
         h, c, d = access_pte(h, lines[slot], pressure, tlb_aware, lat,
-                             slot_en, geom=geom)
+                             slot_en, geom=geom, dramc=dramc)
         cycles = cycles + c
         n_dram = n_dram + d.int()
 
@@ -121,7 +122,7 @@ def _host_lines(gpn):
 
 
 def host_walk(h: Hier, gpn, pressure, tlb_aware: bool, lat: Lat, enable,
-              geom: L2Geom | None = None):
+              geom: L2Geom | None = None, dramc=None):
     """Host-PT walk (virt., no PWCs -- paper Fig. 3 gives the host walker a
     nested TLB instead): 4 sequential PTE-line accesses through the
     caches.  Returns (hier, cycles, n_dram, leaf_line)."""
@@ -132,7 +133,8 @@ def host_walk(h: Hier, gpn, pressure, tlb_aware: bool, lat: Lat, enable,
     if idle(en):
         return h, cycles, n_dram, lines[3]
     for ln in lines:
-        h, c, d = access_pte(h, ln, pressure, tlb_aware, lat, en, geom=geom)
+        h, c, d = access_pte(h, ln, pressure, tlb_aware, lat, en, geom=geom,
+                             dramc=dramc)
         cycles = cycles + c
         n_dram = n_dram + d.int()
     return h, cycles, n_dram, lines[3]

@@ -13,12 +13,8 @@ Differences from the reference, all forced by torch:
 - every state leaf carries a leading lane axis ``[W, ...]`` (the
   reference's ``vmap`` written out), and the stages update the state
   tensors IN PLACE (they still return the state, to keep the contract);
-- ``SimConfig`` keeps every reference field, so configs carry over one
-  for one, but rejects on construction any value this port cannot
-  simulate yet, naming the field;
 - ``Dyn``'s leaves are ``[W]`` tensors on the state's device, one value
-  a lane, where the reference vmaps scalars; it keeps ``dramc_en``, always
-  False (the DRAM-cache rung is not ported);
+  a lane, where the reference vmaps scalars;
 - the Table-2 feature counters keep the reference's uint16, but CPU
   torch neither adds nor puts into uint16, so ``collect_feats`` works on
   int16 views of them: int16 addition wraps modulo 2^16 as the
@@ -38,15 +34,6 @@ from repro_torch.core.caches import Hier, L2Geom, Lat, make_hier
 from repro_torch.core.page_table import PWCs, make_pwcs
 
 WALK_HIST_BUCKETS = 64  # 10-cycle buckets for the Fig.4 PTW latency CDF
-
-# SimConfig values this port simulates; anything else names the ROADMAP
-# queue item that ports it
-_SUPPORTED = {
-    "n_cores": (1, "Queue 1, Multicore"),
-    "shared_tier_stats": (False, "Queue 1, Multicore"),
-    "dram_cache_sets": (0, "Queue 1, Multicore (the DRAM-cache gate)"),
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
@@ -94,10 +81,12 @@ class SimConfig:
     l3_sets: int = 2048   # 2MB/core
     l3_ways: int = 16
     lat: Lat = Lat()
-    # --- multicore
+    # --- multicore: core lanes over a shared tier (the L3, POM-TLB and
+    #     DRAM cache partitioned by the systems' sizes) and a rotating
+    #     shared-port delay on L2-TLB misses; 1 core compiles it out
     n_cores: int = 1
-    shared_port_cyc: int = 2
-    shared_tier_stats: bool = False
+    shared_port_cyc: int = 2     # cycles per losing arbitration slot
+    shared_tier_stats: bool = False  # the shared-tier counters in extras
     # --- die-stacked DRAM cache below the L3 (0 sets = absent)
     dram_cache_sets: int = 0
     dram_cache_ways: int = 16
@@ -113,20 +102,6 @@ class SimConfig:
     ipa: float = 3.0             # instructions per traced memory access
     collect: bool = False        # per-page feature collection (Table 2)
     n_feat: int = 1 << 20        # feature-table entries (hashed vpn)
-
-    def __post_init__(self):
-        for field, (want, item) in _SUPPORTED.items():
-            got = getattr(self, field)
-            if got != want:
-                raise ValueError(
-                    f"SimConfig.{field}={got!r}: this port simulates only "
-                    f"{field}={want!r} so far; ROADMAP.md {item} ports it")
-        if self.virt and (self.utopia or self.revelator):
-            raise ValueError(
-                "SimConfig.utopia or revelator with virt=True: this port "
-                "simulates Utopia and Revelator natively only so far; "
-                "ROADMAP.md Queue 1, Utopia and Revelator under nested "
-                "paging ports them")
 
 
 class Dyn(NamedTuple):
@@ -152,7 +127,7 @@ class Dyn(NamedTuple):
     l3tlb_en: torch.Tensor        # bool: the hardware L3 TLB is live
     pom_en: torch.Tensor          # bool: the POM-TLB is live
     rev_en: torch.Tensor          # bool: Revelator's stage is live
-    dramc_en: torch.Tensor        # bool: always False (no DRAM cache here)
+    dramc_en: torch.Tensor        # bool: the DRAM cache is live
 
     def to(self, device) -> "Dyn":
         return Dyn(*[x.to(device) for x in self])
@@ -192,11 +167,13 @@ def l2_geom_of(dyn: Dyn | None) -> L2Geom | None:
 
 
 def dramc_of(cfg: "SimConfig", dyn: Dyn | None = None):
-    """The die-stacked DRAM-cache gate: None (the probe compiled out), as
-    the reference's for every configuration with ``dram_cache_sets ==
-    0`` -- the only ones this port simulates: ``SimConfig`` refuses any
-    other value, naming the ROADMAP item that ports the gate."""
-    return None
+    """The die-stacked DRAM-cache gate of the cache accesses: None (the
+    probe left out) when the configuration has no DRAM cache, else True,
+    or in a ladder each lane's ``dramc_en`` (a lane without it masks the
+    probe off bit-exactly)."""
+    if cfg.dram_cache_sets <= 0:
+        return None
+    return True if dyn is None else dyn.dramc_en
 
 
 class Stats(NamedTuple):
@@ -315,7 +292,8 @@ def make_state(cfg: SimConfig, lanes: int = 1, device="cpu") -> MMUState:
         pom=mk(cfg.pom_sets if cfg.pom else 1, cfg.pom_ways),
         pwcs=make_pwcs(lanes=lanes, device=device),
         hier=make_hier(cfg.l1_sets, cfg.l1_ways, cfg.l2_sets, cfg.l2_ways,
-                       cfg.l3_sets, cfg.l3_ways, 1, cfg.dram_cache_ways,
+                       cfg.l3_sets, cfg.l3_ways,
+                       max(cfg.dram_cache_sets, 1), cfg.dram_cache_ways,
                        lanes=lanes, device=device),
         ntlb=mk(cfg.ntlb_sets if cfg.virt else 1, cfg.ntlb_ways),
         restseg4=mk(cfg.restseg4_sets if cfg.utopia else 1, rs_ways),

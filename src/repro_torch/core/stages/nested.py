@@ -23,18 +23,18 @@ from repro_torch.core.caches import (BT_NTLB, access_pte, l2_lookup,
                                      l2_retag_to_tlb, l2_touch)
 from repro_torch.core.page_table import (LEAF4_BASE, PD_BASE, PDP_BASE,
                                          PML4_BASE, PWC_LAT, host_walk)
-from repro_torch.core.stages.base import (Stage, StageResult, hash_h,
-                                          l2_geom_of)
+from repro_torch.core.stages.base import (Stage, StageResult, dramc_of,
+                                          hash_h, l2_geom_of)
 from repro_torch.core.stages.ptw import fill_walk_counters
 
 
 def nested_translate(cfg, st, gpn, pressure, l2_bypass, enable, geom=None,
-                     ven=None):
+                     ven=None, dramc=None):
     """gPA-page -> hPA (virt.): nested TLB -> [Victima nested-TLB block] ->
     host walk.  Returns (st, cycles, host_walked, ntlb_hit, nvictima_hit),
     each ``[W]``; the state is updated in place.  `geom` is the L2
     cache's per-lane view, `ven` the per-lane Victima gate (None:
-    static)."""
+    static), `dramc` the DRAM-cache gate (None: absent)."""
     en = as_mask(enable, gpn)
     zero = torch.zeros_like(en)
     if idle(en):
@@ -60,7 +60,7 @@ def nested_translate(cfg, st, gpn, pressure, l2_bypass, enable, geom=None,
 
     need_walk = miss & ~vhit
     _, wc, ndram, _ = host_walk(st.hier, gpn, pressure, cfg.tlb_aware,
-                                cfg.lat, need_walk, geom)
+                                cfg.lat, need_walk, geom, dramc)
     cycles = cycles + wc
 
     # host-page PTW-CP counters + nested-TLB-block insertion
@@ -85,7 +85,7 @@ def nested_translate(cfg, st, gpn, pressure, l2_bypass, enable, geom=None,
         if ven is not None:
             bg = bg & ven
         _, _, bdram, _ = host_walk(st.hier, ev_tag, pressure, cfg.tlb_aware,
-                                   cfg.lat, bg, geom)
+                                   cfg.lat, bg, geom, dramc)
         ptwcp.update_counters(st.pch, eidx, bdram >= 1, bg)
         l2_retag_to_tlb(st.hier.l2, ev_tag >> 3, BT_NTLB, pressure,
                         cfg.tlb_aware, bg, geom)
@@ -94,7 +94,7 @@ def nested_translate(cfg, st, gpn, pressure, l2_bypass, enable, geom=None,
 
 
 def guest_walk_2d(cfg, st, vpn, is2m, pressure, l2_bypass, enable,
-                  geom=None, ven=None):
+                  geom=None, ven=None, dramc=None):
     """Nested-paging 2-D walk: every guest-PT access first resolves its own
     gPA->hPA via ``nested_translate``.  Returns (st, cycles, n_dram,
     n_host_walks, n_ntlb_hits, n_nvictima_hits)."""
@@ -137,12 +137,12 @@ def guest_walk_2d(cfg, st, vpn, is2m, pressure, l2_bypass, enable,
         # translate the guest-PT line's gPA page first
         st, ncyc, walked, nth, nvh = nested_translate(
             cfg, st, lines[slot] >> 6, pressure, l2_bypass, slot_en, geom,
-            ven)
+            ven, dramc)
         n_host = n_host + (walked & slot_en).int()
         n_nt_hit = n_nt_hit + nth.int()
         n_nv_hit = n_nv_hit + nvh.int()
         _, c, d = access_pte(st.hier, lines[slot], pressure, cfg.tlb_aware,
-                             cfg.lat, slot_en, geom=geom)
+                             cfg.lat, slot_en, geom=geom, dramc=dramc)
         cycles = cycles + ncyc + c
         n_dram = n_dram + d.int()
 
@@ -152,7 +152,7 @@ def guest_walk_2d(cfg, st, vpn, is2m, pressure, l2_bypass, enable,
 
     # finally translate the data page's own gPA (gpn = vpn, identity map)
     st, ncyc, walked, nth, nvh = nested_translate(
-        cfg, st, vpn, pressure, l2_bypass, en, geom, ven)
+        cfg, st, vpn, pressure, l2_bypass, en, geom, ven, dramc)
     n_host = n_host + (walked & en).int()
     n_nt_hit = n_nt_hit + nth.int()
     n_nv_hit = n_nv_hit + nvh.int()
@@ -166,7 +166,7 @@ class NestedWalkStage(Stage):
         ven = None if req.dyn is None else req.dyn.victima_en
         st, wcyc, ndram, nhost, n_nt_hit, n_nv_hit = guest_walk_2d(
             cfg, st, req.vpn, req.is2m, req.pressure, req.l2_bypass, need,
-            l2_geom_of(req.dyn), ven)
+            l2_geom_of(req.dyn), ven, dramc_of(cfg, req.dyn))
         info = {"walk_en": need, "ndram": ndram, "nhost": nhost,
                 "n_nt_hit": n_nt_hit, "n_nv_hit": n_nv_hit}
         return st, StageResult(hit=need, cycles=wcyc, info=info)

@@ -15,7 +15,8 @@ import torch
 from repro_torch.core.assoc import insert_lru, lane_ids, lookup
 from repro_torch.core.caches import BT_TLB4, access_pte
 from repro_torch.core.page_table import POM_BASE
-from repro_torch.core.stages.base import Stage, StageResult, l2_geom_of
+from repro_torch.core.stages.base import (Stage, StageResult, dramc_of,
+                                          l2_geom_of)
 
 
 class POMStage(Stage):
@@ -27,7 +28,8 @@ class POMStage(Stage):
             (req.key2 & ((cfg.pom_sets * cfg.pom_ways) - 1)) >> 2)
         _, pc_cyc, _ = access_pte(st.hier, pom_line, req.pressure,
                                   cfg.tlb_aware, cfg.lat, probe, bt=BT_TLB4,
-                                  geom=l2_geom_of(req.dyn))
+                                  geom=l2_geom_of(req.dyn),
+                                  dramc=dramc_of(cfg, req.dyn))
         hp, wp, sp = lookup(st.pom, req.key2)
         pomhit = probe & hp
         ln = lane_ids(req.key2)

@@ -1,5 +1,5 @@
 """Stage: Revelator — hash-based speculative address translation; port of
-``repro.core.stages.revelator`` for native configurations.
+``repro.core.stages.revelator``.
 
 On an L2-TLB miss the core hashes the size-tagged page id to a lossy
 signature and probes a small signature table at a fixed latency
@@ -12,7 +12,9 @@ this one: an alias) puts its cycles on the critical path, and it repairs
 the aliased entry in place.  Enrollment in ``fill`` is PTW-CP-guided,
 after the walker's or Victima's counter update.  With ``Dyn`` overrides
 a lane whose ``rev_en`` is off probes nothing, walks nothing and enrolls
-nothing, and the verification walk sees the lane's L2-cache view.
+nothing, and the verification walk sees the lane's L2-cache view.  Under
+nested paging (``virt`` without ``ideal_shadow``) the verification walk
+is the 2-D walk, with the lane's Victima gate.
 """
 from __future__ import annotations
 
@@ -22,7 +24,9 @@ from repro_torch.core.assoc import (first_true, lane_ids, lru_victim,
                                     set_index)
 from repro_torch.core.page_table import walk
 from repro_torch.core.stages.base import (RevTable, Stage, StageResult,
-                                          l2_geom_of, ptwcp_walk_verdict)
+                                          dramc_of, l2_geom_of,
+                                          ptwcp_walk_verdict)
+from repro_torch.core.stages.nested import guest_walk_2d
 
 # the signature's multiplier; the int32 product wraps, as in the
 # reference (torch's int32 ``*`` does on the CPU and on CUDA)
@@ -73,9 +77,16 @@ class RevelatorStage(Stage):
 
         # the verification walk: real page-table and cache traffic, off
         # the critical path unless the prediction was wrong
-        _, _, vcyc, _ = walk(st.hier, st.pwcs, req.vpn, req.is2m, req.now,
-                             req.pressure, cfg.tlb_aware, cfg.lat, sig_hit,
-                             l2_geom_of(req.dyn))
+        geom, dramc = l2_geom_of(req.dyn), dramc_of(cfg, req.dyn)
+        if cfg.virt and not cfg.ideal_shadow:
+            ven = None if req.dyn is None else req.dyn.victima_en
+            st, vcyc, _, _, _, _ = guest_walk_2d(
+                cfg, st, req.vpn, req.is2m, req.pressure, req.l2_bypass,
+                sig_hit, geom, ven, dramc)
+        else:
+            _, _, vcyc, _ = walk(st.hier, st.pwcs, req.vpn, req.is2m,
+                                 req.now, req.pressure, cfg.tlb_aware,
+                                 cfg.lat, sig_hit, geom, dramc)
         vcyc = vcyc * sig_hit.int()
         cycles = (cfg.rev_lat + vcyc * mispred.int()) * sig_hit.int()
         return st, StageResult(hit=sig_hit, cycles=cycles,

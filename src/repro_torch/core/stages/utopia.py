@@ -5,12 +5,13 @@ Utopia backs translation-heavy pages with *RestSegs*: set-associative
 memory segments whose mapping is restrictive, so a probe only has to
 confirm the tag/permission metadata of the page's set.  Pages the
 RestSegs do not hold live in the flexibly mapped FlexSeg and fall back to
-the radix walker.  One RestSeg per page size (4K and 2M): a probe fetches
-the set's tag line through the cache hierarchy (typed as a TLB block,
-like POM-TLB lines) and a tag match resolves the translation with no
-walk.  The migration engine in ``fill`` promotes costly-to-translate
-pages into a RestSeg after their demand walk (the PTW-CP verdict), and a
-set conflict demotes the LRU resident back to the FlexSeg.
+the radix or nested-paging walker.  One RestSeg per page size (4K and
+2M): a probe fetches the set's tag line through the cache hierarchy
+(typed as a TLB block, like POM-TLB lines) and a tag match resolves the
+translation with no walk.  The migration engine in ``fill`` promotes
+costly-to-translate pages into a RestSeg after their demand walk (the
+PTW-CP verdict), and a set conflict demotes the LRU resident back to the
+FlexSeg.
 
 With ``Dyn`` overrides ``utopia_en`` masks the probe's cache traffic, the
 hit path and every migration of a lane, and ``restseg_ways`` gives each
@@ -25,8 +26,8 @@ from repro_torch.core.assoc import (insert_lru, insert_lru_dyn, lane_ids,
                                     lookup, lookup_dyn)
 from repro_torch.core.caches import BT_TLB4, access_pte
 from repro_torch.core.page_table import RESTSEG2_BASE, RESTSEG4_BASE
-from repro_torch.core.stages.base import (Stage, StageResult, l2_geom_of,
-                                          ptwcp_walk_verdict)
+from repro_torch.core.stages.base import (Stage, StageResult, dramc_of,
+                                          l2_geom_of, ptwcp_walk_verdict)
 
 
 def _touch(a, s, w, hit, now) -> None:
@@ -46,7 +47,8 @@ class RestSegStage(Stage):
                                RESTSEG4_BASE + s4)
         _, cyc, _ = access_pte(st.hier, tag_line, req.pressure,
                                cfg.tlb_aware, cfg.lat, probe, bt=BT_TLB4,
-                               geom=l2_geom_of(req.dyn))
+                               geom=l2_geom_of(req.dyn),
+                               dramc=dramc_of(cfg, req.dyn))
 
         # probe both RestSegs; the access's page size selects the result
         if req.dyn is None:

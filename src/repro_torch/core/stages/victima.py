@@ -29,7 +29,8 @@ from repro_torch.core.assoc import lane_ids
 from repro_torch.core.caches import (BT_TLB2, BT_TLB4, l2_lookup,
                                      l2_retag_to_tlb, l2_touch)
 from repro_torch.core.page_table import walk
-from repro_torch.core.stages.base import Stage, StageResult, l2_geom_of
+from repro_torch.core.stages.base import (Stage, StageResult, dramc_of,
+                                          l2_geom_of)
 
 
 def _counter_write(pc: ptwcp.PageCounters, ln, idx, freq, cost) -> None:
@@ -107,7 +108,7 @@ class VictimaStage(Stage):
             bg = bg & ven
         _, _, _, bdram = walk(st.hier, st.pwcs, bg_vpn4, ev2m, req.now,
                               req.pressure, cfg.tlb_aware, cfg.lat, bg,
-                              geom)
+                              geom, dramc_of(cfg, req.dyn))
         ebt = torch.where(ev2m, BT_TLB2, BT_TLB4).int()
         l2_retag_to_tlb(st.hier.l2, ev_vpn >> 3, ebt, req.pressure,
                         cfg.tlb_aware, bg, geom)

@@ -23,19 +23,38 @@
 //   revelator  l1_tlb, l2_tlb, rev, ptw        fills: ptw, l2_tlb, rev, l1_tlb
 //   revelator_victima  l1_tlb, l2_tlb, rev, victima, ptw
 //                                 fills: l2_tlb, victima, rev, l1_tlb
+//   utopia_np  l1_tlb, l2_tlb, restseg, ptw2d
+//                                 fills: ptw2d, l2_tlb, restseg, l1_tlb
+//   revelator_np  l1_tlb, l2_tlb, rev, ptw2d
+//                                 fills: ptw2d, l2_tlb, rev, l1_tlb
+//              (the verification walk is the 2-D walk)
+//   radix_mc, victima_mc, pom_mc  radix's, Victima's and the POM-TLB's
+//              over the multicore shared tier (C_SHARED): each lane reads
+//              its core id from the trace, and an access past the L2 TLB
+//              waits shared_port_cyc * ((core + now) % n_cores) cycles
+//   victima_dramc  victima_mc with the DRAM cache below the L3 (C_DRAMC):
+//              the data line and every PTE, POM-TLB and RestSeg line that
+//              misses the L3 probes it (SRRIP, as the L3), and a hit there
+//              costs lat_dramc and never reaches main memory
 //   ladder_native  l1_tlb, l2_tlb, rev, victima, l3_tlb, pom, restseg, ptw
 //                  fills: l2_tlb, victima, restseg, rev, pom, l3_tlb, l1_tlb
-//   ladder_np  l1_tlb, l2_tlb, victima, pom, ptw2d
-//                                 fills: l2_tlb, victima, pom, l1_tlb
+//   ladder_np  l1_tlb, l2_tlb, rev, victima, pom, restseg, ptw2d
+//                  fills: l2_tlb, victima, restseg, rev, pom, l1_tlb
+//   ladder_mc  l1_tlb, l2_tlb, victima, pom, ptw over the shared tier with
+//              the DRAM cache    fills: l2_tlb, victima, pom, l1_tlb
 // (ideal shadow paging runs the radix instantiation: its nested TLB is
 // allocated and given its room in shared memory, and never touched;
-// utopia_rs8 and utopia_rs32 run utopia's, the RestSeg ways a parameter).
-// The last two are the ladders' base compositions (sim.systems.LADDERS:
-// the native family of 28 systems, the nested one of 3), built with DYN:
-// each lane reads a row of parameters (stages.base.Dyn) at launch start,
-// its L2 TLB's and L2 cache's set mask and live ways, the RestSegs' ways,
-// the two latencies and the gates of the victima, restseg, l3_tlb, pom and
-// rev stages.  A structure keeps its allocated row stride and is read
+// utopia_rs8 and utopia_rs32 run utopia's, the RestSeg ways a parameter;
+// the one-core radix_1c, victima_1c and pom_1c run radix's, Victima's and
+// the POM-TLB's, their contention term being 0, and victima_dramc_1c runs
+// victima_dramc's at n_cores 1).
+// The last three are the ladders' base compositions (sim.systems.LADDERS:
+// the native family of 28 systems, the nested one of 5, the multicore
+// ones of 4 at 1, 2 and 4 cores), built with DYN: each lane reads a row
+// of parameters (stages.base.Dyn) at launch start, its L2 TLB's and L2
+// cache's set mask and live ways, the RestSegs' ways, the two latencies
+// and the gates of the victima, restseg, l3_tlb, pom and rev stages and
+// of the DRAM cache.  A structure keeps its allocated row stride and is read
 // through the lane's view (assoc.lookup_dyn: the set index masked, every
 // ballot, argmin and SRRIP pick over the live ways); a gated-off stage
 // neither charges cycles nor moves a line or a counter, as the reference's
@@ -75,6 +94,8 @@
 // (which leaves them no room there): Utopia's RestSegs (8192 and 256
 // sets of up to 32 ways, 1.2 MB a lane at 16 ways), Revelator's
 // signature table and its enrolled-page shadow (4096 x 16, 832 KiB), the
+// DRAM cache (4096 / n_cores sets of 16 ways, read a row at a time after
+// an L3 miss, as the L3 is), the
 // Table-2 feature table (2^20 entries of 13 bytes, 13 MiB a lane; one
 // thread reads an access's entry at the start of the access and writes
 // it at the end), and the RestSeg and verification-walk histograms (one
@@ -155,9 +176,12 @@ constexpr int HOST_LINES = 4 * LINE_W, POM_LINES = 8 * LINE_W;
 constexpr uint32_t HASH_MUL = 2654435761u;
 // a composition: bit 0 Victima, 1 the L3 TLB, 2 the POM-TLB, 3 the
 // nested (2-D) walk, 4 the Table-2 feature stream, 5 Utopia's RestSegs,
-// 6 Revelator; mmu_step.COMPOSITIONS holds the same codes
+// 6 Revelator, 7 the multicore shared tier (the trace's core leaf and
+// the shared-port contention term), 8 the DRAM cache below the L3 (with
+// bit 7); mmu_step.COMPOSITIONS holds the same codes
 constexpr int C_VICTIMA = 1, C_L3TLB = 2, C_POM = 4, C_NESTED = 8;
 constexpr int C_COLLECT = 16, C_RESTSEG = 32, C_REV = 64;
+constexpr int C_SHARED = 128, C_DRAMC = 256;
 // page_table.RESTSEG4_BASE and RESTSEG2_BASE, above LINE_B
 constexpr int RESTSEG4_LINES = 9 * LINE_W, RESTSEG2_LINES = 10 * LINE_W;
 constexpr uint32_t BG_MUL = static_cast<uint32_t>(-1640531527);
@@ -167,11 +191,11 @@ constexpr uint32_t BG_MASK = (1u << 26) - 1;
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one block
 // a ladder lane's parameters (stages.base.Dyn): the L2 TLB's set mask,
 // ways and latency, the L3 TLB's latency, the L2 cache's set mask and
-// ways, the RestSegs' ways, then the stage gates
+// ways, the RestSegs' ways, then the stage gates and the DRAM cache's
 enum {
   DYN_L2TLB_MASK, DYN_L2TLB_WAYS, DYN_L2TLB_LAT, DYN_L3TLB_LAT, DYN_L2_MASK,
   DYN_L2_WAYS, DYN_RS_WAYS, DYN_VICTIMA, DYN_UTOPIA, DYN_L3TLB, DYN_POM,
-  DYN_REV, NDYN
+  DYN_REV, DYN_DRAMC, NDYN
 };
 
 }  // namespace
@@ -198,6 +222,7 @@ struct CountersP {
 };
 struct HierCountP {
   int32_t *n_l2_access, *n_l2_miss, *n_l3_access, *n_l3_trans;
+  int32_t *n_dramc_access, *n_dramc_hit;
 };
 struct StatsP {
   int32_t *n_access, *n_l1tlb_hit, *n_l2tlb_hit, *n_l2tlb_miss,
@@ -225,6 +250,7 @@ struct TraceP {
   uint8_t* is2m;
   int32_t* line;
   float* ipa;
+  int32_t* core;  // a multicore mix's core ids, or null (core 0)
 };
 // Offsets in bytes into the block's dynamic shared memory: the int32
 // arrays first (histograms, LRU tags and stamps, L2 tags), then the
@@ -267,6 +293,11 @@ struct Params {
   // a ladder launch's per-lane parameters, [lanes, NDYN] (the DYN_* order
   // below; mmu_step.DYN_PARAMS), or null for a launch of one system
   int32_t* dyn;
+  // the shared tier: the DRAM cache (device memory; sized 1 where absent),
+  // its hit latency beyond the L3 probe, the core count and the cycles of
+  // a losing arbitration slot at the shared port
+  AssocP dramc;
+  int32_t lat_dramc, n_cores, shared_port_cyc, pad2;
   // plan(*this), filled in by mmu_step_launch: the kernel reads its
   // offsets here, so a pointer it needs again costs one constant load
   // (the compiler rematerialises the pointers in the loop rather than
@@ -668,14 +699,17 @@ struct Lane {
   Lru ntlb;        // shared memory (when the configuration is virtualized)
   L2c l2;
   L3c l3;
+  L3c dramc;       // the DRAM cache below the L3 (device memory)
+  bool dramc_on;   // its gate: a ladder lane's, else on
   int32_t* hist_walk;  // shared memory; bucket b owned by thread b % 32
   uint8_t *f4, *c4, *f2, *c2, *fh, *ch;
   int n4, n2, nh;
   bool tlb_aware, use_ptwcp;
-  int lat_l1d, lat_l2, lat_l3, lat_dram;
+  int lat_l1d, lat_l2, lat_l3, lat_dram, lat_dramc;
   // registers for the whole launch
   Live live;
   int n_l2_access, n_l2_miss, n_l3_access, n_l3_trans;
+  int n_dramc_access, n_dramc_hit;
 };
 
 __device__ __forceinline__ int miss_cycles(const Lane& L, bool hit2,
@@ -683,8 +717,27 @@ __device__ __forceinline__ int miss_cycles(const Lane& L, bool hit2,
   return hit2 ? L.lat_l2 : hit3 ? L.lat_l3 : L.lat_l3 + L.lat_dram;
 }
 
+// caches._dramc_probe of `line`, which missed the L3: an SRRIP access of
+// the DRAM cache under the lane's gate.  Returns the cycles beyond the L3
+// probe; `dram` says whether the line still went to main memory (a hit
+// never left the package, which the PTW-CP counters read)
+__device__ __forceinline__ int dramc_probe(Lane& L, int line, bool* dram) {
+  if (!L.dramc_on) {
+    *dram = true;
+    return L.lat_dram;
+  }
+  L3Row rd = load_row(L.dramc, line);
+  const bool hitd = l3_access(L.dramc, rd, line);
+  L.n_dramc_access += 1;
+  L.n_dramc_hit += hitd;
+  *dram = !hitd;
+  return L.lat_dramc + (hitd ? 0 : L.lat_dram);
+}
+
 // caches.access_pte, enabled: the L3 row is loaded before the L2 insert,
-// which does not need it; `bt` types the line (BT_TLB4 for POM-TLB lines)
+// which does not need it; `bt` types the line (BT_TLB4 for POM-TLB lines);
+// DRAMC: the DRAM cache is probed on an L3 miss
+template <bool DRAMC>
 __device__ __forceinline__ int access_pte(Lane& L, int line, bool pressure,
                                           bool* dram, int bt = BT_DATA) {
   L2Row r = load_row(L.l2, line);
@@ -699,6 +752,13 @@ __device__ __forceinline__ int access_pte(Lane& L, int line, bool pressure,
   const bool hit3 = l3_access(L.l3, r3, line);
   L.n_l3_access += 1;
   L.n_l3_trans += 1;
+  if constexpr (DRAMC) {
+    if (hit3) {
+      *dram = false;
+      return L.lat_l3;
+    }
+    return L.lat_l3 + dramc_probe(L, line, dram);
+  }
   *dram = !hit3;
   return miss_cycles(L, false, hit3);
 }
@@ -716,6 +776,7 @@ __device__ __forceinline__ PwcRows pwc_rows(const Lane& L, int vpn4k) {
 
 // page_table.walk, enabled: PWCs probed before the walk, `start` fixed
 // before the fills
+template <bool DRAMC>
 __device__ __forceinline__ int walk(Lane& L, PwcRows& w, int vpn4k,
                                     bool is2m, int now, bool pressure,
                                     int* n_dram) {
@@ -733,7 +794,7 @@ __device__ __forceinline__ int walk(Lane& L, PwcRows& w, int vpn4k,
     if (lv >= start && lv < n_levels) {
       const int up = 3 - lv;
       bool d;
-      cycles += access_pte(
+      cycles += access_pte<DRAMC>(
           L, LINE_B + up * LINE_W + ((vpn4k >> 9 * up) >> 3), pressure, &d);
       *n_dram += d;
     }
@@ -753,7 +814,11 @@ __device__ __forceinline__ void retag_to_tlb(Lane& L, int key, int bt,
 }
 
 // caches.access_data; `r1` is the L1D row of `line`, loaded at the start
-// of the access (nothing before this touches the L1D)
+// of the access (nothing before this touches the L1D).  DRAMC: the line
+// probes the DRAM cache on an L3 miss (the background lines never do; the
+// probe touches nothing else, so it comes right after the line's L3
+// access)
+template <bool DRAMC>
 __device__ __forceinline__ int access_data(Lane& L, LruRow& r1, int line,
                                            int now, bool pressure) {
   // the two background lines (int32 wraparound of the reference as
@@ -775,6 +840,7 @@ __device__ __forceinline__ int access_data(Lane& L, LruRow& r1, int line,
   // the L1D is touched unconditionally: a miss stamps way 0
   touch(L.l1d, r1, first_way(m1), now);
   bool hit2 = false, hit3 = false;
+  int beyond = L.lat_dram;  // DRAMC: the cycles beyond the L3 probe
   int l3_set = -1;  // the L3 set the data line's access changed
   const int nxt = line + 1;  // the next-line prefetch
   if (!hit1 && L.l2.ways <= 16 && L.l2.sets > 1) {
@@ -793,6 +859,10 @@ __device__ __forceinline__ int access_data(Lane& L, LruRow& r1, int line,
                      L.tlb_aware, L.live);
       hit3 = l3_access(L.l3, r3, line);
       l3_set = line & smask;
+      if constexpr (DRAMC) {
+        bool d;
+        if (!hit3) beyond = dramc_probe(L, line, &d);
+      }
     }
   } else if (!hit1) {
     L2Row r2 = load_row(L.l2, line);
@@ -805,6 +875,10 @@ __device__ __forceinline__ int access_data(Lane& L, LruRow& r1, int line,
       l2_insert(L.l2, r2, line, BT_DATA, pressure, L.tlb_aware, L.live);
       hit3 = l3_access(L.l3, r3, line);
       l3_set = line & smask;
+      if constexpr (DRAMC) {
+        bool d;
+        if (!hit3) beyond = dramc_probe(L, line, &d);
+      }
       L2Row rp = load_row(L.l2, nxt);
       if (hits(rp, nxt, BT_DATA) == 0)
         l2_insert(L.l2, rp, nxt, BT_DATA, pressure, L.tlb_aware, L.live);
@@ -834,6 +908,9 @@ __device__ __forceinline__ int access_data(Lane& L, LruRow& r1, int line,
   L.n_l2_access += !hit1;
   L.n_l2_miss += !hit1 && !hit2;
   L.n_l3_access += !hit1 && !hit2;
+  if constexpr (DRAMC)
+    return hit1 ? L.lat_l1d
+                : hit2 ? L.lat_l2 : hit3 ? L.lat_l3 : L.lat_l3 + beyond;
   return hit1 ? L.lat_l1d : miss_cycles(L, hit2, hit3);
 }
 
@@ -850,6 +927,7 @@ __device__ __forceinline__ int hash_h(int x, int n) {
 
 // page_table.host_walk, enabled: the host page table's four levels, no
 // PWCs
+template <bool DRAMC>
 __device__ __forceinline__ int host_walk(Lane& L, int gpn, bool pressure,
                                          int* n_dram) {
   int cycles = 0;
@@ -857,7 +935,7 @@ __device__ __forceinline__ int host_walk(Lane& L, int gpn, bool pressure,
 #pragma unroll 1
   for (int up = 3; up >= 0; --up) {
     bool d;
-    cycles += access_pte(
+    cycles += access_pte<DRAMC>(
         L, LINE_B + HOST_LINES + up * LINE_W + ((gpn >> 9 * up) >> 3),
         pressure, &d);
     *n_dram += d;
@@ -879,7 +957,7 @@ struct Nested {
 // reads after these writes).  When the eviction's entry meets the demand
 // walk's, the second update starts from the first's result, as the
 // reference's two sequential updates do.
-template <bool VICTIMA>
+template <bool VICTIMA, bool DRAMC>
 __device__ __forceinline__ Nested nested_translate(Lane& L, int gpn, int now,
                                                    bool pressure,
                                                    bool bypass, bool ven) {
@@ -906,7 +984,7 @@ __device__ __forceinline__ Nested nested_translate(Lane& L, int gpn, int now,
   o.walked = !o.nv_hit;
   if (o.walked) {
     int nd;
-    o.cycles += host_walk(L, gpn, pressure, &nd);
+    o.cycles += host_walk<DRAMC>(L, gpn, pressure, &nd);
     f = min(f + 1, FREQ_MAX);
     c = min(c + (nd >= 1), COST_MAX);
     if (lane() == 0) {
@@ -927,7 +1005,7 @@ __device__ __forceinline__ Nested nested_translate(Lane& L, int gpn, int now,
     const int ce = eidx == hidx ? c : L.ch[eidx];
     if (!L.use_ptwcp || predict(fe, ce) || bypass) {
       int bd;
-      host_walk(L, ev_tag, pressure, &bd);
+      host_walk<DRAMC>(L, ev_tag, pressure, &bd);
       if (lane() == 0) {
         L.fh[eidx] = static_cast<uint8_t>(min(fe + 1, FREQ_MAX));
         L.ch[eidx] = static_cast<uint8_t>(min(ce + (bd >= 1), COST_MAX));
@@ -949,7 +1027,7 @@ struct Walk2d {
 // before the walk; their fills come after the last translation, not
 // before it (nothing in a translation reads or writes a PWC), so one
 // loop of five translations serves all.
-template <bool VICTIMA>
+template <bool VICTIMA, bool DRAMC>
 __device__ __forceinline__ Walk2d walk2d(Lane& L, PwcRows& w, int vpn,
                                         bool is2m, int now, bool pressure,
                                         bool bypass, bool ven) {
@@ -966,15 +1044,15 @@ __device__ __forceinline__ Walk2d walk2d(Lane& L, PwcRows& w, int vpn,
     if (lv < 4 && lv >= n_levels) continue;
     const int up = 3 - min(lv, 3);
     const int line = LINE_B + up * LINE_W + ((vpn >> 9 * up) >> 3);
-    const Nested n = nested_translate<VICTIMA>(L, lv < 4 ? line >> 6 : vpn,
-                                               now, pressure, bypass, ven);
+    const Nested n = nested_translate<VICTIMA, DRAMC>(
+        L, lv < 4 ? line >> 6 : vpn, now, pressure, bypass, ven);
     o.cycles += n.cycles;
     o.nhost += n.walked;
     o.nt_hit += n.nt_hit;
     o.nv_hit += n.nv_hit;
     if (lv < 4) {
       bool d;
-      o.cycles += access_pte(L, line, pressure, &d);
+      o.cycles += access_pte<DRAMC>(L, line, pressure, &d);
       o.n_dram += d;
     }
   }
@@ -1122,6 +1200,8 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
   constexpr bool collect = (COMP & C_COLLECT) != 0;
   constexpr bool restseg = (COMP & C_RESTSEG) != 0;
   constexpr bool rev = (COMP & C_REV) != 0;
+  constexpr bool mc = (COMP & C_SHARED) != 0;  // the multicore shared tier
+  constexpr bool dramc = (COMP & C_DRAMC) != 0;
   const int b = blockIdx.x;
   const Plan& pl = p.plan;
   const size_t n2 = static_cast<size_t>(p.l2.sets) * p.l2.ways;
@@ -1165,6 +1245,15 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     const size_t o3 = static_cast<size_t>(b) * p.l3.sets * p.l3.ways;
     L.l3 = {p.l3.tags + o3, p.l3.valid + o3, p.l3.meta + o3, p.l3.sets,
             p.l3.ways};
+  }
+  if constexpr (dramc) {
+    const size_t od = static_cast<size_t>(b) * entries(p.dramc);
+    L.dramc = {p.dramc.tags + od, p.dramc.valid + od, p.dramc.meta + od,
+               p.dramc.sets, p.dramc.ways};
+    L.lat_dramc = p.lat_dramc;
+    L.dramc_on = true;
+    L.n_dramc_access = p.hier.n_dramc_access[b];
+    L.n_dramc_hit = p.hier.n_dramc_hit[b];
   }
   L.hist_walk = hist;
   for (int i = lane(); i < WALK_HIST_BUCKETS; i += 32)
@@ -1262,6 +1351,7 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     l3en = d[DYN_L3TLB] != 0;
     pen = d[DYN_POM] != 0;
     ren = d[DYN_REV] != 0;
+    if constexpr (dramc) L.dramc_on = d[DYN_DRAMC] != 0;
   }
 
   const StatsP& S = p.stats;
@@ -1311,21 +1401,27 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
   const uint8_t* tr_is2m = p.trace.is2m + b;
   const int32_t* tr_line = p.trace.line + b;
   const float* tr_ipa = p.trace.ipa + b;
+  // the shared tier: the lane's core id (0 when the trace has none)
+  const int32_t* tr_core = mc && p.trace.core ? p.trace.core + b : nullptr;
   size_t ti = static_cast<size_t>(min(p.t0, max(p.t1 - 1, 0))) * p.lanes;
   int nx_vpn = tr_vpn[ti], nx_line = tr_line[ti];
   unsigned nx_is2m = tr_is2m[ti];
   float nx_ipa = tr_ipa[ti];
+  int nx_core = 0;
+  if (mc && tr_core) nx_core = tr_core[ti];
   PROF_BEGIN();
 
   for (int t = p.t0; t < p.t1; ++t) {
     const int vpn = nx_vpn, line = nx_line;
     const bool is2m = nx_is2m != 0;
     const float ipa = nx_ipa;
+    const int core = nx_core;
     ti = static_cast<size_t>(min(t + 1, p.t1 - 1)) * p.lanes;
     nx_vpn = tr_vpn[ti];
     nx_is2m = tr_is2m[ti];
     nx_line = tr_line[ti];
     nx_ipa = tr_ipa[ti];
+    if (mc && tr_core) nx_core = tr_core[ti];
 
     // mmu.make_step: the step's signals read the stats before the access
     now += 1;
@@ -1446,8 +1542,14 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
       if (rvhit) {
         touch(L.rev, qrv, w, now);
         if (lane() == w) L.rev_vpn[qrv.i] = key2;
-        int vd;
-        vcyc = walk(L, pw, vpn, is2m, now, pressure, &vd);
+        // under nested paging the verification walk is the 2-D walk
+        if constexpr (nested) {
+          vcyc = walk2d<victima, dramc>(L, pw, vpn, is2m, now, pressure,
+                                        bypass, ven).cycles;
+        } else {
+          int vd;
+          vcyc = walk<dramc>(L, pw, vpn, is2m, now, pressure, &vd);
+        }
       }
       past += rvhit ? p.rev_lat + (rv_mispred ? vcyc : 0) : 0;
       need = need && !rvhit;
@@ -1479,8 +1581,9 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     bool pomhit = false;
     if (pom && need && pen) {
       bool d;
-      past += access_pte(L, LINE_B + POM_LINES + ((key2 & p.pom_mask) >> 2),
-                         pressure, &d, BT_TLB4);
+      past += access_pte<dramc>(
+          L, LINE_B + POM_LINES + ((key2 & p.pom_mask) >> 2), pressure, &d,
+          BT_TLB4);
       const unsigned mp = hits(qp, key2);
       pomhit = mp != 0;
       if (pomhit) touch(L.pom, qp, __ffs(mp) - 1, now);
@@ -1494,7 +1597,7 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     int rcyc = 0;
     if (rprobed) {
       bool d;
-      rcyc = access_pte(
+      rcyc = access_pte<dramc>(
           L, LINE_B + (is2m ? RESTSEG2_LINES + (vpn2 & (L.rs2.sets - 1))
                             : RESTSEG4_LINES + (vpn & (L.rs4.sets - 1))),
           pressure, &d, BT_TLB4);
@@ -1513,15 +1616,15 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     int ndram = 0, wcyc = 0, nhost = 0, nt_hit = 0, nv_hit = 0;
     if (walk_en) {
       if constexpr (nested) {
-        const Walk2d w2 = walk2d<victima>(L, pw, vpn, is2m, now, pressure,
-                                          bypass, ven);
+        const Walk2d w2 = walk2d<victima, dramc>(L, pw, vpn, is2m, now,
+                                                 pressure, bypass, ven);
         wcyc = w2.cycles;
         ndram = w2.n_dram;
         nhost = w2.nhost;
         nt_hit = w2.nt_hit;
         nv_hit = w2.nv_hit;
       } else {
-        wcyc = walk(L, pw, vpn, is2m, now, pressure, &ndram);
+        wcyc = walk<dramc>(L, pw, vpn, is2m, now, pressure, &ndram);
       }
     }
     past += wcyc;
@@ -1552,7 +1655,7 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
       if (bg) {
         const int bg_vpn4 = ev2m ? ev_vpn << 9 : ev_vpn;
         PwcRows bw = pwc_rows(L, bg_vpn4);
-        walk(L, bw, bg_vpn4, ev2m, now, pressure, &bdram);
+        walk<dramc>(L, bw, bg_vpn4, ev2m, now, pressure, &bdram);
         retag_to_tlb(L, ev_vpn >> 3, ev2m ? BT_TLB2 : BT_TLB4, pressure);
       }
       // fused counter writeback: slot 0 then slot 1 (slot 1 wins a tie);
@@ -1649,10 +1752,14 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     // stages.l1_tlb fill
     insert_lru(L.l1d4, q4, vpn, now, miss1 && !is2m);
     insert_lru(L.l1d2, q2, vpn2, now, miss1 && is2m);
+    // mmu.make_step's shared-port contention: an access past the private
+    // L2 TLB waits its core's rotating arbitration slot
+    if constexpr (mc)
+      past += miss2 ? p.shared_port_cyc * ((core + now) % p.n_cores) : 0;
     trans += past;
     PROF_STAMP(ST_TLB);
 
-    const int dcyc = access_data(L, r1, line, now, pressure);
+    const int dcyc = access_data<dramc>(L, r1, line, now, pressure);
     PROF_STAMP(ST_DATA);
 
     // stages.fold.accum_stats, in the reference's order
@@ -1753,6 +1860,10 @@ __global__ void __launch_bounds__(32, 1) mmu_step_kernel(const Params p) {
     p.hier.n_l2_miss[b] = L.n_l2_miss;
     p.hier.n_l3_access[b] = L.n_l3_access;
     p.hier.n_l3_trans[b] = L.n_l3_trans;
+    if (dramc) {
+      p.hier.n_dramc_access[b] = L.n_dramc_access;
+      p.hier.n_dramc_hit[b] = L.n_dramc_hit;
+    }
   }
   for (int i = lane(); i < WALK_HIST_BUCKETS; i += 32)
     p.stats.hist_walk[b * WALK_HIST_BUCKETS + i] = hist[i];
@@ -1840,10 +1951,13 @@ constexpr Instantiation ladder() {
 
 // the ladders' base compositions (sim.systems.ladder_base_config): the
 // native family's union of every gated stage, at the ladder maximum (an
-// 8192 x 16 L2 cache and L2 TLB: placement `device`), and the nested
-// family's, at Table 3 (placement `shared`)
+// 8192 x 16 L2 cache and L2 TLB: placement `device`), the nested family's
+// and the three multicore families', at Table 3 (placement `shared`; the
+// multicore families differ only in the sizes of their L3, POM-TLB and
+// DRAM cache, all in device memory)
 constexpr int C_LADDER_NATIVE = C_VICTIMA | C_L3TLB | C_POM | C_RESTSEG | C_REV;
-constexpr int C_LADDER_NP = C_NESTED | C_VICTIMA | C_POM;
+constexpr int C_LADDER_NP = C_NESTED | C_VICTIMA | C_POM | C_RESTSEG | C_REV;
+constexpr int C_LADDER_MC = C_VICTIMA | C_POM | C_SHARED | C_DRAMC;
 
 const Instantiation kInstantiations[] = {
     placed<0>(true, true), placed<0>(true, false), placed<0>(false, true),
@@ -1854,8 +1968,12 @@ const Instantiation kInstantiations[] = {
     shared_only<C_NESTED | C_VICTIMA>(), shared_only<C_NESTED | C_POM>(),
     shared_only<C_COLLECT>(), shared_only<C_RESTSEG>(),
     shared_only<C_RESTSEG | C_VICTIMA>(), shared_only<C_REV>(),
-    shared_only<C_REV | C_VICTIMA>(),
+    shared_only<C_REV | C_VICTIMA>(), shared_only<C_NESTED | C_RESTSEG>(),
+    shared_only<C_NESTED | C_REV>(), shared_only<C_SHARED>(),
+    shared_only<C_VICTIMA | C_SHARED>(), shared_only<C_POM | C_SHARED>(),
+    shared_only<C_VICTIMA | C_SHARED | C_DRAMC>(),
     ladder<C_LADDER_NATIVE, false, false>(), ladder<C_LADDER_NP, true, true>(),
+    ladder<C_LADDER_MC, true, true>(),
 };
 constexpr int kNumInstantiations =
     sizeof(kInstantiations) / sizeof(kInstantiations[0]);

@@ -13,14 +13,17 @@ L2 cache, and writes it back at its end.  Which structures go to shared
 memory is ``placement(cfg)``, a pure function of the geometry; launches
 are counted per placement in ``LAUNCHES_BY_PLACEMENT`` and per
 composition (``COMPOSITIONS``: radix, Victima, the L3 TLB, the POM-TLB,
-each under nested paging where the reference has it, Utopia and
-Revelator alone and with Victima; and ``radix_collect``, the radix
-composition with the Table-2 feature stream) in
-``LAUNCHES_BY_COMPOSITION``.  A ladder of systems
+Utopia and Revelator, natively and under nested paging where the
+reference has them, Utopia and Revelator with Victima, and radix,
+Victima and the POM-TLB over the multicore shared tier, Victima with the
+DRAM cache too; and
+``radix_collect``, the radix composition with the Table-2 feature
+stream) in ``LAUNCHES_BY_COMPOSITION``.  A ladder of systems
 (``sim.systems.LADDERS``) runs its base composition in a ladder
 instantiation (``LADDER_COMPOSITIONS``: ``ladder_native``, the union of
-every gated stage, and ``ladder_np``, the nested family's), one launch a
-trace block for every (member, workload) lane, each lane reading its own
+every gated stage, ``ladder_np``, the nested family's, and
+``ladder_mc``, the three multicore families'), one launch a trace block
+for every (member, workload, core) lane, each lane reading its own
 geometry views and stage gates (``stages.base.Dyn``) from a row of
 per-lane parameters.
 
@@ -87,9 +90,10 @@ def placement(cfg, want: str | None = None) -> Placement:
     the L3 TLB, the POM-TLB's shadow, the PTW-CP and host-page counters,
     Utopia's RestSegs (8192 x 16 and 256 x 16 at the defaults, up to 32
     ways), Revelator's signature table and its enrolled-page shadow
-    (4096 x 16), the Table-2 feature table (2^20 entries of 13 bytes),
-    and the RestSeg-probe and verification-walk histograms.  The kernel
-    checks the byte count against its own layout at every launch.
+    (4096 x 16), the DRAM cache, the Table-2 feature table (2^20 entries
+    of 13 bytes), and the RestSeg-probe and verification-walk histograms.
+    The kernel checks the byte count against its own layout at every
+    launch.
     """
     small = (cfg.l1d4_sets * cfg.l1d4_ways + cfg.l1d2_sets * cfg.l1d2_ways
              + 3 * PWC_SETS * PWC_WAYS + cfg.l1_sets * cfg.l1_ways)
@@ -118,47 +122,69 @@ def placement(cfg, want: str | None = None) -> Placement:
                 if v == (l2_shared, tlb_shared))
     return Placement(name, l2_shared, tlb_shared, nbytes)
 
-# the compositions the kernel writes out: stage names -> (name, code).
-# The code's bits (csrc/mmu_step.cu's C_*): 1 Victima, 2 the L3 TLB, 4
-# the POM-TLB, 8 the nested (2-D) walk, 16 the Table-2 feature stream
-# (``COLLECTED``: a configuration with ``collect`` set), 32 Utopia's
-# RestSegs, 64 Revelator
+# the compositions the kernel writes out: (stage names, the
+# configuration's ``tier_bits``) -> (name, code).  The code's bits
+# (csrc/mmu_step.cu's C_*): 1 Victima, 2 the L3 TLB, 4 the POM-TLB, 8 the
+# nested (2-D) walk, 16 the Table-2 feature stream (``COLLECTED``: a
+# configuration with ``collect`` set), 32 Utopia's RestSegs, 64
+# Revelator, 128 the multicore shared tier (the trace's ``core`` leaf and
+# the shared-port contention term), 256 the DRAM cache below the L3 (with
+# 128)
 C_VICTIMA, C_L3TLB, C_POM, C_NESTED = 1, 2, 4, 8
 C_COLLECT, C_RESTSEG, C_REV = 16, 32, 64
+C_SHARED, C_DRAMC = 128, 256
+_RADIX = ("l1_tlb", "l2_tlb", "ptw")
+_VICTIMA = ("l1_tlb", "l2_tlb", "victima", "ptw")
+_POM = ("l1_tlb", "l2_tlb", "pom", "ptw")
 COMPOSITIONS = {
-    ("l1_tlb", "l2_tlb", "ptw"): ("radix", 0),
-    ("l1_tlb", "l2_tlb", "victima", "ptw"): ("victima", C_VICTIMA),
-    ("l1_tlb", "l2_tlb", "l3_tlb", "ptw"): ("l3tlb", C_L3TLB),
-    ("l1_tlb", "l2_tlb", "pom", "ptw"): ("pom", C_POM),
-    ("l1_tlb", "l2_tlb", "ptw2d"): ("np", C_NESTED),
-    ("l1_tlb", "l2_tlb", "victima", "ptw2d"): ("victima_np",
-                                               C_NESTED | C_VICTIMA),
-    ("l1_tlb", "l2_tlb", "pom", "ptw2d"): ("pom_np", C_NESTED | C_POM),
-    ("l1_tlb", "l2_tlb", "restseg", "ptw"): ("utopia", C_RESTSEG),
-    ("l1_tlb", "l2_tlb", "victima", "restseg", "ptw"): (
+    (_RADIX, 0): ("radix", 0),
+    (_VICTIMA, 0): ("victima", C_VICTIMA),
+    (("l1_tlb", "l2_tlb", "l3_tlb", "ptw"), 0): ("l3tlb", C_L3TLB),
+    (_POM, 0): ("pom", C_POM),
+    (("l1_tlb", "l2_tlb", "ptw2d"), 0): ("np", C_NESTED),
+    (("l1_tlb", "l2_tlb", "victima", "ptw2d"), 0): (
+        "victima_np", C_NESTED | C_VICTIMA),
+    (("l1_tlb", "l2_tlb", "pom", "ptw2d"), 0): ("pom_np", C_NESTED | C_POM),
+    (("l1_tlb", "l2_tlb", "restseg", "ptw"), 0): ("utopia", C_RESTSEG),
+    (("l1_tlb", "l2_tlb", "victima", "restseg", "ptw"), 0): (
         "utopia_victima", C_RESTSEG | C_VICTIMA),
-    ("l1_tlb", "l2_tlb", "rev", "ptw"): ("revelator", C_REV),
-    ("l1_tlb", "l2_tlb", "rev", "victima", "ptw"): (
+    (("l1_tlb", "l2_tlb", "rev", "ptw"), 0): ("revelator", C_REV),
+    (("l1_tlb", "l2_tlb", "rev", "victima", "ptw"), 0): (
         "revelator_victima", C_REV | C_VICTIMA),
+    (("l1_tlb", "l2_tlb", "restseg", "ptw2d"), 0): (
+        "utopia_np", C_NESTED | C_RESTSEG),
+    (("l1_tlb", "l2_tlb", "rev", "ptw2d"), 0): (
+        "revelator_np", C_NESTED | C_REV),
+    # over the multicore shared tier
+    (_RADIX, C_SHARED): ("radix_mc", C_SHARED),
+    (_VICTIMA, C_SHARED): ("victima_mc", C_VICTIMA | C_SHARED),
+    (_POM, C_SHARED): ("pom_mc", C_POM | C_SHARED),
+    (_VICTIMA, C_SHARED | C_DRAMC): (
+        "victima_dramc", C_VICTIMA | C_SHARED | C_DRAMC),
 }
-# the compositions with the feature stream: the stage names of a
-# configuration with ``collect`` set -> (name, code)
-COLLECTED = {("l1_tlb", "l2_tlb", "ptw"): ("radix_collect", C_COLLECT)}
+# the compositions with the feature stream, keyed as COMPOSITIONS
+COLLECTED = {(_RADIX, 0): ("radix_collect", C_COLLECT)}
 # compositions built in every placement; the others only in "shared",
 # the placement of every system the port registers with them
 EVERY_PLACEMENT = ("radix", "victima")
-# the ladders' base compositions (sim.systems.ladder_base_config) ->
-# (name, code), each built in one placement, that of its ladder's
-# geometry: the native family's union of the gated stages at the ladder
-# maximum (8192 x 16 L2 cache and L2 TLB), the nested family's at Table 3
+# the ladders' base compositions (sim.systems.ladder_base_config), keyed
+# as COMPOSITIONS -> (name, code), each built in one placement, that of
+# its ladder's geometry: the native family's union of the gated stages
+# at the ladder maximum (8192 x 16 L2 cache and L2 TLB), the nested
+# family's and the multicore families' (one instantiation for 1, 2 and 4
+# cores: their L3, POM-TLB and DRAM-cache sizes are parameters) at
+# Table 3
 LADDER_COMPOSITIONS = {
-    ("l1_tlb", "l2_tlb", "rev", "victima", "l3_tlb", "pom", "restseg",
-     "ptw"): ("ladder_native", C_VICTIMA | C_L3TLB | C_POM | C_RESTSEG
-              | C_REV),
-    ("l1_tlb", "l2_tlb", "victima", "pom", "ptw2d"): (
-        "ladder_np", C_NESTED | C_VICTIMA | C_POM),
+    (("l1_tlb", "l2_tlb", "rev", "victima", "l3_tlb", "pom", "restseg",
+      "ptw"), 0): ("ladder_native", C_VICTIMA | C_L3TLB | C_POM
+                   | C_RESTSEG | C_REV),
+    (("l1_tlb", "l2_tlb", "rev", "victima", "pom", "restseg", "ptw2d"),
+     0): ("ladder_np", C_NESTED | C_VICTIMA | C_POM | C_RESTSEG | C_REV),
+    (("l1_tlb", "l2_tlb", "victima", "pom", "ptw"), C_SHARED | C_DRAMC): (
+        "ladder_mc", C_VICTIMA | C_POM | C_SHARED | C_DRAMC),
 }
-LADDER_PLACEMENT = {"ladder_native": "device", "ladder_np": "shared"}
+LADDER_PLACEMENT = {"ladder_native": "device", "ladder_np": "shared",
+                    "ladder_mc": "shared"}
 
 
 def ladder_placement(cfg, stage_names) -> Placement:
@@ -168,10 +194,10 @@ def ladder_placement(cfg, stage_names) -> Placement:
     comp, _ = composition(cfg, stage_names, dyn=True)
     return placement(cfg, LADDER_PLACEMENT[comp])
 # a ladder lane's row of parameters, in csrc/mmu_step.cu's DYN_* order:
-# stages.base.Dyn's fields but dramc_en (always False here)
+# stages.base.Dyn's fields
 DYN_PARAMS = ("l2tlb_set_mask", "l2tlb_ways", "l2tlb_lat", "l3tlb_lat",
               "l2_set_mask", "l2_ways", "restseg_ways", "victima_en",
-              "utopia_en", "l3tlb_en", "pom_en", "rev_en")
+              "utopia_en", "l3tlb_en", "pom_en", "rev_en", "dramc_en")
 
 # kernel launches per composition since import
 LAUNCHES_BY_COMPOSITION = dict.fromkeys(
@@ -179,19 +205,31 @@ LAUNCHES_BY_COMPOSITION = dict.fromkeys(
                     *LADDER_COMPOSITIONS.values())], 0)
 
 
+def tier_bits(cfg) -> int:
+    """The shared-tier bits of a configuration's composition code:
+    ``C_SHARED`` for more than one core or a DRAM cache (the contention
+    term is 0 at one core), and ``C_DRAMC`` with a DRAM cache.  0 for every
+    single-core system without one (the ``*_1c`` systems but
+    ``victima_dramc_1c`` run the single-core instantiations)."""
+    dramc = cfg.dram_cache_sets > 0
+    return (C_SHARED if cfg.n_cores > 1 or dramc else 0) | (
+        C_DRAMC if dramc else 0)
+
+
 def composition(cfg, stage_names, dyn: bool = False) -> tuple[str, int]:
     """The kernel's (name, code) for ``stage_names`` under ``cfg`` (with
     `dyn`, a ladder's base composition); raises for a composition it does
     not write out."""
-    names = tuple(stage_names)
-    table = (LADDER_COMPOSITIONS if dyn
-             else COLLECTED if cfg.collect else COMPOSITIONS)
-    if names not in table:
-        what = (" for a ladder" if dyn
-                else " with collect" if cfg.collect else "")
+    key = (tuple(stage_names), tier_bits(cfg))
+    table = (LADDER_COMPOSITIONS if dyn else COLLECTED if cfg.collect
+             else COMPOSITIONS)
+    got = table.get(key)
+    if got is None:
+        what = " for a ladder" if dyn else " with collect" if cfg.collect \
+            else ""
         raise ValueError(f"the mmu_step kernel runs the compositions "
-                         f"{list(table)}{what}, not {names}")
-    return table[names]
+                         f"{list(table)}{what}, not {key}")
+    return got
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int32
@@ -214,9 +252,13 @@ class _CountersP(ctypes.Structure):
     _fields_ = [("freq", _p), ("cost", _p), ("n", _i), ("pad", _i)]
 
 
+# the hierarchy's counters the kernel carries in registers
+HIER_COUNTS = ("n_l2_access", "n_l2_miss", "n_l3_access", "n_l3_trans",
+               "n_dramc_access", "n_dramc_hit")
+
+
 class _HierCountP(ctypes.Structure):
-    _fields_ = [(n, _p) for n in ("n_l2_access", "n_l2_miss",
-                                  "n_l3_access", "n_l3_trans")]
+    _fields_ = [(n, _p) for n in HIER_COUNTS]
 
 
 class _StatsP(ctypes.Structure):
@@ -228,7 +270,7 @@ class _FeatsP(ctypes.Structure):
 
 
 class _TraceP(ctypes.Structure):
-    _fields_ = [(n, _p) for n in ("vpn", "is2m", "line", "ipa")]
+    _fields_ = [(n, _p) for n in ("vpn", "is2m", "line", "ipa", "core")]
 
 
 class _PlanP(ctypes.Structure):  # filled in by the C launch function
@@ -255,7 +297,9 @@ class _Params(ctypes.Structure):
                              "pad")]
         + [(n, _AssocP) for n in ("restseg4", "restseg2", "rev")]
         + [("rev_vpn", _p), ("feats", _FeatsP), ("rev_lat", _i),
-           ("rev_sig_bits", _i), ("dyn", _p)]
+           ("rev_sig_bits", _i), ("dyn", _p), ("dramc", _AssocP)]
+        + [(n, _i) for n in ("lat_dramc", "n_cores", "shared_port_cyc",
+                             "pad2")]
         + [("plan", _PlanP)])
 
 
@@ -340,8 +384,9 @@ def _dyn_rows(dyn, cfg, lanes: int, dev) -> torch.Tensor:
                 | (ways < 1) | (ways > ways_max)).any():
             raise ValueError(f"a lane's {what} view lies outside its "
                              f"{sets_max} x {ways_max} allocation")
-    if d.dramc_en.any():
-        raise ValueError("a lane gates a DRAM cache on; the kernel has none")
+    if d.dramc_en.any() and cfg.dram_cache_sets <= 0:
+        raise ValueError("a lane gates a DRAM cache on; the base config "
+                         "allocates none")
     return torch.stack([getattr(dyn, f).to(torch.int32) for f in DYN_PARAMS],
                        dim=1).contiguous()
 
@@ -368,11 +413,15 @@ def _params(st, trace: dict, cfg, stage_names, dyn=None) -> _Params:
     T = trace["vpn"].shape[0]
     tr_dtypes = {"vpn": torch.int32, "is2m": torch.bool,
                  "line": torch.int32, "ipa": torch.float32}
-    if set(trace) != set(tr_dtypes):
+    if not set(tr_dtypes) <= set(trace) <= {*tr_dtypes, "core"}:
         raise ValueError(f"trace leaves {sorted(trace)}, want "
-                         f"{sorted(tr_dtypes)}")
+                         f"{sorted(tr_dtypes)} and maybe 'core'")
+    if cfg.n_cores < 1:
+        raise ValueError(f"n_cores={cfg.n_cores}: want 1 or more")
     tr = _TraceP(*[_ptr(trace[k], d, (T, W), f"trace[{k!r}]", dev)
-                   for k, d in tr_dtypes.items()])
+                   for k, d in tr_dtypes.items()],
+                 _ptr(trace["core"], torch.int32, (T, W), "trace['core']",
+                      dev) if "core" in trace else None)
     l2 = st.hier.l2
     if cfg.l2_ways > MAX_WAYS:
         raise ValueError(f"L2 cache has {cfg.l2_ways} ways; the kernel "
@@ -447,8 +496,7 @@ def _params(st, trace: dict, cfg, stage_names, dyn=None) -> _Params:
         pc2=counters(st.pc2, cfg.n_pages2, "pc2"),
         pch=counters(st.pch, cfg.n_pagesh if cfg.virt else 1, "pch"),
         hier=_HierCountP(*[i32(getattr(h, n), (W,), "hier." + n)
-                           for n in ("n_l2_access", "n_l2_miss",
-                                     "n_l3_access", "n_l3_trans")]),
+                           for n in HIER_COUNTS]),
         stats=stats, trace=tr,
         now=i32(st.now, (W,), "now"),
         lanes=W, t0=0, t1=0, comp=code, virt=int(cfg.virt),
@@ -465,7 +513,11 @@ def _params(st, trace: dict, cfg, stage_names, dyn=None) -> _Params:
                         rs_ways, W, "restseg2", dev),
         rev=_assoc(st.rev.tab, rev_sets, rev_ways, W, "rev.tab", dev),
         rev_vpn=i32(st.rev.vpn, (W, rev_sets, rev_ways), "rev.vpn"),
-        feats=feats, rev_lat=cfg.rev_lat, rev_sig_bits=cfg.rev_sig_bits)
+        feats=feats, rev_lat=cfg.rev_lat, rev_sig_bits=cfg.rev_sig_bits,
+        dramc=_assoc(h.dramc, max(cfg.dram_cache_sets, 1),
+                     cfg.dram_cache_ways, W, "hier.dramc", dev),
+        lat_dramc=lat.dramc, n_cores=cfg.n_cores,
+        shared_port_cyc=cfg.shared_port_cyc)
     params.placement = pl.name
     params.composition = comp
     if dyn is not None:

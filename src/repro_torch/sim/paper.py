@@ -19,11 +19,15 @@ cache).  As in the reference, a system that belongs to a ladder
 cache; a caller's own ``fetch`` bypasses both.  ``table2_ptwcp`` also
 takes ``inits``, the MLPs' initial layers (``ptwcp_nn.run_study``).
 
-``multicore_scaling`` is not ported yet and raises.
+``multicore_scaling`` runs each multicore system on one mix
+(``MC_MIX``, ``REPRO_SIM_MIX`` as in the reference; its first component
+alone at one core) through ``run_batch`` of that one workload, after the
+system's ladder is filled through ``run_ladder`` (``Run.mc_sys``).
 """
 from __future__ import annotations
 
 import functools
+import os
 import time
 
 import numpy as np
@@ -65,6 +69,18 @@ class Run:
         out = self.fetch(name)
         us = (time.time() - t0) * 1e6 / (self.n * len(self.wls))
         return out, us
+
+    def mc_sys(self, name, workload):
+        """(result of multicore system `name` on mix `workload`, wall
+        microseconds per traced access), its ladder filled first
+        (untimed)."""
+        if name in _LADDER_OF:
+            runner.run_ladder(_LADDER_OF[name], workloads=[workload],
+                              n=self.n, seed=self.seed, device=self.device)
+        t0 = time.time()
+        out = runner.run_batch(name, workloads=[workload], n=self.n,
+                               seed=self.seed, device=self.device)[workload]
+        return out, (time.time() - t0) * 1e6 / self.n
 
     def gmean_speedup(self, base, new):
         sp = []
@@ -345,11 +361,52 @@ def scheme_comparison(r):
     return rows
 
 
-def multicore_scaling(**_):
-    """Beyond-paper multicore MMU scaling: not ported yet."""
-    raise NotImplementedError(
-        "multicore_scaling needs the multicore systems, which this port "
-        "does not simulate yet; ROADMAP.md Queue 1, Multicore ports them")
+# ------------------------------------------------------------- multicore
+
+
+MC_MIX = os.environ.get("REPRO_SIM_MIX", "bc+rnd+xs")
+
+
+def _lanes(result):
+    """A result as per-core-lane tuples (stats, extras): a multicore
+    result already is one; a single-core result becomes a 1-lane tuple,
+    so the same reductions apply.  ``Stats`` is a NamedTuple itself, so
+    the per-core tuple is the one without ``_fields``."""
+    stats, extras, _ = result
+    if isinstance(stats, tuple) and not hasattr(stats, "_fields"):
+        return stats, extras
+    return (stats,), (extras,)
+
+
+@_figure
+def multicore_scaling(r):
+    """Beyond-paper: multicore MMU scaling.  Each core count's {radix,
+    victima, pom, victima + DRAM cache} family over a capacity-partitioned,
+    port-contended shared L3/POM tier, the mix dealt round-robin to the
+    core lanes (one core runs the mix's first component).  Rows: the mean
+    per-core critical-path PTW reduction against the same-count radix,
+    and the share of the shared L3's traffic that is translation
+    metadata."""
+    names = trace_gen.parse_mix(MC_MIX)
+    rows = []
+    for c in (1, 2, 4):
+        wl = MC_MIX if c > 1 else names[0]
+        base, _ = r.mc_sys(f"radix_{c}c", wl)
+        b_stats, _ = _lanes(base)
+        for scheme in ("victima", "pom", "victima_dramc"):
+            out, us = r.mc_sys(f"{scheme}_{c}c", wl)
+            s_stats, s_extras = _lanes(out)
+            red = metrics.mean_ptw_reduction(b_stats, s_stats)
+            share = float(np.mean(
+                [metrics.l3_translation_share(e) for e in s_extras]))
+            derived = (f"{red*100:.0f}% fewer per-core PTWs, "
+                       f"L3 {share*100:.1f}% translation traffic")
+            if scheme == "victima_dramc":
+                hit = float(np.mean(
+                    [metrics.dramc_hit_rate(e) for e in s_extras]))
+                derived += f", dramc hit {hit*100:.0f}%"
+            rows.append((f"multicore_{c}c_{scheme}", us, derived))
+    return rows
 
 
 # ---------------------------------------------------------------- §9 virt
@@ -392,7 +449,7 @@ def fig29_virt_miss_latency(r):
     return rows
 
 
-# the reference's ALL, in its order, without multicore_scaling
+# the reference's ALL, in its order
 ALL = [
     fig4_ptw_latency,
     fig5_fig6_fig7_l2tlb_scaling,
@@ -410,6 +467,7 @@ ALL = [
     ablation_ptwcp,
     utopia_comparison,
     scheme_comparison,
+    multicore_scaling,
     fig27_virt_speedup,
     fig28_guest_host_ptws,
     fig29_virt_miss_latency,

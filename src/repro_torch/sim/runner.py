@@ -1,6 +1,12 @@
 """Simulation driver: cached runs over the system registry; port of
 ``repro.sim.runner`` (``run``, ``run_batch`` and ``run_ladder``).
 
+A multicore system's "workload" is a mix spec (``"bc+rnd+xs"``; a plain
+name is the one-component mix): its trace is
+``trace_gen.generate_mix``'s, one lane a core, and its result a
+per-core tuple ``((Stats, ...), (extras, ...), (spec, ...))``, stored
+under the same key as any other result.
+
 Results are cached on disk per (system, workload, n, seed, overrides) in
 the port's own directory, ``.sim_cache_torch/`` at the repository root
 (``REPRO_TORCH_SIM_CACHE`` moves it); the reference's ``.sim_cache`` is
@@ -144,11 +150,14 @@ def _cached(system, workload, n, seed, overrides, cache: bool):
 
 
 def _stack_traces(gens, n: int) -> dict:
+    """The generators' traces stacked on axis 1 ([T, W], or [T, W, C]
+    for mixes, which carry their own ``ipa`` and ``core`` leaves)."""
     stacked = {k: np.stack([g["trace"][k] for g in gens], axis=1)
                for k in gens[0]["trace"]}
-    stacked["ipa"] = np.broadcast_to(
-        np.asarray([g["spec"].ipa for g in gens], np.float32),
-        (n, len(gens))).copy()
+    if "ipa" not in stacked:
+        stacked["ipa"] = np.broadcast_to(
+            np.asarray([g["spec"].ipa for g in gens], np.float32),
+            (n, len(gens))).copy()
     return stacked
 
 
@@ -162,6 +171,11 @@ def run_batch(system: str, workloads=None, n: int = 150_000, seed: int = 0,
     """
     workloads = list(workloads or trace_gen.all_workloads())
     cfg = _sim_config(system, overrides)
+    if cfg.n_cores > 1:
+        # a mix's core lanes fill the batch axis: one run a workload,
+        # under the same cache keys
+        return {w: run(system, w, n=n, seed=seed, overrides=overrides,
+                       cache=cache, device=device) for w in workloads}
     out = {}
     missing = []
     for w in workloads:
@@ -188,7 +202,9 @@ def run_batch(system: str, workloads=None, n: int = 150_000, seed: int = 0,
 
 def run(system: str, workload: str, n: int = 150_000, seed: int = 0,
         overrides: dict | None = None, cache: bool = True, device=None):
-    """Simulate one (system, workload). Returns (stats, extras, spec).
+    """Simulate one (system, workload). Returns (stats, extras, spec);
+    for a multicore system `workload` is a mix spec and each of the three
+    a per-core tuple.
 
     Results are cached on disk; ``device`` defaults to the card.
     """
@@ -197,6 +213,15 @@ def run(system: str, workload: str, n: int = 150_000, seed: int = 0,
         return got
     cfg = _sim_config(system, overrides)
     stage_names = None if overrides else systems.get(system).stages
+    if cfg.n_cores > 1:
+        gen = trace_gen.generate_mix(workload, n=n, seed=seed,
+                                     n_cores=cfg.n_cores)
+        per, extras = simulate_batch(cfg, gen["trace"],
+                                     stage_names=stage_names, device=device)
+        result = (tuple(per), tuple(extras), gen["spec"])
+        if cache:
+            _store(_path(system, workload, n, seed, overrides), result)
+        return result
     gen = trace_gen.generate(workload, n=n, seed=seed)
     trace = dict(gen["trace"])
     trace["ipa"] = np.full((n,), gen["spec"].ipa, np.float32)
@@ -224,13 +249,11 @@ def run_ladder(ladder: str, workloads=None, n: int = 150_000, seed: int = 0,
     repeating its final workload; padded lanes are never stored.  Trace
     generation runs on a pool of ``GEN_WORKERS`` threads while the
     previous chunk simulates.  Entries equal, byte for byte, those
-    ``run_batch`` writes for the same (system, workload, n, seed).
-    Returns dict system -> dict workload -> result.
+    ``run_batch`` writes for the same (system, workload, n, seed).  A
+    multicore family (``systems.mix_cores`` above 1) takes mix specs as
+    workloads, generates their [T, C] traces and stores per-core tuples,
+    as ``run`` does.  Returns dict system -> dict workload -> result.
     """
-    if ladder not in systems.LADDERS and ladder in systems.LATER:
-        raise NotImplementedError(
-            f"ladder {ladder!r} is not simulated by this port yet; "
-            f"ROADMAP.md {systems.LATER[ladder]} ports it")
     members = tuple(members or systems.LADDERS[ladder])
     strays = sorted(set(members) - set(systems.LADDERS[ladder]))
     if strays:
@@ -252,12 +275,19 @@ def run_ladder(ladder: str, workloads=None, n: int = 150_000, seed: int = 0,
     # kernel's ladder instantiation runs
     cfg = systems.ladder_base_config(ladder)
     dyns = systems.ladder_dyn(members)
+    n_cores = systems.mix_cores(members)
     chunk = chunk or CHUNK or auto_chunk(len(workloads))
     run_fn = make_systems_runner(cfg, device=device)
+
+    def gen(w):
+        if n_cores > 1:
+            return trace_gen.generate_mix(w, n=n, seed=seed,
+                                          n_cores=n_cores)
+        return trace_gen.generate(w, n=n, seed=seed)
+
     with ThreadPoolExecutor(max_workers=min(len(missing),
                                             GEN_WORKERS)) as pool:
-        futs = {w: pool.submit(trace_gen.generate, w, n=n, seed=seed)
-                for w in missing}
+        futs = {w: pool.submit(gen, w) for w in missing}
         for lo in range(0, len(missing), chunk):
             group = missing[lo:lo + chunk]
             gens = [futs[w].result() for w in group]
@@ -267,7 +297,11 @@ def run_ladder(ladder: str, workloads=None, n: int = 150_000, seed: int = 0,
                 for wi, (w, g) in enumerate(zip(group, gens)):
                     if w in out[s]:
                         continue  # a cached cell keeps its bytes
-                    result = (per[si][wi], extras[si][wi], g["spec"])
+                    if n_cores > 1:
+                        result = (tuple(per[si][wi]), tuple(extras[si][wi]),
+                                  g["spec"])
+                    else:
+                        result = (per[si][wi], extras[si][wi], g["spec"])
                     if cache:
                         _store(_path(s, w, n, seed, None), result)
                     out[s][w] = result

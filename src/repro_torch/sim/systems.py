@@ -1,20 +1,20 @@
 """Registry of evaluated systems (paper Table 3 + ablations); port of
-``repro.sim.systems`` restricted to the systems this port simulates: the
-single-core systems built from the radix, Victima, L3-TLB and POM-TLB
-compositions, natively and under nested paging, Table 2's feature
-collection, and Utopia and Revelator natively.
+``repro.sim.systems``: every system the reference registers, in its
+order -- radix, Victima, the L3-TLB and POM-TLB, natively and under
+nested paging, Table 2's feature collection, Utopia and Revelator
+natively and under nested paging, and the multicore families over a
+shared L3/POM tier with or without a DRAM cache.
 
 Each ``System`` names its stage composition plus the SimConfig overrides
-that size it; its entry matches the reference's one for one.  A name the
-reference registers but this port does not simulate yet raises and names
-the ROADMAP.md queue item that will port it.
+that size it; its entry matches the reference's one for one.
 
 Ladders are discovered as in the reference (``discover_ladders``):
 systems whose configs differ only in ``DYN_FIELDS`` (L2-TLB geometry and
-latency, L3-TLB latency, L2-cache geometry, RestSeg ways and the gated
-rev/victima/restseg/l3_tlb/pom stage flags) run as lanes of one
-batched step (``mmu.simulate_systems``), the whole family in one kernel
-launch per trace block.
+latency, L3-TLB latency, L2-cache geometry, RestSeg ways, the DRAM
+cache and the gated rev/victima/restseg/l3_tlb/pom stage flags) run as
+lanes of one batched step (``mmu.simulate_systems``), the whole family
+in one kernel launch per trace block.  A multicore family's
+"workloads" are mix specs (``mix_cores``, ``trace_gen.generate_mix``).
 """
 from __future__ import annotations
 
@@ -34,6 +34,8 @@ _REV_VICTIMA = ("l1_tlb", "l2_tlb", "rev", "victima", "ptw")
 _NP = ("l1_tlb", "l2_tlb", "ptw2d")
 _VICTIMA_NP = ("l1_tlb", "l2_tlb", "victima", "ptw2d")
 _POM_NP = ("l1_tlb", "l2_tlb", "pom", "ptw2d")
+_UTOPIA_NP = ("l1_tlb", "l2_tlb", "restseg", "ptw2d")
+_REV_NP = ("l1_tlb", "l2_tlb", "rev", "ptw2d")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,17 +53,6 @@ class System:
 
 
 REGISTRY: dict[str, System] = {}
-
-# reference systems not simulated here yet -> the ROADMAP.md item that
-# ports them
-_LATER_UR_VIRT = "Queue 1, Utopia and Revelator under nested paging"
-_LATER_MULTICORE = "Queue 1, Multicore"
-LATER: dict[str, str] = {
-    "utopia_virt": _LATER_UR_VIRT, "revelator_virt": _LATER_UR_VIRT,
-    **{f"{k}_{c}c": _LATER_MULTICORE
-       for k in ("radix", "victima", "pom", "victima_dramc")
-       for c in (1, 2, 4)},
-}
 
 
 def register(name: str, stages: tuple[str, ...], desc: str = "",
@@ -83,10 +74,6 @@ def get(name: str) -> System:
     try:
         return REGISTRY[name]
     except KeyError:
-        if name in LATER:
-            raise NotImplementedError(
-                f"system {name!r} is not simulated by this port yet; "
-                f"ROADMAP.md {LATER[name]} ports it") from None
         raise KeyError(f"unknown system {name!r}; registered: "
                        f"{', '.join(sorted(REGISTRY))}") from None
 
@@ -182,8 +169,53 @@ register("victima_virt", _VICTIMA_NP, "Victima under nested paging "
          virt=True, victima=True)
 register("pom_virt", _POM_NP, "POM-TLB under nested paging",
          tags=("virt",), virt=True, pom=True)
+register("utopia_virt", _UTOPIA_NP, "Utopia under nested paging (guest "
+         "RestSegs short-circuit the 2-D walk)", tags=("virt", "utopia"),
+         virt=True, utopia=True)
+register("revelator_virt", _REV_NP, "Revelator under nested paging (a "
+         "correct prediction hides the whole 2-D walk)",
+         tags=("virt", "revelator"), virt=True, revelator=True)
 register("isp", _RADIX, "ideal shadow paging: 1-D walk, free updates",
          tags=("virt",), virt=True, ideal_shadow=True)
+
+# --------------------------------------------------------------- multicore
+# Per-core private TLB hierarchies (a core is a lane of the trace's
+# [T, W, C] grid) over a shared tier: the L3 cache and POM-TLB are
+# partitioned statically (capacity / n_cores a core) and a rotating
+# shared-port delay models contention past the private L2 TLB
+# (SimConfig.shared_port_cyc).  ``victima_dramc_*`` adds the die-stacked
+# DRAM cache below the L3.  The 1-core members equal the single-core
+# systems on every Stats leaf; ``shared_tier_stats`` puts the shared-tier
+# counters in their extras and keeps their ladder apart from the native
+# family's.
+for _c in (1, 2, 4):
+    _mc = dict(n_cores=_c, shared_tier_stats=True,
+               l3_sets=2048 // _c, pom_sets=4096 // _c)
+    register(f"radix_{_c}c", _RADIX,
+             f"{_c}-core radix: private TLBs, shared contended L3",
+             tags=("multicore", f"{_c}c"), **_mc)
+    register(f"victima_{_c}c", _VICTIMA,
+             f"{_c}-core Victima over the shared contended tier",
+             tags=("multicore", f"{_c}c", "headline"), victima=True, **_mc)
+    register(f"pom_{_c}c", _POM,
+             f"{_c}-core POM-TLB (shared in-memory L3 TLB, partitioned)",
+             tags=("multicore", f"{_c}c"), pom=True, **_mc)
+    register(f"victima_dramc_{_c}c", _VICTIMA,
+             f"{_c}-core Victima + die-stacked DRAM cache below the L3",
+             tags=("multicore", f"{_c}c", "dramc"), victima=True,
+             dram_cache_sets=4096 // _c, **_mc)
+
+
+def mix_cores(members) -> int:
+    """The core-lane count a ladder's members share (a count above 1
+    makes the runner generate [T, W, C] mix traces for the family)."""
+    cores = {config(n).n_cores for n in members}
+    if len(cores) != 1:
+        raise ValueError(
+            f"ladder members disagree on n_cores: {sorted(cores)} "
+            f"(n_cores is static: core-count variants are separate "
+            f"families)")
+    return cores.pop()
 
 
 # --------------------------------------------------------------- ladders
@@ -231,8 +263,9 @@ def ladder_base_config(ladder: str | None = None, members=None) -> SimConfig:
 
     Members may differ only in DYN_FIELDS; every dyn field takes its
     ladder maximum (stage flags are ORed, so the base composition holds
-    every stage any member needs).  The L3 TLB has a gate but no set
-    mask, so a member that has one must have the maximum's.
+    every stage any member needs).  The L3 TLB and the DRAM cache have a
+    gate but no set mask, so a member that has one must have the
+    maximum's.
     """
     members = members or LADDERS[ladder]
     cfgs = [config(n) for n in members]
@@ -248,6 +281,14 @@ def ladder_base_config(ladder: str | None = None, members=None) -> SimConfig:
                 f"ladder member {n!r}: l3tlb_sets={c.l3tlb_sets} differs "
                 f"from the ladder maximum {l3max} (the L3 TLB is "
                 f"gateable but not geometry-virtualized)")
+    dcmax = max(c.dram_cache_sets for c in cfgs)
+    for n, c in zip(members, cfgs):
+        if c.dram_cache_sets not in (0, dcmax):
+            raise ValueError(
+                f"ladder member {n!r}: dram_cache_sets="
+                f"{c.dram_cache_sets} differs from the ladder maximum "
+                f"{dcmax} (the DRAM cache is gateable but not "
+                f"geometry-virtualized)")
     return dyn_base_config(cfgs)
 
 

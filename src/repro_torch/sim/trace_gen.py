@@ -4,7 +4,7 @@ Sniper traces of GraphBIG / XSBench / GUPS / DLRM / GenomicsBench).
 The port's own copy of ``repro.sim.trace_gen`` (numpy only): the same
 seed gives the same trace as the reference, byte for byte, which is what
 lets the port's Stats be held against the JAX package's, on any numpy
-version (see ``_zipf``).  Multiprogrammed mixes are not carried over yet.
+version (see ``_zipf``); multiprogrammed mixes (``generate_mix``) too.
 
 Each generator emits a trace dict {vpn:int32, is2m:bool, line:int32} plus
 metadata.  Traces are *statistically calibrated* to the paper's reported
@@ -253,6 +253,77 @@ def generate(name: str, n: int = 400_000, seed: int = 0) -> dict:
         # region; the old "n_pages4" name wrongly suggested the latter
         "n_pages": n_pages,
         "n_pages_2m_region": n2_pages4 // 512,
+    }
+
+
+# per-core seed skew for multiprogrammed mixes: two cores co-scheduled on
+# the SAME workload must still run independent access streams (prime,
+# far outside the sweep's seed range so skewed streams never collide
+# with another seed's un-skewed stream)
+MIX_SEED_SKEW = 7919
+
+
+def parse_mix(spec: str) -> list[str]:
+    """Validate a ``+``-separated co-schedule spec (``"bc+rnd+xs"``).
+
+    Returns the component workload names in spec order.  Raises
+    ``ValueError`` naming every unknown component — the same validate-
+    before-compile contract as the sweep's system/tag name checks, so a
+    typo dies in argument parsing instead of after minutes of tracing.
+    """
+    names = [s.strip() for s in str(spec).split("+")]
+    if not names or any(not s for s in names):
+        raise ValueError(f"malformed mix spec {spec!r} (want 'a+b+c')")
+    unknown = sorted(set(s for s in names if s not in WORKLOADS))
+    if unknown:
+        raise ValueError(
+            f"unknown workload(s) in mix {spec!r}: {', '.join(unknown)}; "
+            f"known: {', '.join(WORKLOADS)}")
+    return names
+
+
+def generate_mix(spec: str, n: int = 400_000, seed: int = 0,
+                 n_cores: int = 1, workers: int | None = None) -> dict:
+    """Multiprogrammed co-schedule of ``spec`` over ``n_cores`` lanes.
+
+    The arbiter is round-robin-with-skew: component workloads are dealt
+    to core lanes round-robin (``core c`` runs ``names[c % len(names)]``,
+    so a 2-workload mix on 4 cores co-schedules each twice), every lane
+    is an independent ``generate`` stream whose seed is skewed per core
+    (``seed + MIX_SEED_SKEW * c`` — two lanes of the SAME workload do
+    not alias), and the scan interleaves the lanes in lock-step on the
+    trace's core axis.  Leaf-for-leaf, lane ``c`` is bit-identical to
+    the serial ``generate(names[c % k], n, seed + MIX_SEED_SKEW * c)``
+    (pinned by tests/test_torch_multicore.py), so mixes inherit
+    ``generate``'s thread-safety and seed-stability — the sim cache keys on
+    (mix, n, seed) exactly like a plain workload.
+
+    Returns the ``generate`` dict shape with per-core leaves [n, C],
+    plus a ``core`` lane-id leaf and a per-lane ``ipa`` leaf; ``spec``
+    is the tuple of per-core WorkloadSpecs.
+    """
+    names = parse_mix(spec)
+    if n_cores < 1:
+        raise ValueError(f"n_cores must be >= 1, got {n_cores}")
+    assign = [names[c % len(names)] for c in range(n_cores)]
+    workers = workers or min(n_cores, os.cpu_count() or 1, 8)
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        outs = list(pool.map(
+            lambda c: generate(assign[c], n=n,
+                               seed=seed + MIX_SEED_SKEW * c),
+            range(n_cores)))
+    trace = {k: np.stack([o["trace"][k] for o in outs], axis=1)
+             for k in outs[0]["trace"]}
+    trace["core"] = np.broadcast_to(
+        np.arange(n_cores, dtype=np.int32), (n, n_cores))
+    trace["ipa"] = np.broadcast_to(
+        np.asarray([o["spec"].ipa for o in outs], dtype=np.float32),
+        (n, n_cores))
+    return {
+        "trace": trace,
+        "spec": tuple(o["spec"] for o in outs),
+        "n_pages": max(o["n_pages"] for o in outs),
+        "n_pages_2m_region": max(o["n_pages_2m_region"] for o in outs),
     }
 
 

@@ -88,7 +88,11 @@ def test_new_composition_does_not_depend_on_block(cuda, system):
 # radix and Victima outside shared memory, placement -> geometry
 _SYSTEM_OF = {"radix": "radix", "victima": "victima", "l3tlb": "l3tlb_64k_15",
               "pom": "pom", "np": "np", "victima_np": "victima_virt",
-              "pom_np": "pom_virt", **{v: v for v in WANT.values()}}
+              "pom_np": "pom_virt", "utopia_np": "utopia_virt",
+              "revelator_np": "revelator_virt", "radix_mc": "radix_2c",
+              "victima_mc": "victima_2c", "pom_mc": "pom_2c",
+              "victima_dramc": "victima_dramc_2c",
+              **{v: v for v in WANT.values()}}
 _GEOMETRY = {"shared": {}, "l2tlb_device": dict(l2tlb_sets=8192,
                                                 l2tlb_ways=16),
              "l2_device": dict(l2_sets=8192),
@@ -96,7 +100,8 @@ _GEOMETRY = {"shared": {}, "l2tlb_device": dict(l2tlb_sets=8192,
 
 
 # the ladder instantiations: composition -> ladder
-_LADDER_OF = {"ladder_native": "radix", "ladder_np": "np"}
+_LADDER_OF = {"ladder_native": "radix", "ladder_np": "np",
+              "ladder_mc": "radix_2c"}
 
 
 @pytest.mark.gpu
@@ -104,10 +109,10 @@ def test_every_instantiation_launches_in_one_process(cuda):
     """Each instantiation raises its own shared-memory limit once (its
     flag is indexed by its dense number): launched one after the other,
     at the geometries that take up to 217 KB of shared memory, every one
-    runs; the two ladder instantiations on their ladder's base config,
+    runs; the three ladder instantiations on their ladder's base config,
     two members a launch."""
     built = mmu_step.instantiations()
-    assert len(built) == 20 == len(set(built))
+    assert len(built) == 27 == len(set(built))
     tr = {k: torch.from_numpy(v).to(cuda)
           for k, v in workload_traces(["rnd", "bc"], 64).items()}
     for comp, place in built:

@@ -124,7 +124,7 @@ def test_staged_kernel_matches_plain_on_small_structures(cuda, system):
     launch is counted."""
     cfg = tiny(system)
     tr = mixed_traces(1000, 2)
-    comp = mmu_step.COMPOSITIONS[default_stages(cfg)][0]
+    comp = mmu_step.COMPOSITIONS[default_stages(cfg), 0][0]
     before = mmu_step.LAUNCHES_BY_COMPOSITION[comp]
     got = run(cfg, tr, cuda, kernel=True)
     assert mmu_step.LAUNCHES_BY_COMPOSITION[comp] == before + 1
@@ -214,7 +214,10 @@ WANT_PLACEMENT = {
                      "l3tlb_64k_39", "np", "victima_virt", "pom_virt",
                      "isp", "radix_collect", "utopia", "utopia_victima",
                      "utopia_rs8", "utopia_rs32", "revelator",
-                     "revelator_victima"], "shared"),
+                     "revelator_victima", "utopia_virt", "revelator_virt"]
+                    + [f"{k}_{c}c" for k in ("radix", "victima", "pom",
+                                             "victima_dramc")
+                       for c in (1, 2, 4)], "shared"),
     **dict.fromkeys([f"l2tlb_{n}" for n in ("8k", "16k", "32k", "64k",
                                             "128k")]
                     + [f"l2tlb_{n}_real" for n in ("8k", "16k", "32k",
@@ -232,7 +235,8 @@ def test_placement_of_every_system():
         assert (pl.l2_shared, pl.l2tlb_shared) == mmu_step.PLACEMENTS[want]
         assert 0 < pl.smem_bytes <= mmu_step.SMEM_LIMIT == 232_448, name
     assert mmu_step.placement(systems.config("victima")).smem_bytes == 217_200
-    for name in ("np", "victima_virt", "pom_virt", "isp"):
+    for name in ("np", "victima_virt", "pom_virt", "utopia_virt",
+                 "revelator_virt", "isp"):
         assert mmu_step.placement(systems.config(name)).smem_bytes == \
             217_776, name
     assert mmu_step.placement(systems.config("l2tlb_3k")).smem_bytes == \
@@ -350,7 +354,7 @@ def test_params_carry_the_composition(system):
     cfg = tiny(system)
     p = mmu_step._params(*cpu_args(cfg))
     names = default_stages(cfg)
-    assert (p.composition, p.comp) == mmu_step.COMPOSITIONS[names]
+    assert (p.composition, p.comp) == mmu_step.COMPOSITIONS[names, 0]
     assert p.virt == int(cfg.virt)
     assert (p.l3tlb.sets, p.pom.sets, p.ntlb.sets, p.pch.n) == (
         max(cfg.l3tlb_sets, 1), cfg.pom_sets if cfg.pom else 1,

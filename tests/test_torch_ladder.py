@@ -5,8 +5,7 @@ on the CPU.
   victims with ``way_ok``, and the L2 cache through an ``L2Geom`` --
   against the reference on seeded random rows;
 - (b) ``DYN_FIELDS``, ``dyn_of``, the ladder base configs, ``ladder_dyn``
-  and ``LADDERS`` against the reference's, restricted to the port's
-  registry;
+  and ``LADDERS`` against the reference's;
 - (c) the dyn step: the port's ``make_step(base, dyn=...)`` against the
   reference's under a plain ``jax.lax.scan`` (the reference's
   ``simulate_systems`` does not run under the installed jax), for the
@@ -167,15 +166,19 @@ def test_dyn_of_every_system_is_the_reference_s(name):
 
 
 def test_ladders_are_the_reference_s_restricted_to_the_port():
-    port = set(t_systems.REGISTRY)
-    want = {k: tuple(m for m in v if m in port)
-            for k, v in j_systems.LADDERS.items()}
-    want = {k: v for k, v in want.items() if len(v) >= 2}
-    assert t_systems.LADDERS == want
-    assert t_systems.LADDERS == j_systems.discover_ladders(
-        {n: j_systems.REGISTRY[n] for n in t_systems.REGISTRY})
+    """The port registers every reference system, so its ladders are the
+    reference's five, members in the reference's order."""
+    assert t_systems.LADDERS == j_systems.LADDERS
+    assert list(t_systems.LADDERS) == ["radix", "np", "radix_1c",
+                                       "radix_2c", "radix_4c"]
     assert len(t_systems.LADDERS["radix"]) == 28
-    assert t_systems.LADDERS["np"] == ("np", "victima_virt", "pom_virt")
+    assert t_systems.LADDERS["np"] == ("np", "victima_virt", "pom_virt",
+                                       "utopia_virt", "revelator_virt")
+    for c in (1, 2, 4):
+        members = t_systems.LADDERS[f"radix_{c}c"]
+        assert members == tuple(f"{k}_{c}c" for k in (
+            "radix", "victima", "pom", "victima_dramc"))
+        assert t_systems.mix_cores(members) == c
 
 
 @pytest.mark.parametrize("ladder", sorted(t_systems.LADDERS))
@@ -197,9 +200,8 @@ _TINY_RS = dict(restseg4_sets=16, restseg2_sets=8, restseg_ways=4)
 _TINY_REV = dict(rev_sets=16, rev_ways=4, rev_sig_bits=10)
 _L3_POM = dict(l3tlb_ways=4, pom_sets=16, pom_ways=4)
 
-# test_systems_registry's variant sets (its utopia_virt and
-# revelator_virt lanes are not ported yet): (base overrides, variants)
-# over GOLDEN_CFG, the _TINY geometry
+# test_systems_registry's variant sets: (base overrides, variants) over
+# GOLDEN_CFG, the _TINY geometry
 VARIANT_SETS = {
     "l2tlb": ({}, [dict(l2tlb_sets=8, l2tlb_ways=4, l2tlb_lat=12),
                    dict(l2tlb_sets=16, l2tlb_ways=4, l2tlb_lat=17),
@@ -210,7 +212,7 @@ VARIANT_SETS = {
     "virt": (dict(virt=True, l3_sets=16, pom_sets=16, pom_ways=4,
                   **_TINY_RS, **_TINY_REV),
              [dict(victima=False), dict(victima=True, l2_sets=16, l2_ways=4),
-              dict(pom=True)]),
+              dict(utopia=True), dict(pom=True), dict(revelator=True)]),
     "utopia": (_TINY_RS, [dict(utopia=True, restseg_ways=4), dict(),
                           dict(utopia=True, restseg_ways=8),
                           dict(utopia=True, victima=True, restseg_ways=8)]),
@@ -402,17 +404,36 @@ def test_run_ladder_reuses_cached_member_cells(tmp_path, monkeypatch):
     assert calls == [] and again["radix"]["bc"] == sentinel
 
 
-def test_run_ladder_refuses_a_multicore_ladder():
-    with pytest.raises(NotImplementedError, match="Multicore"):
-        t_runner.run_ladder("radix_2c", n=10, device="cpu")
+def test_run_ladder_fills_a_multicore_ladder(tmp_path, monkeypatch):
+    """``radix_2c``'s fill: a workload is a mix spec, generated one lane a
+    core, and each member's cell a per-core tuple that equals the
+    member's own ``run``."""
+    monkeypatch.setattr(t_runner, "CACHE_DIR", str(tmp_path))
+    n, seed, mix = 12, 1, "bc+rnd"
+    out = t_runner.run_ladder("radix_2c", workloads=[mix], n=n, seed=seed,
+                              device="cpu")
+    assert sorted(out) == sorted(t_systems.LADDERS["radix_2c"])
+    for s, cells in out.items():
+        stats, extras, spec = cells[mix]
+        assert len(stats) == len(extras) == 2
+        assert [x.name for x in spec] == ["bc", "rnd"]
+        assert [int(x.n_access) for x in stats] == [n, n]
+        want = t_runner.run(s, mix, n=n, seed=seed, cache=False,
+                            device="cpu")
+        for c in range(2):
+            assert_stats_equal(want[0][c], stats[c], (s, c))
+            assert_extras_equal(want[1][c], extras[c], (s, c))
 
 
 def test_ladder_instantiations_are_listed_for_both_ladders():
-    """The kernel's two ladder compositions take each ladder's base
-    composition, in the placement its geometry gives."""
+    """The kernel's ladder compositions take each ladder's base
+    composition, in the placement its geometry gives: the native and
+    nested ones, and one for the three multicore ladders."""
     for ladder, (comp, placement) in {
             "radix": ("ladder_native", "device"),
-            "np": ("ladder_np", "shared")}.items():
+            "np": ("ladder_np", "shared"),
+            **{f"radix_{c}c": ("ladder_mc", "shared") for c in (1, 2, 4)},
+    }.items():
         cfg = t_systems.ladder_base_config(ladder)
         names = t_mmu.default_stages(cfg)
         assert mmu_step.composition(cfg, names, dyn=True)[0] == comp

@@ -38,7 +38,8 @@ SMALL_LADDERS = {
               dict(victima=True, l2_sets=16, l2_ways=4),
               dict(l2tlb_sets=2, l2tlb_ways=2, l2tlb_lat=17)],
     "np": [dict(virt=True), dict(virt=True, victima=True, l2_sets=16,
-                                 l2_ways=4), dict(virt=True, pom=True)],
+                                 l2_ways=4), dict(virt=True, pom=True),
+           dict(virt=True, utopia=True), dict(virt=True, revelator=True)],
 }
 
 

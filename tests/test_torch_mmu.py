@@ -88,29 +88,37 @@ def test_config_stats_and_state_mirror_the_reference():
             [(tuple(x.shape[1:]), x.numpy().dtype) for x in got]
 
 
-@pytest.mark.parametrize("field", sorted(t_base._SUPPORTED))
-def test_config_rejects_what_the_slice_cannot_simulate(field):
-    want = t_base._SUPPORTED[field][0]
-    bad = {bool: True, int: 2}[type(want)]
-    with pytest.raises(ValueError, match=f"SimConfig.{field}="):
-        t_base.SimConfig(**{field: bad})
+# the multicore fields, each set as the multicore systems set it
+MULTICORE_FIELDS = {"dram_cache_sets": 2048, "n_cores": 2,
+                    "shared_tier_stats": True}
+
+
+@pytest.mark.parametrize("field", sorted(MULTICORE_FIELDS))
+def test_config_takes_the_multicore_fields(field):
+    """Each multicore field is accepted, and the config's stages and its
+    state's leaves (the DRAM cache sized by ``dram_cache_sets``) mirror
+    the reference's."""
+    over = {field: MULTICORE_FIELDS[field]}
+    got, want = t_base.SimConfig(**over), j_base.SimConfig(**over)
+    assert getattr(got, field) == MULTICORE_FIELDS[field]
+    assert t_base.dramc_of(got) == (field == "dram_cache_sets" or None)
+    ref = jax.tree.leaves(j_base.make_state(want))
+    leaves = t_base.state_leaves(t_base.make_state(got))
+    assert [(x.shape, np.dtype(x.dtype)) for x in ref] == \
+        [(tuple(x.shape[1:]), x.numpy().dtype) for x in leaves]
 
 
 def test_registry_mirrors_the_reference():
     """Each reference system is registered with the same composition and
-    overrides, or raises naming the ROADMAP item that ports it."""
+    overrides, in the reference's order."""
     for name in j_systems.names():
         ref = j_systems.get(name)
-        if name in t_systems.LATER:
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                t_systems.get(name)
-            continue
         got = t_systems.get(name)
         assert (got.stages, got.overrides) == (ref.stages, ref.overrides)
         assert dataclasses.astuple(port_cfg(ref.config())) == \
             dataclasses.astuple(got.config())
-    assert set(t_systems.names()) | set(t_systems.LATER) == \
-        set(j_systems.names())
+    assert t_systems.names() == j_systems.names()
+    assert len(t_systems.REGISTRY) == 49
     with pytest.raises(KeyError, match="unknown system"):
         t_systems.get("no_such_system")
 

@@ -124,7 +124,10 @@ def _stub_mlp(nn):
     return train_mlp
 
 
-@pytest.mark.parametrize("fig", [f.__name__ for f in t_paper.ALL])
+# multicore_scaling's rows are held against the reference in
+# tests/test_torch_multicore.py (per-core results, its own fetch)
+@pytest.mark.parametrize("fig", [f.__name__ for f in t_paper.ALL
+                                 if f is not t_paper.multicore_scaling])
 def test_figure_rows_equal_the_reference(fig, monkeypatch):
     paper = reference_paper()
     monkeypatch.setattr(paper, "WLS", WLS)
@@ -147,11 +150,10 @@ def test_figure_rows_equal_the_reference(fig, monkeypatch):
 
 
 def test_every_reference_figure_is_ported_or_raises():
+    """Every figure of the reference's ALL is ported, in its order."""
     names = [f.__name__ for f in reference_paper().ALL]
-    assert [f.__name__ for f in t_paper.ALL] == \
-        [n for n in names if n != "multicore_scaling"]
-    with pytest.raises(NotImplementedError, match="Queue 1, Multicore"):
-        t_paper.multicore_scaling(workloads=WLS, device="cpu")
+    assert [f.__name__ for f in t_paper.ALL] == names
+    assert "multicore_scaling" in names
 
 
 def test_figures_refuse_an_unknown_workload():

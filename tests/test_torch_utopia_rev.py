@@ -1,5 +1,5 @@
 """The port's Utopia (RestSeg) and Revelator stages (``repro_torch``)
-against the JAX package, on the CPU.
+against the JAX package, on the CPU, natively and under nested paging.
 
 Each system runs on its ``_TINY`` structures (``test_systems_registry``:
 RestSegs 16 and 8 sets of at most 8 ways, a 16 x 4 signature table with
@@ -7,7 +7,8 @@ RestSegs 16 and 8 sets of at most 8 ways, a 16 x 4 signature table with
 over ``golden_trace(N)``; the reference side is ``repro.core.mmu``'s
 own scan, as in tests/test_torch_stages.py.  Every Stats leaf, extra and
 final state leaf must be exactly equal, and every new counter must have
-fired.
+fired (under nested paging the nested TLB too: the RestSeg probe and
+Revelator's verification walk go through the 2-D walk's machinery).
 """
 import dataclasses
 import functools
@@ -42,7 +43,9 @@ _RV = ("n_rev_hit", "n_rev_mispred", "n_rev_enroll")
 FIRED = {"utopia": _RS, "utopia_rs8": _RS, "utopia_rs32": _RS,
          "utopia_victima": _RS + ("n_victima_hit", "n_bg_ptw"),
          "revelator": _RV,
-         "revelator_victima": _RV + ("n_victima_hit", "n_bg_ptw")}
+         "revelator_victima": _RV + ("n_victima_hit", "n_bg_ptw"),
+         "utopia_virt": _RS + ("n_ntlb_hit", "n_host_ptw"),
+         "revelator_virt": _RV + ("n_ntlb_hit", "n_host_ptw")}
 
 
 def _jax_trace(tr):
@@ -192,14 +195,24 @@ def test_lowest_way_wins_on_a_duplicate_signature(name):
 
 
 @pytest.mark.parametrize("field", ["utopia", "revelator"])
-def test_config_still_rejects_nested_paging(field):
-    with pytest.raises(ValueError, match="Utopia and Revelator under "
-                                         "nested paging"):
-        t_base.SimConfig(**{field: True, "virt": True})
-    t_base.SimConfig(**{field: True})  # native: simulated
+def test_config_takes_nested_paging(field):
+    """Utopia and Revelator under nested paging: the config, its stages
+    and its state's leaves are the reference's."""
+    over = {field: True, "virt": True}
+    got, want = t_base.SimConfig(**over), j_base.SimConfig(**over)
+    assert default_stages(got) == j_stages.default_stages(want)
+    ref = jax.tree.leaves(j_base.make_state(want))
+    leaves = t_base.state_leaves(t_base.make_state(got))
+    assert [(x.shape, np.dtype(x.dtype)) for x in ref] == \
+        [(tuple(x.shape[1:]), x.numpy().dtype) for x in leaves]
 
 
 @pytest.mark.parametrize("name", ["utopia_virt", "revelator_virt"])
-def test_virtualized_systems_still_raise(name):
-    with pytest.raises(NotImplementedError, match="under nested paging"):
-        t_systems.get(name)
+def test_virtualized_systems_are_registered(name):
+    """Both run the 2-D walk with their stage in front of it, as the
+    reference registers them, and join the nested family's ladder."""
+    ref, got = j_systems.get(name), t_systems.get(name)
+    assert got.stages[-1] == "ptw2d" and got.config().virt
+    assert (got.stages, got.overrides, got.tags) == \
+        (ref.stages, ref.overrides, ref.tags)
+    assert name in t_systems.LADDERS["np"]
