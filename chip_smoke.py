@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, in
-parallel, and drives its three paths on the card:
+parallel, and drives its four paths on the card:
 
 - the simulator (phases 2-5): the ``mmu_step`` kernel against its plain
   PyTorch version in each placement of the lane's state (all in shared
@@ -72,7 +72,20 @@ parallel, and drives its three paths on the card:
   full width and depth, 8 requests x 512 prompt tokens (one ssd_intra
   launch per layer, all on the tensor-core kernel) and 64 greedy decode
   steps from ``init_cache``, counted, checked against the plain path and
-  timed, with the kernel's registers, shared memory and TFLOP/s.
+  timed, with the kernel's registers, shared memory and TFLOP/s;
+- the serving engine (phase 13; plain PyTorch, no kernel of its own):
+  ``benchmarks/serve_bench.py``'s matrix, ``benchmarks/serving.py``'s
+  decode storm with 64 clusters and with 1, and 64 slots over 4096 pages
+  at 6 requests a tick, through ``repro_torch.serve.load.run_load`` and
+  ``engine.decode_step``, each against the JAX snapshot
+  ``tests/golden/torch_serve.json`` (records but their timing fields,
+  arrival digests first, the storms' state digests) and the records
+  against the offline ``serve_record`` of the phase's trace, with the
+  decode tick's p50 and p99, requests/s, launches a tick (three ticks
+  in the middle of each run, each replayed on a copy of its state under
+  ``torch.profiler``) and the VTC hit rate; then Victima time-sharded
+  over the ``mmu_step`` kernel (one launch a round) against its serial
+  run.
 
 Any failed check raises, so the exit code is non-zero; no phase's
 failure is caught.  With no CUDA device, or without the repository around it, it
@@ -163,8 +176,8 @@ MLP_TOL = 0.005
 CHECK_N = 2000      # accesses of the kernel-vs-plain check at Table 3
 # processes that run STAGED's plain versions on the CPU during phase 2
 # (on the card the plain step waits on the host, one small kernel at a
-# time)
-PLAIN_WORKERS = 4
+# time); the card's machine has 8 cores
+PLAIN_WORKERS = 6
 # a system of each other placement (mmu_step.placement), checked at
 # PLACED_N accesses: the L2 cache, then the L2 TLB, in device memory
 PLACED = {"victima_l2_8m": "l2_device", "radix_l2_8m": "l2_device",
@@ -1467,6 +1480,236 @@ def mamba2_serving(dev, ssd_log):
                     f"rounding (y, S in float32), x strided as in the model"}
 
 
+# ------------------------------------------------------- serving engine
+
+# phase 13's runs, and what the JAX package gave for them on the CPU
+SERVE_SNAPSHOT = os.path.join(ROOT, "tests", "golden", "torch_serve.json")
+# launches a tick: counted over this many ticks in the middle of a run
+# (its steady state), each replayed on a copy of the run's state
+SERVE_PROFILED_TICKS = 3
+TIME_SHARD_N = 20_000      # phase 13 (d): Victima on bc, serial and
+TIME_SHARDS = 4            # in 4 time shards, equal Stats
+
+
+def digest_of_leaves(leaves) -> str:
+    """tests/torch_serve_regen.py's digest of a state's leaves (dtype,
+    shape and bytes of each, in order)."""
+    h = hashlib.sha256()
+    for x in leaves:
+        x = np.ascontiguousarray(x)
+        h.update(str(x.dtype).encode() + str(x.shape).encode())
+        h.update(x.tobytes())
+    return h.hexdigest()
+
+
+def digest_of_arrivals(reqs) -> str:
+    """tests/torch_serve_regen.py's digest of an arrival list."""
+    rows = [[r.arrive_tick, r.prompt_blocks, r.decode_tokens, r.kind]
+            for r in reqs]
+    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()
+
+
+def cuda_launches(fn) -> tuple[int, object]:
+    """``fn()``'s kernel launches (the ``cudaLaunchKernel`` calls that
+    ``torch.profiler`` records) and its result."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                            "cudaLaunchKernelExC")), out
+
+
+def profiled_ticks(engine, window: range, seen: list):
+    """A ``run_load`` tick hook: each tick of `window` replayed on a copy
+    of the run's state under the profiler (outside the run's timing);
+    appends (launches less the copy's, busy slots after the tick)."""
+    def hook(t, replay):
+        if t in window:
+            n, after = cuda_launches(replay)
+            n_copy, _ = cuda_launches(lambda: engine.clone(after))
+            seen.append((n - n_copy, int(after.slot_live.sum())))
+    return hook
+
+
+def serving_engine(dev, smi: str) -> dict:
+    """Phase 13: the serving engine (``repro_torch.serve``) on the card.
+
+    (a) benchmarks/serve_bench.py's matrix, (b) the decode storm of
+    benchmarks/serving.py and its no-cluster ablation, (c) 64 slots and
+    4096 pages at a deployment's load, each against the JAX snapshot
+    ``tests/golden/torch_serve.json`` (every record field but the timing
+    ones; each arrival list's digest first), the records also against
+    the offline ``serve_record`` of the phase's trace; (d) the
+    time-sharded simulator against its serial kernel run.  Returns the
+    phase's numbers.
+    """
+    import repro_torch.obs as obs
+    from repro_torch.core import mmu
+    from repro_torch.kernels import mmu_step
+    from repro_torch.obs import report
+    from repro_torch.serve import engine, load
+    from repro_torch.sim import parallel, systems, trace_gen
+
+    with open(SERVE_SNAPSHOT, encoding="utf-8") as f:
+        snap = json.load(f)
+    timing = set(snap["timing_fields"])
+    out = {"runs": {}, "storms": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        tr = obs.configure(os.path.join(tmp, "serve.jsonl"))
+        live = []
+        for want in snap["runs"]:
+            cfg = engine.EngineConfig(**want["cfg"])
+            gen = (load.poisson_trace if want["arrival"] == "poisson"
+                   else load.diurnal_trace)
+            reqs = gen(want["rate"], want["ticks"], cfg, seed=want["seed"])
+            if digest_of_arrivals(reqs) != want["arrivals_sha256"]:
+                raise AssertionError(
+                    f"{want['name']}: this numpy draws another arrival "
+                    f"list than the snapshot's")
+            mid = want["record"]["n_ticks"] // 2
+            window = range(mid - 1, mid - 1 + SERVE_PROFILED_TICKS)
+            seen = []
+            rec = load.run_load(reqs, cfg, lanes=want["lanes"],
+                                run=want["name"], arrival=want["arrival"],
+                                rate=want["rate"], device=dev,
+                                tick_hook=profiled_ticks(engine, window,
+                                                         seen))
+            if len(seen) != SERVE_PROFILED_TICKS or min(seen)[0] <= 0:
+                raise AssertionError(f"{want['name']}: ticks {window} "
+                                     f"profiled as {seen}")
+            got = {k: v for k, v in rec.items() if k not in timing}
+            if got != want["record"]:
+                diff = {k: (got.get(k), v) for k, v in want["record"].items()
+                        if got.get(k) != v}
+                raise AssertionError(f"{want['name']}: record differs from "
+                                     f"the JAX snapshot: {diff}")
+            live.append(rec)
+            out["runs"][want["name"]] = {
+                "cfg": want["cfg"], "lanes": want["lanes"],
+                "ticks": rec["n_ticks"], "arrivals": rec["n_arrivals"],
+                "p50_ms": rec["decode_p50_s"] * 1e3,
+                "p99_ms": rec["decode_p99_s"] * 1e3,
+                "mean_ms": rec["decode_mean_s"] * 1e3,
+                "wall_s": rec["wall_s"], "rps": rec["throughput_rps"],
+                "vtc_hit_rate": rec["vtc_hit_rate"],
+                "profiled_ticks": [window.start, window.stop - 1],
+                "launches_per_tick": sum(n for n, _ in seen) / len(seen),
+                "busy_slots": sum(b for _, b in seen) / len(seen)}
+            r = out["runs"][want["name"]]
+            print(f"{want['name']}: {r['ticks']} ticks, {r['arrivals']} "
+                  f"arrivals, decode tick p50 {r['p50_ms']:.3f} ms, p99 "
+                  f"{r['p99_ms']:.3f} ms, {r['rps']} requests/s, "
+                  f"{r['launches_per_tick']:.0f} launches a tick (ticks "
+                  f"{window.start}-{window.stop - 1}, {r['busy_slots']:.1f} "
+                  f"busy slots, each replayed on a copy), VTC hit rate "
+                  f"{r['vtc_hit_rate']:.6f} [{smi}]")
+        tr.flush()
+        offline = report.serve_records(report.read_trace(tr.path), tr.path)
+        if offline != live:
+            raise AssertionError("the offline serve records of the phase's "
+                                 "trace differ from the live ones")
+        print(f"{len(live)} runs equal the JAX snapshot on every record "
+              f"field but the timing ones, arrival digests first; the "
+              f"offline records of the trace equal the live ones [{smi}]")
+
+        # (b) the decode storm and its no-cluster ablation
+        obs.configure(os.path.join(tmp, "storm.jsonl"))
+        for want in snap["storms"]:
+            scope = f"storm{want['n_clusters']}"
+            cfg = engine.EngineConfig(**snap["storm_cfg"],
+                                      n_clusters=want["n_clusters"])
+            st = engine.init(cfg, device=dev)
+            for slot in range(cfg.n_slots):
+                st, _ok = engine.admit(st, slot, 2 + slot % 3)
+            t0 = time.perf_counter()
+            for _ in range(want["ticks"]):
+                st, _phys, _src = engine.decode_step(st, cfg, scope=scope)
+            wall = time.perf_counter() - t0
+            got = {"n_clusters": want["n_clusters"], "ticks": want["ticks"],
+                   "n_hit_tc": int(st.vtc.n_hit_tc[0]),
+                   "n_hit_cluster": int(st.vtc.n_hit_cluster[0]),
+                   "n_walk": int(st.vtc.n_walk[0]),
+                   "pages_free": int(st.page_free.sum()),
+                   "pool_stall": int(st.n_pool_stall[0]),
+                   "pressure": bool(st.pressure[0]),
+                   "state_sha256": digest_of_leaves(
+                       [x[0].cpu().numpy()
+                        for x in parallel.tree_leaves(st)])}
+            if got != want:
+                raise AssertionError(f"storm n_clusters="
+                                     f"{want['n_clusters']}: {got} != the "
+                                     f"JAX snapshot's {want}")
+            lat = obs.REGISTRY.hist_stats(
+                engine.scoped(obs.names.HIST_DECODE_STEP_S, scope))
+            # launches a tick: decode_step itself, on a copy, after the run
+            spare = engine.clone(st)
+
+            def ticks(spare=spare, cfg=cfg, scope=scope):
+                for _ in range(SERVE_PROFILED_TICKS):
+                    engine.decode_step(spare, cfg, scope=scope + "_profiled")
+
+            n_launch, _ = cuda_launches(ticks)
+            hits = got["n_hit_tc"] + got["n_hit_cluster"]
+            s = {"p50_ms": lat["p50"] * 1e3, "p99_ms": lat["p99"] * 1e3,
+                 "wall_s": wall,
+                 "launches_per_tick": n_launch / SERVE_PROFILED_TICKS,
+                 "vtc_hit_rate": hits / (hits + got["n_walk"]),
+                 "walk_rate": got["n_walk"] / (hits + got["n_walk"])}
+            out["storms"][want["n_clusters"]] = s
+            print(f"storm, {want['n_clusters']} clusters: state equals the "
+                  f"JAX snapshot after {want['ticks']} ticks; decode tick "
+                  f"p50 {s['p50_ms']:.3f} ms, p99 {s['p99_ms']:.3f} ms, "
+                  f"{s['launches_per_tick']:.0f} launches a tick, VTC hit "
+                  f"rate {s['vtc_hit_rate']:.6f} (walks "
+                  f"{s['walk_rate']:.4f}), {wall:.2f} s [{smi}]")
+
+        # (d) the time-sharded simulator: one kernel launch a hand-off round
+        gen = trace_gen.generate("bc", n=TIME_SHARD_N, seed=0)
+        trace = dict(gen["trace"])
+        trace["ipa"] = np.full((TIME_SHARD_N,), gen["spec"].ipa, np.float32)
+        cfg = systems.config("victima")
+        timed = {}
+        for t_sh in (1, TIME_SHARDS):
+            before = mmu_step.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats, extras = mmu.simulate(cfg, trace, device=dev,
+                                         time_shards=t_sh)
+            torch.cuda.synchronize()
+            timed[t_sh] = (stats, extras, (time.perf_counter() - t0) * 1e3,
+                           mmu_step.LAUNCHES - before)
+        (s1, e1, ms1, n1), (s4, e4, ms4, n4) = timed[1], timed[TIME_SHARDS]
+        rounds = max(e["attrs"]["round"] for e in obs.tracer().events
+                     if e.get("name") == obs.names.EV_TIME_SHARD_ROUND)
+        if not 1 <= n4 == rounds <= TIME_SHARDS or n1 < 1:
+            raise AssertionError(f"time-sharded Victima: {n4} launches for "
+                                 f"{rounds} rounds, {n1} serial launches")
+        for field, a, b in zip(s1._fields, s1, s4):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                raise AssertionError(f"time-sharded Victima: Stats.{field} "
+                                     f"differs from the serial run")
+        if sorted(e1) != sorted(e4) or any(
+                not np.array_equal(np.asarray(e1[k]), np.asarray(e4[k]))
+                for k in e1):
+            raise AssertionError("time-sharded Victima: extras differ")
+        out["time_shard"] = {"system": "victima", "workload": "bc",
+                             "n": TIME_SHARD_N, "t_shards": TIME_SHARDS,
+                             "rounds": n4, "ms": ms4, "serial_ms": ms1,
+                             "serial_launches": n1}
+        print(f"time-sharded Victima, bc, n={TIME_SHARD_N}: {TIME_SHARDS} "
+              f"shards, {n4} rounds (one launch each), {ms4:.2f} ms against "
+              f"{ms1:.2f} ms serial ({n1} launches), Stats equal [{smi}]")
+    finally:
+        obs.tracer().close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2415,6 +2658,13 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 12: {time.perf_counter() - t:.1f} s")
 
+    # ----------------------------------------------------------- 13
+    t = phase("13. the serving engine on the card")
+    zero_counts()
+    serve_engine = serving_engine(dev, smi)
+    print("serving engine: " + json.dumps(serve_engine))
+    print(f"phase 13: {time.perf_counter() - t:.1f} s")
+
     # each registered system's static instantiation (composition/placement)
     # and, for a ladder member, the ladder instantiation the tables run
     ladder_of = {m: lad for lad, ms in systems.LADDERS.items() for m in ms}
@@ -2461,6 +2711,7 @@ def main() -> int:
         "compositions": list(mmu_step.LAUNCHES_BY_COMPOSITION),
         "instantiations": len(built),
         "ladder_fill": ladder_fill,
+        "time_shard": serve_engine["time_shard"],
         "paper_tables": {"n": TIMED_N, "wall_s": paper_wall,
                          "wall_s_by_figure": walls,
                          "launches": paper_launches,

@@ -37,6 +37,7 @@ from repro_torch.core.stages import (Dyn, MMUState, Request, STAGES,
                                      validate_stages)
 from repro_torch.core.stages.fold import accum_stats, collect_feats
 from repro_torch.kernels import mmu_step
+from repro_torch.sim import parallel
 
 __all__ = [
     "Dyn", "MMUState", "SimConfig", "Stats", "WALK_HIST_BUCKETS",
@@ -234,13 +235,27 @@ def _lane_trace(trace: dict, cfg: SimConfig, device, lanes: int | None):
             for k, x in out.items()}
 
 
-def simulate(cfg: SimConfig, trace: dict, stage_names=None, device=None):
-    """Run one trace under `cfg`; returns (Stats, extras) as numpy."""
+def simulate(cfg: SimConfig, trace: dict, stage_names=None, device=None,
+             time_shards: int | None = None):
+    """Run one trace under `cfg`; returns (Stats, extras) as numpy.
+
+    ``time_shards > 1`` splits the trace's time axis into speculative
+    blocks that run as lanes of one scan, resolved to the exact serial
+    carry (``parallel.time_shard_scan``); the Stats equal the serial
+    run's.
+    """
     dev = resolve_device(device)
     names = tuple(stage_names) if stage_names else default_stages(cfg)
     step = make_step(cfg, names)
     tr = _lane_trace(trace, cfg, dev, None)
-    st = scan_accesses(step, make_state(cfg, 1, dev), tr, cfg, names)
+    st0 = make_state(cfg, 1, dev)
+    t = int(time_shards or 1)
+    if t > 1:
+        st, _ = parallel.time_shard_scan(
+            lambda s, trb: scan_accesses(step, s, trb, cfg, names),
+            st0, tr, t)
+    else:
+        st = scan_accesses(step, st0, tr, cfg, names)
     stats, *rest = _finalize(st, cfg)
     return (Stats(*[x[0] for x in stats]),
             _extras_of(cfg, *rest, index=lambda x: x[0]))
@@ -267,22 +282,40 @@ def simulate_batch(cfg: SimConfig, traces: dict, stage_names=None,
     return per, extras
 
 
-def make_systems_runner(cfg: SimConfig, stage_names=None, device=None):
+def make_systems_runner(cfg: SimConfig, stage_names=None, device=None,
+                        plan=None, time_shards: int = 1):
     """A reusable S x W runner for one ladder base config.
 
     Returns ``run(dyns, traces) -> (per, extras)``: `dyns` has ``[S]``
     leaves (``sim.systems.ladder_dyn``), traces leaves are ``[T, W]``,
-    shared by the systems.  The grid runs as S·W lanes, system-major
+    shared by the systems.  A mesh block runs as S·W lanes, system-major
     (lane ``s * W + w``): each Dyn leaf repeated W times, the traces
     tiled S times.  ``per[s][w]`` is system s's Stats on workload w and
     ``extras[s][w]`` its extras, as numpy.  Multicore traces ``[T, W,
     C]`` (mixes stacked on axis 1) run as S·W·C lanes, lane ``(s * W +
     w) * C + c``, and ``per[s][w]`` and ``extras[s][w]`` are lists of C.
+
+    `plan` (``parallel.plan_mesh`` for this S x W grid) spreads the grid
+    over the visible cards (`device` repeated on the CPU), one block a
+    mesh cell (``parallel.shard_wrap``); without
+    one the grid runs on `device` alone.  ``time_shards > 1`` splits the
+    trace's time axis into speculative blocks resolved to the exact
+    serial carry (``parallel.time_shard_scan``, one scan of t·S·W lanes
+    a round); it needs a 1x1 plan, as in the reference.  The runner
+    records the last hand-off's info on ``run.last_time_shard_info``.
     """
     dev = resolve_device(device)
     names = tuple(stage_names) if stage_names else default_stages(cfg)
+    t_shards = int(time_shards or 1)
+    if t_shards > 1 and plan is not None \
+            and plan.sys_dim * plan.wl_dim != 1:
+        raise ValueError(
+            f"time sharding needs a 1x1 ('sys', 'wl') plan (devices go "
+            f"to the 't' mesh axis), got {plan.describe()}")
 
-    def run(dyns: Dyn, traces: dict):
+    def run_block(dyns: Dyn, traces: dict):
+        # one mesh block, on its Dyn's device: outputs lead [S_b, W_b(, C)]
+        bdev = dyns.l2tlb_lat.device
         S = dyns.l2tlb_lat.shape[0]
         vpn = np.asarray(traces["vpn"])
         W = vpn.shape[1]
@@ -290,42 +323,83 @@ def make_systems_runner(cfg: SimConfig, stage_names=None, device=None):
         if C is not None:  # core lanes ride the workload axis
             traces = {k: np.asarray(v).reshape((v.shape[0], W * C))
                       for k, v in traces.items()}
-        tr = _lane_trace(traces, cfg, dev, lanes=True)
+        tr = _lane_trace(traces, cfg, bdev, lanes=True)
         L = tr["vpn"].shape[1]
         tr = {k: x.repeat(1, S) for k, x in tr.items()}
-        dyn = Dyn(*[x.to(dev).repeat_interleave(L) for x in dyns])
-        st = scan_accesses(make_step(cfg, names, dyn),
-                           make_state(cfg, S * L, dev), tr, cfg, names, dyn)
-        stats, *rest = _finalize(st, cfg)
+        dyn = Dyn(*[x.to(bdev).repeat_interleave(L) for x in dyns])
+        st0 = make_state(cfg, S * L, bdev)
+        if t_shards > 1:
+            def body(st, trb):
+                # the blocks' lanes are block-major: tile the lane Dyn
+                d = Dyn(*[x.repeat(st.now.shape[0] // (S * L))
+                          for x in dyn])
+                return scan_accesses(make_step(cfg, names, d), st, trb,
+                                     cfg, names, d)
 
-        def lane(i):
-            return (Stats(*[x[i] for x in stats]),
-                    _extras_of(cfg, *rest, index=lambda x: x[i]))
+            st, info = parallel.time_shard_scan(body, st0, tr, t_shards)
+            run.last_time_shard_info = info
+        else:
+            st = scan_accesses(make_step(cfg, names, dyn), st0, tr, cfg,
+                               names, dyn)
+        lead = (S, W) if C is None else (S, W, C)
+        return parallel.tree_map(
+            lambda x: x.reshape(lead + x.shape[1:]), _finalize(st, cfg))
+
+    if plan is None:
+        dispatch = run_block
+    else:
+        mesh_devices = None
+        if dev.type != "cuda" or plan.n_devices == 1:
+            mesh_devices = [dev] * plan.n_devices
+        dispatch = parallel.shard_wrap(run_block, plan, mesh_devices)
+
+    def run(dyns: Dyn, traces: dict):
+        vpn = np.asarray(traces["vpn"])
+        S, W = dyns.l2tlb_lat.shape[0], vpn.shape[1]
+        C = vpn.shape[2] if vpn.ndim == 3 else None
+        if plan is None:
+            dyns = dyns.to(dev)
+        stats, *rest = dispatch(dyns, traces)
+
+        def lane(*ix):
+            return (Stats(*[x[ix] for x in stats]),
+                    _extras_of(cfg, *rest, index=lambda x: x[ix]))
 
         per = [[None] * W for _ in range(S)]
         extras = [[None] * W for _ in range(S)]
         for s in range(S):
             for w in range(W):
                 if C is None:
-                    per[s][w], extras[s][w] = lane(s * W + w)
-                else:  # lane (s * W + w) * C + c, per-core lists
-                    cores = [lane((s * W + w) * C + c) for c in range(C)]
+                    per[s][w], extras[s][w] = lane(s, w)
+                else:  # per-core lists
+                    cores = [lane(s, w, c) for c in range(C)]
                     per[s][w] = [p for p, _ in cores]
                     extras[s][w] = [e for _, e in cores]
         return per, extras
 
+    run.last_time_shard_info = None
     return run
 
 
 def simulate_systems(cfg: SimConfig, dyns: Dyn, traces: dict,
-                     stage_names=None, device=None):
+                     stage_names=None, device=None, plan=None,
+                     time_shards: int = 1):
     """Run S shape-compatible systems x W workloads in one scan.
 
     `cfg` is the ladder's base config (structures at the ladder maximum,
     every gated stage in its composition); `dyns` has ``[S]`` leaves of
     per-system sizing and gates; traces leaves are ``[T, W]``, or ``[T,
     W, C]`` for multicore mixes.  Returns (list[S] of list[W] Stats,
-    extras likewise; per-core lists of C for mixes).  The one-shot form
-    of ``make_systems_runner``.
+    extras likewise; per-core lists of C for mixes).  `plan` defaults,
+    as in the reference, to ``parallel.plan_mesh(S, W)`` over the
+    visible cards (1x1 on the CPU, and under ``time_shards > 1``).  The
+    one-shot form of ``make_systems_runner``.
     """
-    return make_systems_runner(cfg, stage_names, device)(dyns, traces)
+    if plan is None:
+        S = dyns.l2tlb_lat.shape[0]
+        W = np.asarray(traces["vpn"]).shape[1]
+        one = (int(time_shards or 1) > 1
+               or resolve_device(device).type != "cuda")
+        plan = parallel.plan_mesh(S, W, n_devices=1 if one else None)
+    return make_systems_runner(cfg, stage_names, device, plan=plan,
+                               time_shards=time_shards)(dyns, traces)
