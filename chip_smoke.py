@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, in
-parallel, and drives its four paths on the card:
+parallel, and drives its paths on the card:
 
 - the simulator (phases 2-5): the ``mmu_step`` kernel against its plain
   PyTorch version in each placement of the lane's state (all in shared
@@ -85,7 +85,20 @@ parallel, and drives its four paths on the card:
   in the middle of each run, each replayed on a copy of its state under
   ``torch.profiler``) and the VTC hit rate; then Victima time-sharded
   over the ``mmu_step`` kernel (one launch a round) against its serial
-  run.
+  run;
+- serving the other families (phases 14-16) through the same two
+  attention kernels: granite-moe-1b-a400m (the experts of
+  ``repro_torch.models.moe``) and seamless-m4t-medium (the
+  encoder-decoder) at full width, 2 layers, against the JAX snapshots
+  ``tests/golden/torch_granite_moe_fullwidth.json`` (the card's routes
+  first: a request whose gate gap is under ROUTE_GAP or whose experts
+  flipped is left out and counted) and ``torch_seamless_fullwidth.json``
+  (decode over a cross cache holding the encoder's projection), then at
+  full depth, 8 requests x 512 tokens and 64 greedy decode steps,
+  counted, timed and profiled; qwen3-32b (qk_norm), mixtral-8x7b (window,
+  top-2 experts) and qwen2-vl-7b (M-RoPE over a vision grid) at full
+  width, 2 layers, kernel path against plain path, and mixtral's smoke
+  ring (window 32, pages of 16) in float32 past its wrap.
 
 Any failed check raises, so the exit code is non-zero; no phase's
 failure is caught.  With no CUDA device, or without the repository around it, it
@@ -491,6 +504,19 @@ FLASH_BF16_CASES = [(2, 77, 200, 4, 2, 64, True, False),
                     (2, 320, 320, 8, 2, 128, True, False),
                     (2, 320, 320, 8, 2, 128, False, False),
                     (2, 512, 512, 32, 8, 128, True, True)]
+# the prefills of phases 14-16 (bf16, the model's [B,S,H,hd] views): (B,
+# S, Sk, H, K, hd, causal, window) -- granite-moe-1b-a400m (G 2);
+# seamless-m4t-medium's encoder (non-causal), decoder self-attention and
+# cross-attention (G 1, S != Sk as in the snapshot's shapes); qwen3-32b
+# (G 8), mixtral-8x7b with its window (G 4), qwen2-vl-7b (G 7)
+FLASH_MODEL_CASES = [(8, 512, 512, 16, 8, 64, True, None),
+                     (8, 512, 512, 16, 16, 64, False, None),
+                     (8, 512, 512, 16, 16, 64, True, None),
+                     (2, 256, 384, 16, 16, 64, False, None),
+                     (2, 256, 256, 64, 8, 128, True, None),
+                     (2, 256, 256, 32, 8, 128, True, 4096),
+                     (2, 300, 300, 32, 8, 128, True, 128),
+                     (2, 256, 256, 28, 4, 128, True, None)]
 FLASH_KERNEL = {torch.float32: "fma_f32", torch.bfloat16: "mma_bf16"}
 # quoted, not measured by this script: the bf16 flash kernel's time at
 # granite's prefill when it ran on the CUDA cores, before the
@@ -512,7 +538,14 @@ PAGED_SHAPES = [(2, 4, 2, 64, 64, 4, 16, None), (1, 8, 1, 32, 32, 8, 16, None),
                 (4, 10, 1, 256, 64, 8, 32, None),
                 (4, 8, 2, 64, 64, 16, 64, (1, 65, 130, 1000)),
                 (2, 8, 2, 64, 64, 4, 8, (256, 256)),
-                (8, 64, 8, 128, 128, 32, 256, (4096,) * 8)]
+                (8, 64, 8, 128, 128, 32, 256, (4096,) * 8),
+                # the decodes of phases 14-16: granite-moe (G 2, a cache
+                # of 640), seamless's cross-attention (G 1, lens the whole
+                # cross cache), qwen3-32b (G 8) and mixtral-8x7b (G 4)
+                (8, 16, 8, 64, 128, 5, 40, (576,) * 8),
+                (8, 16, 16, 64, 128, 4, 32, (512,) * 8),
+                (2, 64, 8, 128, 128, 3, 6, None),
+                (2, 32, 8, 128, 128, 3, 6, None)]
 # decode geometries of the dense configs the paged kernel now takes,
 # timed in phase 8 beside SDPA: (name, B, H, K, hd, page, nb, lens)
 PAGED_LONG = [("qwen3-32b", 8, 64, 8, 128, 128, 32, 4096),
@@ -538,6 +571,19 @@ def close(got, want, tol, what):
         raise AssertionError(f"{what}: max abs err {float(diff.max())} "
                              f"beyond the tolerance {tol}")
     return float(diff.max())
+
+
+def close_scaled(got, want, tol, what):
+    """Max |got - want|; raises unless it is at most tol * max |want|
+    (a bound at the scale of the whole tensor, for logits)."""
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    err, scale = float((g - w).abs().max()), float(w.abs().max())
+    if err > tol * scale:
+        raise AssertionError(f"{what}: max abs err {err} beyond {tol} of the "
+                             f"largest value {scale}")
+    return err
 
 
 def flash_ops(q, k, causal, window=None):
@@ -588,8 +634,9 @@ def paged_bound_ms(q, k_pages, tables, lens):
 
 def attention_vs_plain(dev):
     """Phase 6: both attention kernels against their plain versions on
-    the card, at the JAX tests' shapes and granite-3-2b's.  Returns the
-    max abs error of each kernel."""
+    the card, at the JAX tests' shapes, granite-3-2b's and the prefill
+    and decode shapes of phases 14-16.  Returns the max abs error of each
+    kernel."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
@@ -609,6 +656,8 @@ def attention_vs_plain(dev):
               for dt in (torch.float32, torch.bfloat16) for w in (32, 128)]
     cases += [(B, S, Sk, H, K, hd, torch.bfloat16, c, None, lay)
               for B, S, Sk, H, K, hd, c, lay in FLASH_BF16_CASES]
+    cases += [(B, S, Sk, H, K, hd, torch.bfloat16, c, w, True)
+              for B, S, Sk, H, K, hd, c, w in FLASH_MODEL_CASES]
     for B, S, Sk, H, K, hd, dt, causal, window, layout in cases:
         if layout:   # [B,S,H,hd] tensors seen as [B,H,S,hd], as ops does
             q = draw((B, S, H, hd), dt).transpose(1, 2)
@@ -1478,6 +1527,601 @@ def mamba2_serving(dev, ssd_log):
                     f"{cfg.ssm_heads} heads of {cfg.ssm_headdim}, G="
                     f"{cfg.ssm_groups}, n={cfg.ssm_state}, bf16, model "
                     f"rounding (y, S in float32), x strided as in the model"}
+
+
+# ------------------------------------------ moe, encdec and dense options
+
+# a router's k-th minus (k+1)-th gate under which XLA's and the card's
+# bf16 activations may pick another expert.  The router reads rms-normed
+# activations (elements of size ~1) through N(0, 1/D) weights, so half a
+# bf16 ulp (2^-9) of each input element moves a logit by ~2e-3 and a
+# k-th gate (~0.04 at granite-moe's 32 experts) by ~1e-4: this is ~10x
+# that.  A flip moves the token's FFN output by a whole expert's share,
+# which SNAP_TOL cannot hold, so such a request (a decode step: all of
+# it, capacity couples its tokens) is left out of the comparison and
+# counted, as greedy tokens under the top-2 margin are.
+ROUTE_GAP = 1e-3
+# measured on the CPU (the port's plain path against the JAX package at
+# this snapshot's inputs): the two packages' first-layer gates differ by
+# up to 2.3e-3 (median 6e-4 a token), more than the estimate above, so a
+# request whose routes differ from the snapshot's at a larger gap is left
+# out too (``route_verdict``: "flip"); only a first-layer flip at a gap
+# of FLIP_GAP (4x that measurement) or more fails as a routing fault
+FLIP_GAP = 1e-2
+# phases 14-15 at full depth: requests x prompt tokens (8 routing groups
+# of 512 for granite-moe), decode steps, and the decode cache
+FD_B, FD_PROMPT, FD_STEPS, FD_CACHE = 8, 512, 64, 640
+# phase 16: 2 layers at full width, B x prompt tokens, decode steps over
+# a cache of OPT_CACHE.  Kernel path against plain path at the logits,
+# at the logits' scale: max |kernel - plain| <= OPT_TOL * max |plain|
+# (``close_scaled``).  Phase 6 holds each kernel to FLASH_BF16_TOL /
+# PAGED_BF16_TOL, up to two bf16 ulps of an output (the flash kernel
+# rounds its weights to bf16 where the plain version keeps float32);
+# that difference reaches every logit of these untied heads (normal, of
+# size ~4.5) alike, whatever the logit's own size, so a bound relative
+# to each element fails on the logits near 0: on an H100, qwen3-32b's
+# moved by up to 4.8e-2 (the CPU tests measured 5.0-5.1e-2 between the
+# two packages' bf16 logits of its smoke config).  PAGED_BF16_TOL of the
+# largest logit (~0.14) holds that and still fails a wrong mask, norm
+# or rotation, which moves the logits by their own size.
+OPT_B, OPT_PROMPT, OPT_STEPS, OPT_CACHE = 2, 256, 4, 384
+OPT_TOL = PAGED_BF16_TOL
+# mixtral's ring at smoke width (window 32) in float32, where the kernels
+# and the plain versions agree to 1e-5 a layer (the JAX kernel tests'
+# tolerance) and no route can flip: the CPU tests' float32 model bound
+OPT_RING = dict(B=2, prompt=40, steps=30, page=16, tol=1e-4)
+
+
+def record_routes():
+    """Every ``moe.route`` call's result, in call order (one per moe
+    layer per prefill or decode step): patches the function ``moe_apply``
+    calls and returns (the list, a function that restores it)."""
+    from repro_torch.models import moe
+
+    calls, saved = [], moe.route
+
+    def route(p, x, cfg):
+        r = saved(p, x, cfg)
+        calls.append(r)
+        return r
+    moe.route = route
+
+    def restore():
+        moe.route = saved
+    return calls, restore
+
+
+def routes_at(calls, rows, k: int):
+    """The routes of tokens ``rows`` (flat indices over a call's B*S
+    tokens) in each of ``calls`` (one a layer): experts [n, L, k], kept
+    [n, L, k], and the k-th minus (k+1)-th gate [n, L], as numpy."""
+    topi, keep, gap = [], [], []
+    for r in calls:
+        E = r.gates.shape[-1]
+        idx = torch.as_tensor(rows, device=r.topi.device)
+        topi.append(r.topi.reshape(-1, k)[idx].cpu().numpy())
+        keep.append(r.keep.reshape(-1, k)[idx].cpu().numpy())
+        g = torch.sort(r.gates.reshape(-1, E)[idx], dim=-1,
+                       descending=True).values
+        gap.append((g[:, k - 1] - g[:, k]).cpu().numpy())
+    return (np.stack(topi, 1), np.stack(keep, 1), np.stack(gap, 1))
+
+
+def route_verdict(got, want, what: str) -> list:
+    """Per request: "same" (the routes equal in every layer: the same
+    experts, the same ones kept, in any order), "gap" (its smallest gate
+    gap is under ROUTE_GAP), "flip" (other experts) or "capacity" (the
+    same experts, another one kept: a flip elsewhere in the group moved
+    a capacity slot).  ``got`` and ``want`` are (experts, kept, gap) as
+    ``routes_at`` gives them; ``want``'s gaps decide.  Raises where the
+    first layer's experts differ at a gap of FLIP_GAP or more: that
+    layer's router input differs between the two only by attention's
+    roundings, which move a gate by less (``FLIP_GAP``), so the routing
+    would be wrong."""
+    def chosen(r, b, layer):   # expert -> kept (the choices' order
+        return dict(zip(r[0][b][layer].tolist(),    # within a token
+                        r[1][b][layer].tolist()))   # changes nothing)
+
+    out = []
+    for b in range(len(want[0])):
+        layers = range(len(want[0][b]))
+        got_b = [chosen(got, b, i) for i in layers]
+        want_b = [chosen(want, b, i) for i in layers]
+        if got_b[0].keys() != want_b[0].keys() \
+                and float(want[2][b][0]) >= FLIP_GAP:
+            raise AssertionError(
+                f"{what}, request {b}: experts {sorted(got_b[0])} in the "
+                f"first layer where the reference chose {sorted(want_b[0])}"
+                f" at a gate gap of {float(want[2][b][0]):.3g} (at least "
+                f"{FLIP_GAP})")
+        if float(np.min(want[2][b])) < ROUTE_GAP:
+            out.append("gap")
+        elif any(g.keys() != w.keys() for g, w in zip(got_b, want_b)):
+            out.append("flip")
+        else:
+            out.append("capacity" if got_b != want_b else "same")
+    return out
+
+
+def snapshot_rows(lg, st, rows, tol: float, what: str):
+    """The snapshot step ``st``'s top logits and logsumexp against logits
+    [B, V] at requests ``rows``, and the greedy token where the top-2
+    margin passes ``tol``.  Returns (max abs err, greedy tokens
+    compared)."""
+    if not rows:
+        return 0.0, 0
+    dev = lg.device
+    r = torch.tensor(rows, device=dev)
+    lg = lg.float()[r]
+    top = torch.gather(lg, 1, torch.tensor(st["top_ids"], device=dev)[r])
+    err = close(top, torch.tensor(st["top_logits"], device=dev)[r], tol,
+                f"{what} top-{len(st['top_ids'][0])} logits")
+    err = max(err, close(torch.logsumexp(lg, -1),
+                         torch.tensor(st["logsumexp"], device=dev)[r], tol,
+                         f"{what} logsumexp"))
+    compared = 0
+    for b, g in zip(rows, lg.argmax(-1).tolist()):
+        if st["margin"][b] > tol:
+            compared += 1
+            if g != st["token"][b]:
+                raise AssertionError(f"{what}, request {b}: greedy token {g}"
+                                     f" != {st['token'][b]}")
+    return err, compared
+
+
+def load_snapshot(name: str) -> dict:
+    with open(os.path.join(ROOT, "tests", "golden", name)) as f:
+        return json.load(f)
+
+
+def granite_moe_vs_snapshot(dev) -> dict:
+    """Phase 14 (a): granite-moe-1b-a400m at full width, 2 layers, against
+    tests/golden/torch_granite_moe_fullwidth.json, the card's routes at
+    each compared token held to the snapshot's first (``route_verdict``):
+    requests (a decode step's: the step) under ROUTE_GAP, or whose
+    capacity slots moved, are left out and counted."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    snap = load_snapshot("torch_granite_moe_fullwidth.json")
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              n_layers=snap["n_layers"])
+    t0 = time.perf_counter()
+    tree = M.numpy_params(cfg, snap["seed"])
+    if M.tree_sha256(tree) != snap["weights_sha256"]:
+        raise AssertionError("the weights differ from the ones the snapshot "
+                             "was made from (numpy draws other normals?)")
+    B, S, k = snap["batch"], snap["prompt_len"], cfg.top_k
+    prompt = np.random.default_rng(snap["seed"] + 1).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    if M.tree_sha256({}, prompt) != snap["prompt_sha256"]:
+        raise AssertionError("the prompt differs from the snapshot's")
+    print(f"weights and prompt equal the snapshot's (sha256; "
+          f"{time.perf_counter() - t0:.1f} s to draw and digest)")
+    m = M.build(cfg, dev)
+    params = M.params_from_jax(tree, cfg, dev)
+    del tree
+    calls, restore = record_routes()
+    try:
+        logits, cache = m.prefill(params, {"tokens": torch.from_numpy(prompt)},
+                                  m.init_cache(B, snap["cache_len"]))
+        steps = [(logits, calls[:])]
+        for i in range(1, len(snap["steps"])):
+            del calls[:]
+            tok = torch.tensor(snap["steps"][i - 1]["token"],
+                               dtype=torch.int32)[:, None]
+            logits, cache = m.decode_step(
+                params, cache, tok, torch.full((B,), S + i - 1,
+                                               dtype=torch.int32))
+            steps.append((logits, calls[:]))
+    finally:
+        restore()
+    worst, compared, greedy = 0.0, 0, 0
+    left = {"gap": 0, "flip": 0, "capacity": 0}
+    for i, ((lg, step_calls), st) in enumerate(zip(steps, snap["steps"])):
+        if len(step_calls) != cfg.n_layers:
+            raise AssertionError(f"step {i} routed {len(step_calls)} times, "
+                                 f"want one a layer")
+        rows = [b * S + S - 1 for b in range(B)] if i == 0 else list(range(B))
+        want = tuple(np.asarray(st[f"route_{x}"])
+                     for x in ("topi", "keep", "gap"))
+        verdict = route_verdict(routes_at(step_calls, rows, k), want,
+                                f"step {i}")
+        if i and any(v != "same" for v in verdict):   # the whole step
+            verdict = [next(v for v in verdict if v != "same")] * B
+        keep_rows = [b for b, v in enumerate(verdict) if v == "same"]
+        for v in verdict:
+            if v != "same":
+                left[v] += 1
+        err, n = snapshot_rows(lg[:, -1], st, keep_rows, SNAP_TOL,
+                               f"step {i}")
+        worst, compared, greedy = max(worst, err), compared + len(keep_rows), \
+            greedy + n
+        print(f"step {i}: routes {verdict}, smallest gate gap "
+              f"{float(np.min(want[2])):.3g}; compared requests {keep_rows}")
+    if compared == 0:
+        raise AssertionError("every request was left out: nothing compared")
+    print(f"prefill + {snap['decode_steps']} decode steps, B={B}: "
+          f"{compared} of {B * len(steps)} (request, step) logits compared, "
+          f"max abs err {worst:.4g} on the top-{snap['top']} logits and "
+          f"logsumexp (tolerance {SNAP_TOL}); left out: {left['gap']} under "
+          f"the gate gap {ROUTE_GAP}, {left['flip']} whose experts differ "
+          f"from the snapshot's, {left['capacity']} whose capacity slots "
+          f"moved; {greedy} greedy tokens with a top-2 margin above the "
+          f"tolerance all equal the snapshot's")
+    return {"max_abs_err": worst, "compared": compared, "left_out": left}
+
+
+def seamless_vs_snapshot(dev) -> dict:
+    """Phase 15 (a): seamless-m4t-medium at full width, 2 + 2 layers,
+    against tests/golden/torch_seamless_fullwidth.json: ``Model.prefill``'s
+    last logits, then 4 greedy decode steps from position 0 whose cross
+    cache holds the port's own encoder projection."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    snap = load_snapshot("torch_seamless_fullwidth.json")
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium"),
+                              n_layers=snap["n_layers"],
+                              n_enc_layers=snap["n_enc_layers"])
+    t0 = time.perf_counter()
+    tree = M.numpy_params(cfg, snap["seed"])
+    if M.tree_sha256(tree) != snap["weights_sha256"]:
+        raise AssertionError("the weights differ from the ones the snapshot "
+                             "was made from (numpy draws other normals?)")
+    B, S, Ss = snap["batch"], snap["prompt_len"], snap["source_len"]
+    tokens = np.random.default_rng(snap["seed"] + 1).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    src = torch.from_numpy(np.random.default_rng(snap["seed"] + 2)
+                           .standard_normal((B, Ss, cfg.d_model),
+                                            dtype=np.float32)).bfloat16()
+    if M.tree_sha256({}, tokens, src.float().numpy()) != snap["inputs_sha256"]:
+        raise AssertionError("the inputs differ from the snapshot's")
+    print(f"weights and inputs equal the snapshot's (sha256; "
+          f"{time.perf_counter() - t0:.1f} s to draw and digest)")
+    m = M.build(cfg, dev)
+    params = M.params_from_jax(tree, cfg, dev)
+    del tree
+    batch = {"tokens": torch.from_numpy(tokens), "src_embeds": src}
+    logits, none = m.prefill(params, batch)
+    if none is not None:
+        raise AssertionError("the encdec prefill returned a cache")
+    steps = [logits]
+    cache = m.init_cache(B, snap["cache_len"])
+    fill_cross_cache(params, cfg, cache, encdec.encode(
+        params, cfg, src.to(dev)), L)
+    tok = torch.from_numpy(tokens[:, :1])
+    for i in range(snap["decode_steps"]):
+        logits, cache = m.decode_step(params, cache, tok,
+                                      torch.full((B,), i, dtype=torch.int32))
+        steps.append(logits)
+        tok = torch.tensor(snap["steps"][i + 1]["token"],
+                           dtype=torch.int32)[:, None]
+    worst, greedy = 0.0, 0
+    for i, (lg, st) in enumerate(zip(steps, snap["steps"])):
+        err, n = snapshot_rows(lg[:, -1], st, list(range(B)), SNAP_TOL,
+                               f"step {i}")
+        worst, greedy = max(worst, err), greedy + n
+    print(f"prefill ({B} x {S} tokens over {Ss} frames) + "
+          f"{snap['decode_steps']} decode steps from position 0 over the "
+          f"encoder's cross cache: max abs err {worst:.4g} on the top-"
+          f"{snap['top']} logits and logsumexp (tolerance {SNAP_TOL}); "
+          f"{greedy} greedy tokens with a top-2 margin above it all equal "
+          f"the snapshot's")
+    return {"max_abs_err": worst}
+
+
+def fill_cross_cache(params, cfg, cache, enc, L):
+    """Each decoder layer's ``cross.wk``/``wv`` projection of the encoder
+    output ``enc`` [B,Ss,D] into slots [0, Ss) of the cross cache (the
+    port, as the reference, leaves that to its caller)."""
+    B, Ss, _ = enc.shape
+    for i, lp in enumerate(params.dec):
+        for name, w in (("xk", lp.cross.wk), ("xv", lp.cross.wv)):
+            cache[name][i, :, :Ss] = L.matmul(enc, w).reshape(
+                B, Ss, cfg.n_kv_heads, cfg.hd)
+
+
+def profiled(fn):
+    """(wall ms, [(kernel, device ms, calls)]) of ``fn()`` under
+    torch.profiler; an operator's row repeats its kernels' time, so
+    kernels only."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return wall, [(e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def report_rows(what: str, wall: float, rows, per: int) -> dict:
+    """Prints and returns a profiled window's busy share and its eight
+    largest kernels, per ``per`` steps."""
+    busy = sum(r[1] for r in rows)
+    print(f"{what}: wall {wall / per:.2f} ms, device busy {busy / per:.2f} "
+          f"ms ({busy / wall:.1%}), {sum(r[2] for r in rows) // per} kernel "
+          f"launches, per {'step' if per > 1 else 'call'}")
+    top = sorted(rows, key=lambda r: -r[1])[:8]
+    for key, ms_, n in top:
+        print(f"  {ms_ / per:8.3f} ms {n // per:5d} calls  {key[:90]}")
+    return {"wall_ms": wall / per, "busy_ms": busy / per,
+            "launches": sum(r[2] for r in rows) // per,
+            "top": [[k[:90], ms_ / per, n // per] for k, ms_, n in top]}
+
+
+def zero_attention_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    fa.LAUNCHES = pa.LAUNCHES = 0
+    fa.LAUNCHES_BY_KERNEL.update(mma_bf16=0, fma_f32=0)
+    pa.LAUNCHES_BY_FORM.update(cluster=0, two_pass=0)
+
+
+def full_depth_serving(dev, name: str, smi: str) -> dict:
+    """Phases 14 (b) and 15 (b): ``name`` at full width and depth, random
+    weights drawn on the card, serves FD_B requests: prefill of FD_PROMPT
+    tokens (seamless: over FD_PROMPT source frames), then FD_STEPS greedy
+    decode steps (granite-moe over a cache of FD_CACHE positions after
+    the prompt; seamless from position 0 over a cache of FD_PROMPT, its
+    cross cache the encoder's projection), each counted: flash launches a
+    prefill (one a layer; seamless: encoder, self and cross), paged
+    launches a step (one a layer; seamless: self and cross), all bf16 on
+    the tensor-core kernel and in the plan's form."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import encdec
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    cfg = get_config(name)
+    ed = cfg.family == "encdec"
+    m = M.build(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = m.init(gen)
+    torch.cuda.synchronize()
+    layers = f"{cfg.n_enc_layers} + {cfg.n_layers}" if ed else cfg.n_layers
+    print(f"{cfg.name}: {layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_params() / 1e9:.2f} B parameters in {cfg.dtype}, drawn on "
+          f"the card in {time.perf_counter() - t0:.1f} s")
+    batch = M.dummy_batch(cfg, FD_B, FD_PROMPT, gen)
+    want_flash = cfg.n_enc_layers + 2 * cfg.n_layers if ed else cfg.n_layers
+    want_paged = 2 * cfg.n_layers if ed else cfg.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = None if ed else m.init_cache(FD_B, FD_CACHE)
+    zero_attention_counts()
+    t0 = time.perf_counter()
+    lg, cache = m.prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = {"flash_attention": fa.LAUNCHES,
+                        "paged_attention": pa.LAUNCHES}
+    flash_by_kernel = dict(fa.LAUNCHES_BY_KERNEL)
+    if (fa.LAUNCHES, pa.LAUNCHES) != (want_flash, 0) \
+            or fa.LAUNCHES_BY_KERNEL["mma_bf16"] != want_flash:
+        raise AssertionError(f"{name} prefill: flash launches "
+                             f"{fa.LAUNCHES_BY_KERNEL}, paged {pa.LAUNCHES};"
+                             f" want {want_flash} mma_bf16 and 0")
+    finite = torch.isfinite(lg).all()
+    start = FD_PROMPT
+    if ed:
+        cache = m.init_cache(FD_B, FD_PROMPT)
+        fill_cross_cache(params, cfg, cache,
+                         encdec.encode(params, cfg, batch["src_embeds"]), L)
+        start = 0
+    zero_attention_counts()
+    t0 = time.perf_counter()
+    for i in range(FD_STEPS):
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        pos = torch.full((FD_B,), start + i, dtype=torch.int32, device=dev)
+        lg, cache = m.decode_step(params, cache, tok, pos)
+        finite &= torch.isfinite(lg).all()
+        if (pa.LAUNCHES, fa.LAUNCHES) != (want_paged * (i + 1), 0):
+            raise AssertionError(f"{name} decode step {i}: paged launched "
+                                 f"{pa.LAUNCHES} times, flash {fa.LAUNCHES}")
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / FD_STEPS
+    decode_launches = {"flash_attention": fa.LAUNCHES,
+                       "paged_attention": pa.LAUNCHES}
+    by_form = dict(pa.LAUNCHES_BY_FORM)
+    if not bool(finite):
+        raise AssertionError(f"{name}: non-finite logits")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    r = {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+         "tokens_per_s": FD_B * 1e3 / decode_ms, "peak_gib": peak,
+         "prefill_launches": prefill_launches,
+         "decode_launches": decode_launches, "paged_by_form": by_form,
+         "card": smi}
+    # where the device time goes (torch.profiler): one prefill, then 4
+    # decode steps on from where the timed ones stopped
+    wall, rows = profiled(lambda: m.prefill(
+        params, batch, None if ed else m.init_cache(FD_B, FD_CACHE)))
+    r["profiled_prefill"] = report_rows(f"{name} profiled prefill", wall,
+                                        rows, 1)
+
+    def steps4():
+        for i in range(4):
+            pos = torch.full((FD_B,), start + FD_STEPS + i, dtype=torch.int32,
+                             device=dev)
+            m.decode_step(params, cache, tok, pos)
+    wall, rows = profiled(steps4)
+    r["profiled_decode"] = report_rows(f"{name} profiled decode", wall, rows,
+                                       4)
+    print(f"{name} main path ({smi}): prefill {prefill_ms:.2f} ms ({FD_B} x "
+          f"{FD_PROMPT} tokens), decode {decode_ms:.3f} ms a step, "
+          f"{r['tokens_per_s']:,.0f} tokens/s over {FD_STEPS} steps; "
+          f"launches: prefill {prefill_launches} (flash by kernel "
+          f"{flash_by_kernel}), decode {decode_launches} "
+          f"(paged by form {by_form}, {want_paged} a step); logits finite; "
+          f"peak device memory {peak:.2f} GiB")
+    del params, cache
+    torch.cuda.empty_cache()
+    return r
+
+
+def grid_positions3(B: int, S: int, P: int, width: int):
+    """M-RoPE streams [3,B,S] int32: P vision patches on a raster ``width``
+    wide at t = 0, then text at t = h = w counting on past the grid."""
+    pos = torch.zeros((3, B, S), dtype=torch.int32)
+    i = torch.arange(P)
+    pos[1, :, :P], pos[2, :, :P] = i // width, i % width
+    pos[:, :, P:] = torch.arange(S - P, dtype=torch.int32) + \
+        max(int(pos[1:, :, :P].max()), 0) + 1
+    return pos
+
+
+def kernel_vs_plain(m, params, batch, steps: int, cache_len: int, tol: float,
+                    what: str, extras=lambda i, pos: None,
+                    compare=close) -> dict:
+    """``m``'s prefill and ``steps`` greedy decode steps through the
+    kernels, then through their plain versions on the card fed the same
+    tokens; logits compared by ``compare`` at ``tol`` where the two runs'
+    routes (moe only) agree (``route_verdict``, the kernel run's gates
+    deciding).
+    Returns the max abs err, what was left out, and the kernel run's
+    prefill ms and decode ms a step (host clock after a sync)."""
+    cfg = m.cfg
+    B, S = batch["tokens"].shape
+    moe_ = cfg.family == "moe"
+
+    def run(tokens=None):
+        calls, restore = record_routes()
+        out, fed, routes = [], [], []
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = m.prefill(params, batch, m.init_cache(B, cache_len))
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            out.append(lg)
+            routes.append(calls[:])
+            t0 = time.perf_counter()
+            for i in range(steps):
+                del calls[:]
+                tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None] \
+                    if tokens is None else tokens[i]
+                fed.append(tok)
+                pos = torch.full((B,), S + i, dtype=torch.int32,
+                                 device=m.device)
+                lg, cache = m.decode_step(params, cache, tok, pos,
+                                          extras(i, pos))
+                out.append(lg)
+                routes.append(calls[:])
+            torch.cuda.synchronize()
+            decode_ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
+        finally:
+            restore()
+        return out, fed, routes, prefill_ms, decode_ms
+
+    kern, fed, kroutes, prefill_ms, decode_ms = run()
+    restore = plain_attention()
+    try:
+        plain, _, proutes, _, _ = run(fed)
+    finally:
+        restore()
+    err, compared, left = 0.0, 0, {"gap": 0, "flip": 0, "capacity": 0}
+    for i, (a, b) in enumerate(zip(kern, plain)):
+        keep = list(range(B))
+        if moe_:
+            rows = [x * S + S - 1 for x in range(B)] if i == 0 else keep
+            verdict = route_verdict(
+                routes_at(proutes[i], rows, cfg.top_k),
+                routes_at(kroutes[i], rows, cfg.top_k), f"{what} step {i}")
+            if i and any(v != "same" for v in verdict):
+                verdict = [next(v for v in verdict if v != "same")] * B
+            keep = [x for x, v in enumerate(verdict) if v == "same"]
+            for v in verdict:
+                if v != "same":
+                    left[v] += 1
+        if keep:
+            r = torch.tensor(keep, device=a.device)
+            err = max(err, compare(a[r], b[r], tol, f"{what} step {i}"))
+            compared += len(keep)
+    if compared == 0:
+        raise AssertionError(f"{what}: every request was left out")
+    scaled = " of the largest logit" if compare is close_scaled else ""
+    moe_left = (f", left out: {left['gap']} under the gate gap {ROUTE_GAP}, "
+                f"{left['flip']} whose experts differ, {left['capacity']} "
+                f"whose capacity slots moved" if moe_ else "")
+    print(f"{what}: kernel path == plain path over the prefill ({B} x {S}) "
+          f"and {steps} decode steps: max abs err {err:.4g} on the logits "
+          f"(tolerance {tol}{scaled}); {compared} of {B * (steps + 1)} "
+          f"(request, step) compared{moe_left}; kernel path: prefill "
+          f"{prefill_ms:.2f} ms, decode {decode_ms:.3f} ms a step")
+    return {"max_abs_err": err, "compared": compared, "left_out": left,
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms}
+
+
+def dense_options(dev, smi: str) -> dict:
+    """Phase 16: qwen3-32b (qk_norm, G 8), mixtral-8x7b (window 4096, top-2
+    of 8 experts, G 4) and qwen2-vl-7b (M-RoPE over a vision grid with
+    vision embeddings, G 7) at full width, 2 layers, random weights on
+    the card, kernel path against plain path (``kernel_vs_plain``); then
+    mixtral's smoke width (window 32, a ring of 32 slots in pages of 16)
+    in float32, prefilled past the window and decoded past two wraps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import model as M
+
+    out = {}
+    for name in ("qwen3-32b", "mixtral-8x7b", "qwen2-vl-7b"):
+        cfg = dataclasses.replace(get_config(name), n_layers=2)
+        m = M.build(cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = m.init(gen)
+        batch = M.dummy_batch(cfg, OPT_B, OPT_PROMPT, gen)
+        extras = lambda i, pos: None   # noqa: E731
+        if cfg.family == "vlm":
+            P = batch["vision_embeds"].shape[1]
+            batch["positions3"] = grid_positions3(OPT_B, OPT_PROMPT, P, 16)
+
+            def extras(i, pos):   # the text's own streams from step 2 on
+                return None if i < 2 else {"positions3": torch.stack(
+                    [pos[:, None], pos[:, None] - 100, pos[:, None] - 99])}
+        zero_attention_counts()
+        r = kernel_vs_plain(m, params, batch, OPT_STEPS, OPT_CACHE, OPT_TOL,
+                            f"{name} (2 layers, full width, bf16, G "
+                            f"{cfg.n_heads // cfg.n_kv_heads}, hd {cfg.hd})",
+                            extras, close_scaled)
+        r["card"] = smi
+        out[name] = r
+        del params
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_smoke_config("mixtral-8x7b"),
+                              dtype="float32")
+    m = M.build(cfg, dev, page=OPT_RING["page"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = m.init(gen)
+    batch = M.dummy_batch(cfg, OPT_RING["B"], OPT_RING["prompt"], gen)
+    zero_attention_counts()
+    r = kernel_vs_plain(m, params, batch, OPT_RING["steps"], 64,
+                        OPT_RING["tol"], f"mixtral smoke ring (window "
+                        f"{cfg.window}, page {OPT_RING['page']}, float32, "
+                        f"prompt {OPT_RING['prompt']}, decode to position "
+                        f"{OPT_RING['prompt'] + OPT_RING['steps'] - 1})")
+    if r["left_out"]["flip"] or r["left_out"]["capacity"]:
+        raise AssertionError("float32 routes differ between the kernel and "
+                             "plain paths")
+    if fa.LAUNCHES_BY_KERNEL["fma_f32"] == 0 or pa.LAUNCHES == 0:
+        raise AssertionError("the float32 ring did not run the kernels")
+    out["mixtral-8x7b-smoke-ring"] = r
+    print(f"phase 16's times: host clock after a sync, on {smi}")
+    return out
 
 
 # ------------------------------------------------------- serving engine
@@ -2665,6 +3309,34 @@ def main() -> int:
     print("serving engine: " + json.dumps(serve_engine))
     print(f"phase 13: {time.perf_counter() - t:.1f} s")
 
+    # ----------------------------------------------------------- 14
+    torch.cuda.empty_cache()
+    t = phase(f"14. granite-moe-1b-a400m: 2 layers at full width against "
+              f"the JAX snapshot, then full depth, {FD_B} requests x "
+              f"{FD_PROMPT} prompt tokens, {FD_STEPS} decode steps")
+    moe_snap = granite_moe_vs_snapshot(dev)
+    torch.cuda.empty_cache()
+    moe_serve = full_depth_serving(dev, "granite-moe-1b-a400m", smi)
+    print(f"phase 14: {time.perf_counter() - t:.1f} s")
+
+    # ----------------------------------------------------------- 15
+    torch.cuda.empty_cache()
+    t = phase(f"15. seamless-m4t-medium: 2 + 2 layers at full width against "
+              f"the JAX snapshot, then full depth, {FD_B} x {FD_PROMPT} "
+              f"source frames and target tokens, {FD_STEPS} decode steps")
+    seamless_snap = seamless_vs_snapshot(dev)
+    torch.cuda.empty_cache()
+    seamless_serve = full_depth_serving(dev, "seamless-m4t-medium", smi)
+    print(f"phase 15: {time.perf_counter() - t:.1f} s")
+
+    # ----------------------------------------------------------- 16
+    torch.cuda.empty_cache()
+    t = phase("16. the dense options: qwen3-32b, mixtral-8x7b, qwen2-vl-7b "
+              "(2 layers, full width) and mixtral's ring, kernel path "
+              "against plain path")
+    options = dense_options(dev, smi)
+    print(f"phase 16: {time.perf_counter() - t:.1f} s")
+
     # each registered system's static instantiation (composition/placement)
     # and, for a ladder member, the ladder instantiation the tables run
     ladder_of = {m: lad for lad, ms in systems.LADDERS.items() for m in ms}
@@ -2685,10 +3357,20 @@ def main() -> int:
              "paged_attention": f"granite-3-2b decode: B={SERVE_B}, H=32, "
                                 f"K=8, hd=64, bf16, page 128, nb 8, lens "
                                 f"{SERVE_PROMPT + SERVE_STEPS}"}
+    # each serving path's launches, its counts zeroed before it ran:
+    # granite-3-2b (phase 8), granite-moe-1b-a400m (14) and
+    # seamless-m4t-medium (15), a prefill and all decode steps each
+    by_path = {"granite-3-2b": serve["launches"]}
+    for model, r in (("granite-moe-1b-a400m", moe_serve),
+                     ("seamless-m4t-medium", seamless_serve)):
+        by_path[model] = {k: r["prefill_launches"][k]
+                          + r["decode_launches"][k]
+                          for k in r["prefill_launches"]}
     attn = [{"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{name}.cu",
              "replaces": f"src/repro/kernels/{name}.py:{line}",
-             "launches": serve["launches"][name],
+             "launches": sum(p[name] for p in by_path.values()),
+             "launches_by_path": {m: p[name] for m, p in by_path.items()},
              "max_abs_err": attn_errs[name],
              "ms": r["ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2700,6 +3382,11 @@ def main() -> int:
                                   "long_context") if x in r}}
             for name, line, r in (("flash_attention", 85, serve["flash"]),
                                   ("paged_attention", 73, serve["paged"]))]
+    print("models: " + json.dumps({
+        "granite-moe-1b-a400m": {"snapshot": moe_snap, "serving": moe_serve},
+        "seamless-m4t-medium": {"snapshot": seamless_snap,
+                                "serving": seamless_serve},
+        "dense_options": options}))
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "mmu_step", "route": "cuda",

@@ -1,8 +1,9 @@
 """Config registry: one module per assigned architecture.
 
 The port's copy of ``repro.configs``: the same ``ARCHS`` list and
-lookups.  granite-3-2b's and mamba2-2.7b's modules are ported so far;
-the other names raise, naming the ROADMAP queue that brings them.
+lookups.  Every architecture's module is ported but recurrentgemma-2b's
+(the hybrid family), whose name raises, naming the ROADMAP queue that
+brings it.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ ARCHS = [
     "qwen2-vl-7b",
 ]
 
-PORTED = ("granite-3-2b", "mamba2-2.7b")
+PORTED = tuple(a for a in ARCHS if a != "recurrentgemma-2b")
 
 
 def _module(name: str):

@@ -1,2 +1,2 @@
-"""Model families (the dense transformer and mamba2 so far) and their
-layers."""
+"""Model families (the decoder-only transformer with its MLP or MoE FFN,
+the encoder-decoder and mamba2) and their layers."""

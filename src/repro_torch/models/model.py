@@ -1,21 +1,22 @@
-"""Unified model API, the port of ``repro.models.model`` for the dense
-and ssm families: ``build(cfg)`` -> ``Model`` with init / forward /
-init_cache / prefill / decode_step.
+"""Unified model API, the port of ``repro.models.model``: ``build(cfg)``
+-> ``Model`` with init / forward / init_cache / prefill / decode_step,
+for every family of the reference but hybrid (dense, moe and vlm through
+``transformer``, encdec through ``encdec``, ssm through ``ssm``).
 
 Entry points run on ``device="cuda"`` unless the caller passes
-``device="cpu"``; with no card and no CPU request they raise.  Other
-families (moe, hybrid, encdec, vlm) raise, naming the ROADMAP queue that
-brings them.
+``device="cpu"``; with no card and no CPU request they raise.  The
+hybrid family (recurrentgemma-2b) raises, naming the ROADMAP queue that
+brings it.
 
 Parameters cross between the packages as the JAX pytree of numpy arrays
-(layers stacked on axis 0, as the reference's ``init`` vmaps them):
-``params_from_jax`` builds the port's ``Transformer`` or ``SSM`` from
-one, ``params_to_numpy`` gives it back (bf16 leaves as numpy's bfloat16,
+(layers stacked on axis 0, as the reference's ``init`` vmaps them; the
+encoder's and decoder's under ``enc`` and ``dec``): ``params_from_jax``
+builds the port's ``Transformer``, ``EncDec`` or ``SSM`` from one,
+``params_to_numpy`` gives it back (bf16 leaves as numpy's bfloat16,
 which needs ml_dtypes, as jax has it).  ``numpy_params`` draws such a
 tree from a numpy seed, and ``tree_sha256`` digests it, for the
-full-width snapshots that ``tests/torch_granite_regen.py`` and
-``tests/torch_mamba2_regen.py`` make with the JAX package and
-``chip_smoke.py`` checks the port against.
+full-width snapshots that the ``tests/torch_*_regen.py`` scripts make
+with the JAX package and ``chip_smoke.py`` checks the port against.
 """
 from __future__ import annotations
 
@@ -26,18 +27,22 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.mmu import resolve_device
+from repro_torch.models import encdec, ssm, transformer
 from repro_torch.models import layers as L
-from repro_torch.models import ssm, transformer
 from repro_torch.models.transformer import TOKENS_PER_PAGE
 
 __all__ = ["F32_LEAVES", "Model", "build", "cross_entropy", "dummy_batch",
            "numpy_params", "param_shapes", "params_from_jax",
            "params_to_numpy", "tree_sha256"]
 
-_FAMILY = {"dense": transformer, "ssm": ssm}
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "encdec": encdec, "ssm": ssm}
 
 # leaves the reference keeps in float32 whatever the config's dtype
-F32_LEAVES = ("scale", "conv_b", "dt_bias", "A_log", "Dskip")
+F32_LEAVES = ("scale", "conv_b", "dt_bias", "A_log", "Dskip", "router")
+
+# the pytree's stacks of layers (axis 0 the layer)
+STACKS = ("layers", "enc", "dec")
 
 
 def cross_entropy(logits, targets, mask=None):
@@ -53,8 +58,8 @@ def cross_entropy(logits, targets, mask=None):
 
 class Model:
     """A ModelConfig bound to its family's implementation, on one device.
-    ``page`` is the dense family's decode attention page size (the cache
-    length must be a multiple of it)."""
+    ``page`` is the decode attention's page size (the cache length must
+    be a multiple of it)."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  page: int = TOKENS_PER_PAGE):
@@ -73,35 +78,67 @@ class Model:
         with torch.no_grad():
             return self._impl.init(generator, self.cfg)
 
+    def _extras(self, batch) -> dict:
+        """The transformer's stub inputs in a batch: M-RoPE's
+        ``positions3`` and the vision embeddings."""
+        out = {}
+        for key, arg in (("positions3", "positions3"),
+                         ("vision_embeds", "input_embeds")):
+            if batch.get(key) is not None:
+                out[arg] = batch[key].to(self.device)
+        return out
+
     def forward(self, params, batch):
-        return self._impl.forward(params, self.cfg,
-                                  batch["tokens"].to(self.device))
+        cfg, tokens = self.cfg, batch["tokens"].to(self.device)
+        if cfg.family == "ssm":
+            return ssm.forward(params, cfg, tokens)
+        if cfg.family == "encdec":
+            src = batch["src_embeds"].to(self.device, L.dtype_of(cfg))
+            return encdec.forward(params, cfg, tokens, src)
+        return transformer.forward(params, cfg, tokens, **self._extras(batch))
 
     def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16):
         return self._impl.init_cache(self.cfg, batch, seq_len, dtype,
                                      self.device)
 
     def prefill(self, params, batch, cache=None):
-        """Returns (logits of the last position, cache).  Dense: see
-        ``transformer.prefill`` (a given cache is filled in place).  ssm:
-        the cache is None, as the reference returns it; decode starts
-        from ``init_cache``."""
-        tokens = batch["tokens"].to(self.device)
-        if self.cfg.family == "ssm":
+        """Returns (logits of the last position, cache).  dense, moe and
+        vlm: see ``transformer.prefill`` (a given cache is filled in
+        place).  ssm and encdec: the cache is None, as the reference
+        returns it (encdec's prefill is its forward's last logits); decode
+        starts from ``init_cache``."""
+        cfg = self.cfg
+        if cfg.family in ("ssm", "encdec"):
             if cache is not None:
-                raise ValueError("the ssm prefill fills no cache (the "
-                                 "reference's returns none)")
-            return ssm.prefill(params, self.cfg, tokens)
-        return transformer.prefill(params, self.cfg, tokens, cache)
+                raise ValueError(f"the {cfg.family} prefill fills no cache "
+                                 f"(the reference's returns none)")
+            if cfg.family == "encdec":
+                return self.forward(params, batch)[:, -1:], None
+            return ssm.prefill(params, cfg, batch["tokens"].to(self.device))
+        return transformer.prefill(params, cfg,
+                                   batch["tokens"].to(self.device), cache,
+                                   **self._extras(batch))
 
-    def decode_step(self, params, cache, tokens, pos):
+    def decode_step(self, params, cache, tokens, pos, extras=None):
         """Returns (logits [B,1,V], cache), the cache updated in place.
-        The ssm family ignores ``pos``, as the reference does."""
-        tokens = tokens.to(self.device)
-        if self.cfg.family == "ssm":
-            return ssm.decode_step(params, self.cfg, cache, tokens)
-        return transformer.decode_step(params, self.cfg, cache, tokens,
-                                       pos.to(self.device), page=self.page)
+        The ssm family ignores ``pos``, as the reference does.
+        ``extras``: ``positions3`` [3,B,1] for M-RoPE; a vlm step without
+        them uses the text positions (t = h = w = pos), as the
+        reference."""
+        cfg, tokens = self.cfg, tokens.to(self.device)
+        if cfg.family == "ssm":
+            return ssm.decode_step(params, cfg, cache, tokens)
+        pos = pos.to(self.device)
+        if cfg.family == "encdec":
+            return encdec.decode_step(params, cfg, cache, tokens, pos,
+                                      page=self.page)
+        positions3 = (extras or {}).get("positions3")
+        if positions3 is not None:
+            positions3 = positions3.to(self.device)
+        elif cfg.family == "vlm":
+            positions3 = torch.stack([pos[:, None]] * 3)
+        return transformer.decode_step(params, cfg, cache, tokens, pos,
+                                       page=self.page, positions3=positions3)
 
 
 def build(cfg: ModelConfig, device=None, page: int = TOKENS_PER_PAGE):
@@ -110,42 +147,88 @@ def build(cfg: ModelConfig, device=None, page: int = TOKENS_PER_PAGE):
 
 def dummy_batch(cfg: ModelConfig, batch: int, seq: int,
                 generator: torch.Generator):
-    """Random tokens [batch, seq] (int32) drawn from ``generator``."""
+    """Random tokens [batch, seq] (int32) drawn from ``generator``, and
+    the family's stub inputs: vlm ``vision_embeds`` [batch, P, D] (P =
+    min(n_patches, seq // 2)) and ``positions3`` [3, batch, seq] (the
+    text positions in all three streams); encdec ``src_embeds`` [batch,
+    seq, D].  The embeddings are normal draws times 0.02 in the config's
+    dtype (the reference's vision stub is zeros)."""
+    dev = generator.device
     toks = torch.randint(0, cfg.vocab_size, (batch, seq), generator=generator,
-                         device=generator.device, dtype=torch.int32)
-    return {"tokens": toks}
+                         device=dev, dtype=torch.int32)
+    out = {"tokens": toks}
+
+    def embeds(n):
+        return (torch.randn((batch, n, cfg.d_model), generator=generator,
+                            device=dev) * 0.02).to(L.dtype_of(cfg))
+    if cfg.family == "vlm":
+        out["vision_embeds"] = embeds(min(cfg.n_patches, seq // 2))
+        pos = torch.arange(seq, dtype=torch.int32, device=dev)
+        out["positions3"] = pos[None, None, :].expand(3, batch, seq)
+    if cfg.family == "encdec":
+        out["src_embeds"] = embeds(seq)
+    return out
 
 
 # ------------------------------------------------ crossing between packages
 
 
+def _attn_shapes(cfg: ModelConfig) -> dict:
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s = {("wq",): (D, H * hd), ("wk",): (D, K * hd), ("wv",): (D, K * hd),
+         ("wo",): (H * hd, D)}
+    if cfg.qk_norm:
+        s.update({("q_norm", "scale"): (hd,), ("k_norm", "scale"): (hd,)})
+    return s
+
+
+def _ffn_shapes(cfg: ModelConfig) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    if cfg.family == "moe":
+        E = cfg.n_experts
+        return {("router",): (D, E), ("wi",): (E, D, F), ("wg",): (E, D, F),
+                ("wo",): (E, F, D)}
+    return {("wi",): (D, F), ("wg",): (D, F), ("wo",): (F, D)}
+
+
 def param_shapes(cfg: ModelConfig) -> dict:
-    """Path -> shape of every leaf of the JAX parameter pytree of a dense
-    or ssm model (layers stacked on axis 0), paths in sorted order."""
+    """Path -> shape of every leaf of the JAX parameter pytree (layers
+    stacked on axis 0), paths in sorted order."""
     L.check_ported(cfg)
-    D, V, n = cfg.d_model, cfg.padded_vocab, cfg.n_layers
+    D, V = cfg.d_model, cfg.padded_vocab
     s = {("embed", "tok"): (V, D), ("ln_f", "scale"): (D,)}
     if not cfg.tie_embeddings:
         s[("embed", "head")] = (D, V)
+
+    def sub(name, shapes):
+        return {(name,) + path: shape for path, shape in shapes.items()}
+
+    norm = {("scale",): (D,)}
     if cfg.family == "ssm":
         di, G, N, H = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
         conv_dim = di + 2 * G * N
-        per = {("ln", "scale"): (D,),
-               ("mixer", "in_proj"): (D, 2 * di + 2 * G * N + H),
-               ("mixer", "conv_w"): (cfg.ssm_conv, conv_dim),
-               ("mixer", "conv_b"): (conv_dim,), ("mixer", "dt_bias"): (H,),
-               ("mixer", "A_log"): (H,), ("mixer", "Dskip"): (H,),
-               ("mixer", "norm", "scale"): (di,),
-               ("mixer", "out_proj"): (di, D)}
+        stacks = {"layers": (cfg.n_layers, {
+            ("ln", "scale"): (D,),
+            ("mixer", "in_proj"): (D, 2 * di + 2 * G * N + H),
+            ("mixer", "conv_w"): (cfg.ssm_conv, conv_dim),
+            ("mixer", "conv_b"): (conv_dim,), ("mixer", "dt_bias"): (H,),
+            ("mixer", "A_log"): (H,), ("mixer", "Dskip"): (H,),
+            ("mixer", "norm", "scale"): (di,),
+            ("mixer", "out_proj"): (di, D)})}
+    elif cfg.family == "encdec":
+        s[("enc_ln", "scale")] = (D,)
+        mlp = _ffn_shapes(cfg)
+        enc = {**sub("attn", _attn_shapes(cfg)), **sub("ln1", norm),
+               **sub("ln2", norm), **sub("mlp", mlp)}
+        dec = {**enc, **sub("cross", _attn_shapes(cfg)), **sub("lnx", norm)}
+        stacks = {"enc": (cfg.n_enc_layers, enc), "dec": (cfg.n_layers, dec)}
     else:
-        F, H, K, hd = cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        per = {("attn", "wq"): (D, H * hd), ("attn", "wk"): (D, K * hd),
-               ("attn", "wv"): (D, K * hd), ("attn", "wo"): (H * hd, D),
-               ("ffn", "wi"): (D, F), ("ffn", "wg"): (D, F),
-               ("ffn", "wo"): (F, D), ("ln1", "scale"): (D,),
-               ("ln2", "scale"): (D,)}
-    for path, shape in per.items():
-        s[("layers",) + path] = (n,) + shape
+        stacks = {"layers": (cfg.n_layers, {
+            **sub("attn", _attn_shapes(cfg)), **sub("ffn", _ffn_shapes(cfg)),
+            **sub("ln1", norm), **sub("ln2", norm)})}
+    for name, (n, per) in stacks.items():
+        for path, shape in per.items():
+            s[(name,) + path] = (n,) + shape
     return dict(sorted(s.items()))
 
 
@@ -207,19 +290,41 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
                                               _leaf_dtype(path, cfg), dev)
                             for path, a in got.items() if path[:-1] == sub})
 
-    embed, ln_f = mod(L.Embed, ("embed",)), mod(L.RMSNorm, ("ln_f",))
+    def attn(sub, i):
+        norms = {}
+        if cfg.qk_norm:
+            norms = {n: mod(L.RMSNorm, sub + (n,), i)
+                     for n in ("q_norm", "k_norm")}
+        return mod(L.Attention, sub, i, **norms)
+
+    def norm(*sub, i=None):
+        return mod(L.RMSNorm, sub, i)
+
+    embed, ln_f = mod(L.Embed, ("embed",)), norm("ln_f")
     if cfg.family == "ssm":
         blocks = [ssm.Block(
-            ln=mod(L.RMSNorm, ("layers", "ln"), i),
+            ln=norm("layers", "ln", i=i),
             mixer=mod(ssm.Mixer, ("layers", "mixer"), i,
-                      norm=mod(L.RMSNorm, ("layers", "mixer", "norm"), i)))
+                      norm=norm("layers", "mixer", "norm", i=i)))
             for i in range(cfg.n_layers)]
         return ssm.SSM(embed=embed, layers=blocks, ln_f=ln_f)
+    if cfg.family == "encdec":
+        enc = [encdec.EncBlock(
+            ln1=norm("enc", "ln1", i=i), attn=attn(("enc", "attn"), i),
+            ln2=norm("enc", "ln2", i=i), mlp=mod(L.MLP, ("enc", "mlp"), i))
+            for i in range(cfg.n_enc_layers)]
+        dec = [encdec.DecBlock(
+            ln1=norm("dec", "ln1", i=i), attn=attn(("dec", "attn"), i),
+            lnx=norm("dec", "lnx", i=i), cross=attn(("dec", "cross"), i),
+            ln2=norm("dec", "ln2", i=i), mlp=mod(L.MLP, ("dec", "mlp"), i))
+            for i in range(cfg.n_layers)]
+        return encdec.EncDec(embed=embed, enc=enc, enc_ln=norm("enc_ln"),
+                             dec=dec, ln_f=ln_f)
+    ffn = L.MoE if cfg.family == "moe" else L.MLP
     blocks = [transformer.Block(
-        ln1=mod(L.RMSNorm, ("layers", "ln1"), i),
-        attn=mod(L.Attention, ("layers", "attn"), i),
-        ln2=mod(L.RMSNorm, ("layers", "ln2"), i),
-        ffn=mod(L.MLP, ("layers", "ffn"), i)) for i in range(cfg.n_layers)]
+        ln1=norm("layers", "ln1", i=i), attn=attn(("layers", "attn"), i),
+        ln2=norm("layers", "ln2", i=i), ffn=mod(ffn, ("layers", "ffn"), i))
+        for i in range(cfg.n_layers)]
     return transformer.Transformer(embed=embed, layers=blocks, ln_f=ln_f)
 
 
@@ -228,8 +333,8 @@ def params_to_numpy(params) -> dict:
     tree, per_layer = {}, {}
     for name, p in params.named_parameters():
         path = tuple(name.split("."))
-        if path[0] == "layers":
-            per_layer.setdefault(("layers",) + path[2:], []).append(_numpy(p))
+        if path[0] in STACKS:
+            per_layer.setdefault((path[0],) + path[2:], []).append(_numpy(p))
             continue
         tree.setdefault(path[0], {})[path[1]] = _numpy(p)
     for path, leaves in per_layer.items():
@@ -254,7 +359,12 @@ def _draw(rng, path, shape) -> np.ndarray:
     a = rng.standard_normal(shape, dtype=np.float32)
     if path[-1] == "conv_w":
         return a * np.float32(0.1)
-    fan_in = shape[1] if path[0] == "layers" else shape[0]
+    if path[0] not in STACKS:
+        fan_in = shape[0]
+    elif path[-2] == "ffn" and len(shape) == 4:
+        fan_in = shape[2]     # experts [n,E,D,F] / [n,E,F,D]: D or F
+    else:
+        fan_in = shape[1]
     a *= np.float32(1.0 / np.sqrt(fan_in))
     return a
 
@@ -263,7 +373,9 @@ def numpy_params(cfg: ModelConfig, seed: int) -> dict:
     """A JAX-shaped parameter pytree of float32 numpy arrays drawn from
     ``numpy.random.default_rng(seed)`` leaf by leaf in sorted path order:
     norm scales and Dskip 1, conv_b 0, conv_w 0.1-normal, every other
-    matrix normal(0, 1/fan_in) with fan_in its first per-layer axis.
+    matrix normal(0, 1/fan_in) with fan_in its first per-layer axis, but
+    an expert tensor's its second (D for wi and wg, F for wo: the
+    reference's ``in_axis=1``).
     A_log and dt_bias follow Mamba-2's published init (A = -exp(A_log)
     uniform in [-16, -1]; softplus(dt_bias) log-uniform in [1e-3, 1e-1]),
     where the reference's init has zeros, so that a chunk's decay sums
