@@ -98,7 +98,18 @@ parallel, and drives its paths on the card:
   counted, timed and profiled; qwen3-32b (qk_norm), mixtral-8x7b (window,
   top-2 experts) and qwen2-vl-7b (M-RoPE over a vision grid) at full
   width, 2 layers, kernel path against plain path, and mixtral's smoke
-  ring (window 32, pages of 16) in float32 past its wrap.
+  ring (window 32, pages of 16) in float32 past its wrap;
+- serving recurrentgemma-2b (phase 17), the hybrid of RG-LRU blocks and
+  local attention: the bf16 flash kernel at hd 256 (10 query heads on
+  one kv head) against its plain version at the prefill's shape, where
+  the window binds, ragged and in the model's strided views, timed
+  beside SDPA with its registers and spills; the model at full width, 3
+  layers (one superblock), against the JAX snapshot
+  ``tests/golden/torch_recurrentgemma_fullwidth.json``; then at full
+  depth, 26 layers, 8 requests x 512 tokens and 64 greedy decode steps
+  from ``init_cache`` over a ring of 640 slots, counted (8 flash launches
+  a prefill, 8 paged a step), timed, profiled, and checked against the
+  plain path.
 
 Any failed check raises, so the exit code is non-zero; no phase's
 failure is caught.  With no CUDA device, or without the repository around it, it
@@ -1867,25 +1878,31 @@ def zero_attention_counts():
     pa.LAUNCHES_BY_FORM.update(cluster=0, two_pass=0)
 
 
-def full_depth_serving(dev, name: str, smi: str) -> dict:
-    """Phases 14 (b) and 15 (b): ``name`` at full width and depth, random
-    weights drawn on the card, serves FD_B requests: prefill of FD_PROMPT
-    tokens (seamless: over FD_PROMPT source frames), then FD_STEPS greedy
-    decode steps (granite-moe over a cache of FD_CACHE positions after
-    the prompt; seamless from position 0 over a cache of FD_PROMPT, its
-    cross cache the encoder's projection), each counted: flash launches a
-    prefill (one a layer; seamless: encoder, self and cross), paged
-    launches a step (one a layer; seamless: self and cross), all bf16 on
-    the tensor-core kernel and in the plan's form."""
+def full_depth_serving(dev, name: str, smi: str, check=None) -> dict:
+    """Phases 14 (b), 15 (b) and 17 (c): ``name`` at full width and
+    depth, random weights drawn on the card, serves FD_B requests:
+    prefill of FD_PROMPT tokens (seamless: over FD_PROMPT source frames),
+    then FD_STEPS greedy decode steps (granite-moe over a cache of
+    FD_CACHE positions after the prompt; recurrentgemma, whose prefill
+    fills no cache, from ``init_cache`` at the same positions over a ring
+    of FD_CACHE slots; seamless from position 0 over a cache of
+    FD_PROMPT, its cross cache the encoder's projection), each counted:
+    flash launches a prefill (one an attention layer; seamless: encoder,
+    self and cross), paged launches a step (the same; seamless: self and
+    cross), all bf16 on the tensor-core kernel and in the plan's form.
+    ``check(m, params, batch)``, where given, runs before the weights go,
+    and its result is returned under ``"check"``."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.models import encdec
+    from repro_torch.models import encdec, rglru
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
 
     cfg = get_config(name)
     ed = cfg.family == "encdec"
+    hybrid = cfg.family == "hybrid"
+    attn_layers = rglru.layout(cfg)[0] if hybrid else cfg.n_layers
     m = M.build(cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
@@ -1896,11 +1913,12 @@ def full_depth_serving(dev, name: str, smi: str) -> dict:
           f"{cfg.n_params() / 1e9:.2f} B parameters in {cfg.dtype}, drawn on "
           f"the card in {time.perf_counter() - t0:.1f} s")
     batch = M.dummy_batch(cfg, FD_B, FD_PROMPT, gen)
-    want_flash = cfg.n_enc_layers + 2 * cfg.n_layers if ed else cfg.n_layers
-    want_paged = 2 * cfg.n_layers if ed else cfg.n_layers
+    want_flash = cfg.n_enc_layers + 2 * cfg.n_layers if ed else attn_layers
+    want_paged = 2 * cfg.n_layers if ed else attn_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cache = None if ed else m.init_cache(FD_B, FD_CACHE)
+    stateless = cfg.family in M.STATELESS_PREFILL   # fills no cache
+    cache = None if stateless else m.init_cache(FD_B, FD_CACHE)
     zero_attention_counts()
     t0 = time.perf_counter()
     lg, cache = m.prefill(params, batch, cache)
@@ -1921,6 +1939,8 @@ def full_depth_serving(dev, name: str, smi: str) -> dict:
         fill_cross_cache(params, cfg, cache,
                          encdec.encode(params, cfg, batch["src_embeds"]), L)
         start = 0
+    if hybrid:
+        cache = m.init_cache(FD_B, FD_CACHE)
     zero_attention_counts()
     t0 = time.perf_counter()
     for i in range(FD_STEPS):
@@ -1947,7 +1967,7 @@ def full_depth_serving(dev, name: str, smi: str) -> dict:
     # where the device time goes (torch.profiler): one prefill, then 4
     # decode steps on from where the timed ones stopped
     wall, rows = profiled(lambda: m.prefill(
-        params, batch, None if ed else m.init_cache(FD_B, FD_CACHE)))
+        params, batch, None if stateless else m.init_cache(FD_B, FD_CACHE)))
     r["profiled_prefill"] = report_rows(f"{name} profiled prefill", wall,
                                         rows, 1)
 
@@ -1966,6 +1986,11 @@ def full_depth_serving(dev, name: str, smi: str) -> dict:
           f"{flash_by_kernel}), decode {decode_launches} "
           f"(paged by form {by_form}, {want_paged} a step); logits finite; "
           f"peak device memory {peak:.2f} GiB")
+    if check is not None:
+        del cache
+        torch.cuda.empty_cache()
+        r["check"] = check(m, params, batch)
+        cache = None
     del params, cache
     torch.cuda.empty_cache()
     return r
@@ -1992,9 +2017,12 @@ def kernel_vs_plain(m, params, batch, steps: int, cache_len: int, tol: float,
     deciding).
     Returns the max abs err, what was left out, and the kernel run's
     prefill ms and decode ms a step (host clock after a sync)."""
+    from repro_torch.models import model as M
+
     cfg = m.cfg
     B, S = batch["tokens"].shape
     moe_ = cfg.family == "moe"
+    stateless = cfg.family in M.STATELESS_PREFILL
 
     def run(tokens=None):
         calls, restore = record_routes()
@@ -2002,9 +2030,12 @@ def kernel_vs_plain(m, params, batch, steps: int, cache_len: int, tol: float,
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lg, cache = m.prefill(params, batch, m.init_cache(B, cache_len))
+            lg, cache = m.prefill(params, batch, None if stateless
+                                  else m.init_cache(B, cache_len))
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t0) * 1e3
+            if stateless:   # decode starts from init_cache
+                cache = m.init_cache(B, cache_len)
             out.append(lg)
             routes.append(calls[:])
             t0 = time.perf_counter()
@@ -2122,6 +2153,185 @@ def dense_options(dev, smi: str) -> dict:
     out["mixtral-8x7b-smoke-ring"] = r
     print(f"phase 16's times: host clock after a sync, on {smi}")
     return out
+
+
+# ---------------------------------------------------------- hybrid
+
+# phase 17 (a): the bf16 flash kernel at recurrentgemma-2b's head width,
+# (B, S, Sk, H, K, causal, window, model layout) -- the hybrid's prefill
+# (8 x 512, window 2048, which never binds at 512), a 4096-token
+# sequence where it binds, ragged S != Sk (no multiple of a 64-row or
+# 32-key tile), causal and not, and windows that bind on ragged shapes:
+# non-causal, where rows 126 .. 199 see no key (0, in both versions), and
+# causal over 300 tokens
+HYBRID_HD = 256
+HYBRID_FLASH_CASES = [(8, 512, 512, 10, 1, True, 2048, True),
+                      (1, 4096, 4096, 10, 1, True, 2048, True),
+                      (2, 77, 200, 10, 1, True, None, False),
+                      (2, 200, 77, 10, 1, False, None, False),
+                      (2, 200, 77, 10, 1, False, 50, False),
+                      (2, 300, 300, 10, 1, True, 128, True)]
+
+
+def flash_hd256(dev, flash_log: str, smi: str) -> dict:
+    """Phase 17 (a): ``flash_mma<256>`` against its plain version at
+    HYBRID_FLASH_CASES (FLASH_BF16_TOL, each call checked to have taken
+    the mma_bf16 kernel), then timed at the hybrid's prefill shape beside
+    the plain version and SDPA (k and v repeated to the 10 query heads),
+    with its bound, registers, spills and shared memory.  A float32 call
+    at hd 256 must raise (no kernel takes it)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(17)
+
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev).to(torch.bfloat16)
+
+    hd, err = HYBRID_HD, 0.0
+    for B, S, Sk, H, K, causal, window, layout in HYBRID_FLASH_CASES:
+        if layout:   # [B,S,H,hd] tensors seen as [B,H,S,hd], as ops does
+            q = draw((B, S, H, hd)).transpose(1, 2)
+            k, v = (draw((B, Sk, K, hd)).transpose(1, 2) for _ in range(2))
+        else:
+            q, k, v = draw((B, H, S, hd)), draw((B, K, Sk, hd)), \
+                draw((B, K, Sk, hd))
+        before = fa.LAUNCHES_BY_KERNEL["mma_bf16"]
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        if fa.LAUNCHES_BY_KERNEL["mma_bf16"] != before + 1:
+            raise AssertionError(f"flash {B, S, Sk, H, K, hd} did not launch "
+                                 f"mma_bf16")
+        want = ref.mha_reference(q, k, v, causal=causal, window=window)
+        e = close(got, want, FLASH_BF16_TOL, f"flash {B, S, Sk, H, K, hd}")
+        err = max(err, e)
+        blind = Sk - 1 + window if window else S   # rows that see no key
+        if blind < S and got[:, :, blind:].any():
+            raise AssertionError(f"flash {B, S, Sk, H, K, hd} wrote other "
+                                 f"than 0 in rows {blind}.. that see no key")
+        print(f"flash mma_bf16 B={B} S={S} Sk={Sk} H={H} K={K} hd={hd} "
+              f"causal={causal} window={window}"
+              f"{' [B,S,H,hd] views' if layout else ''}: max abs err "
+              f"{e:.3g} (tolerance {FLASH_BF16_TOL})")
+    try:
+        fa.flash_attention(q.float(), k.float(), v.float())
+    except ValueError as e:
+        print(f"float32 at hd {hd} raises, as it must: {e}")
+    else:
+        raise AssertionError(f"a float32 flash call at hd {hd} ran")
+    B, S, _, H, K, causal, window, _ = HYBRID_FLASH_CASES[0]
+    q = draw((B, S, H, hd)).transpose(1, 2)
+    k, v = (draw((B, S, K, hd)).transpose(1, 2) for _ in range(2))
+    kx, vx = (x.repeat_interleave(H // K, dim=1) for x in (k, v))
+    r = {"ms": device_ms(lambda: fa.flash_attention(
+            q, k, v, causal=causal, window=window)),
+         "plain_ms": device_ms(lambda: ref.mha_reference(
+             q, k, v, causal=causal, window=window)),
+         "library_ms": device_ms(
+             lambda: torch.nn.functional.scaled_dot_product_attention(
+                 q, kx, vx, is_causal=True))}
+    r["bound_ms"], r["bound_by"] = flash_bound_ms(q, k, causal, window)
+    ops_ = flash_ops(q, k, causal, window)
+    r["tflops"] = ops_ / (r["ms"] * 1e-3) / 1e12
+    r["ptxas"] = ptxas_usage(flash_log, f"flash_mmaILi{hd}E")
+    r["smem_bytes"] = fa.smem_bytes(torch.bfloat16, hd)
+    r["max_abs_err"] = err
+    r["unit"] = (f"recurrentgemma-2b prefill: B={B}, S={S}, H={H}, K={K}, "
+                 f"hd={hd}, bf16, causal, window {window}")
+    r["card"] = smi
+    print(f"flash_attention (mma_bf16, hd {hd}): {r['ptxas']}; "
+          f"{r['smem_bytes']} bytes of dynamic shared memory a block; "
+          f"{r['ms']:.4f} ms at {r['unit']}, plain {r['plain_ms']:.4f} ms, "
+          f"SDPA {r['library_ms']:.4f} ms; {r['tflops']:.1f} TFLOP/s on the "
+          f"{ops_ / 1e9:.2f} GFLOP the mask keeps, "
+          f"{r['bound_ms'] / r['ms']:.1%} of the bound ({r['bound_ms']:.5f} "
+          f"ms, {r['bound_by']}); {smi}")
+    return r
+
+
+def draw_hybrid_snapshot() -> dict:
+    """Phase 17 (b)'s inputs, drawn on the host while phase 1 builds the
+    kernels (numpy draws and digests outside the GIL): the snapshot, the
+    3-layer config, its weights from ``numpy_params`` and the prompt,
+    each checked against the snapshot's sha256."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    snap = load_snapshot("torch_recurrentgemma_fullwidth.json")
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"),
+                              n_layers=snap["n_layers"])
+    t0 = time.perf_counter()
+    tree = M.numpy_params(cfg, snap["seed"])
+    if M.tree_sha256(tree) != snap["weights_sha256"]:
+        raise AssertionError("the weights differ from the ones the snapshot "
+                             "was made from (numpy draws other normals?)")
+    prompt = np.random.default_rng(snap["seed"] + 1).integers(
+        0, cfg.vocab_size, (snap["batch"], snap["prompt_len"])).astype(
+            np.int32)
+    if M.tree_sha256({}, prompt) != snap["prompt_sha256"]:
+        raise AssertionError("the prompt differs from the snapshot's")
+    return {"snap": snap, "cfg": cfg, "tree": tree, "prompt": prompt,
+            "seconds": time.perf_counter() - t0}
+
+
+def hybrid_vs_snapshot(dev, drawn: dict) -> dict:
+    """Phase 17 (b): recurrentgemma-2b at full width, 3 layers (one
+    superblock: the 2-layer cut would be the tail alone, with no
+    attention), against tests/golden/torch_recurrentgemma_fullwidth.json:
+    ``Model.prefill``'s last logits (no cache), then 4 greedy decode
+    steps from ``init_cache`` at positions 0..3, the snapshot's tokens fed
+    back.  The prefill must launch flash once, each step paged once.
+    ``drawn``: ``draw_hybrid_snapshot()``'s result, whose weights this
+    consumes."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import model as M
+
+    snap, cfg, prompt = drawn["snap"], drawn["cfg"], drawn["prompt"]
+    B, S = snap["batch"], snap["prompt_len"]
+    print(f"weights and prompt equal the snapshot's (sha256; drawn and "
+          f"digested in {drawn['seconds']:.1f} s during phase 1)")
+    m = M.build(cfg, dev)
+    params = M.params_from_jax(drawn.pop("tree"), cfg, dev)
+    zero_attention_counts()
+    logits, none = m.prefill(params, {"tokens": torch.from_numpy(prompt)})
+    if none is not None or (fa.LAUNCHES, pa.LAUNCHES) != (1, 0):
+        raise AssertionError(f"the prefill returned a cache or launched "
+                             f"flash {fa.LAUNCHES}, paged {pa.LAUNCHES} times")
+    steps = [logits]
+    cache = m.init_cache(B, snap["cache_len"])
+    for i in range(snap["decode_steps"]):
+        tok = torch.tensor(snap["steps"][i]["token"], dtype=torch.int32)
+        logits, cache = m.decode_step(params, cache, tok[:, None],
+                                      torch.full((B,), i, dtype=torch.int32))
+        steps.append(logits)
+    if (fa.LAUNCHES, pa.LAUNCHES) != (1, snap["decode_steps"]):
+        raise AssertionError(f"decode launched paged {pa.LAUNCHES} times")
+    worst, greedy = 0.0, 0
+    for i, (lg, st) in enumerate(zip(steps, snap["steps"])):
+        err, n = snapshot_rows(lg[:, -1], st, list(range(B)), SNAP_TOL,
+                               f"step {i}")
+        worst, greedy = max(worst, err), greedy + n
+    print(f"prefill ({B} x {S} tokens) + {snap['decode_steps']} decode steps "
+          f"from position 0 over a cache of {snap['cache_len']}: max abs err "
+          f"{worst:.4g} on the top-{snap['top']} logits and logsumexp "
+          f"(tolerance {SNAP_TOL}); {greedy} greedy tokens with a top-2 "
+          f"margin above it all equal the snapshot's")
+    del params, cache
+    return {"max_abs_err": worst, "greedy_compared": greedy}
+
+
+def hybrid_kernel_vs_plain(m, params, batch) -> dict:
+    """Phase 17 (c)'s check: the 26-layer model's prefill and FD_STEPS
+    greedy decode steps through the kernels against the same through
+    their plain versions, logits within OPT_TOL of the largest
+    (``close_scaled``, phase 16's rule)."""
+    return kernel_vs_plain(m, params, batch, FD_STEPS, FD_CACHE, OPT_TOL,
+                           f"recurrentgemma-2b (26 layers, full width, bf16, "
+                           f"G {m.cfg.n_heads // m.cfg.n_kv_heads}, hd "
+                           f"{m.cfg.hd})", compare=close_scaled)
 
 
 # ------------------------------------------------------- serving engine
@@ -2377,9 +2587,12 @@ def main() -> int:
     print(f"device {kind}, count {torch.cuda.device_count()}, torch "
           f"{torch.__version__}, cuda {torch.version.cuda}")
     print(smi)
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        builds = dict(zip(LIBRARIES, pool.map(build.compile_kernel,
-                                              LIBRARIES)))
+    with ThreadPoolExecutor(1) as host:
+        hybrid_draw = host.submit(draw_hybrid_snapshot)   # for phase 17
+        with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+            builds = dict(zip(LIBRARIES, pool.map(build.compile_kernel,
+                                                  LIBRARIES)))
+        hybrid_inputs = hybrid_draw.result()
     for src, built in builds.items():
         print(f"built {src} in {built['seconds']:.2f} s")
         for ln in built["log"].splitlines():
@@ -3014,6 +3227,13 @@ def main() -> int:
     finally:
         runner.CACHE_DIR = cache_dir
         shutil.rmtree(tmp, ignore_errors=True)
+    # the fill's record, derived from its ladder_fill span tree
+    fill_rec = runner.LADDER_PERF[-1]
+    if (fill_rec["backend"], fill_rec["n_members"], fill_rec["one_compile"],
+            fill_rec["n_chunks"]) != ("cuda", S, True, -(-W // chunk)):
+        raise AssertionError(f"the fill's LADDER_PERF record {fill_rec}")
+    print(f"LADDER_PERF record of the fill (obs.report.fill_record of its "
+          f"span tree): {json.dumps(fill_rec)}")
     fill_launches = mmu_step.LAUNCHES
     fill_peak = torch.cuda.max_memory_allocated() / 2**20
     by_c = {k: v for k, v in mmu_step.LAUNCHES_BY_COMPOSITION.items() if v}
@@ -3069,7 +3289,7 @@ def main() -> int:
         "peak_device_mib": fill_peak, "placement": "device",
         "members_static_kernel_ms": static_ms,
         "members_static_kernel_ms_sum": static_sum,
-        "ptxas": ladder_ptxas}
+        "ptxas": ladder_ptxas, "ladder_perf": fill_rec}
     print(f"run_ladder('radix') at n={TIMED_N} from a fresh cache: {S} "
           f"members x {W} workloads, chunk {chunk}, {lanes} lanes a launch "
           f"(ladder_native, device), {fill_launches} launches; fill wall "
@@ -3337,6 +3557,22 @@ def main() -> int:
     options = dense_options(dev, smi)
     print(f"phase 16: {time.perf_counter() - t:.1f} s")
 
+    # ----------------------------------------------------------- 17
+    torch.cuda.empty_cache()
+    t = phase(f"17. recurrentgemma-2b: flash at hd {HYBRID_HD} against its "
+              f"plain version, 3 layers at full width against the JAX "
+              f"snapshot, then full depth, {FD_B} requests x {FD_PROMPT} "
+              f"prompt tokens, {FD_STEPS} decode steps")
+    hd256 = flash_hd256(dev, builds["flash_attention"]["log"], smi)
+    torch.cuda.empty_cache()
+    hybrid_snap = hybrid_vs_snapshot(dev, hybrid_inputs)
+    torch.cuda.empty_cache()
+    hybrid_serve = full_depth_serving(dev, "recurrentgemma-2b", smi,
+                                      check=hybrid_kernel_vs_plain)
+    hd256["launches_on_hybrid_path"] = (
+        hybrid_serve["prefill_launches"]["flash_attention"])
+    print(f"phase 17: {time.perf_counter() - t:.1f} s")
+
     # each registered system's static instantiation (composition/placement)
     # and, for a ladder member, the ladder instantiation the tables run
     ladder_of = {m: lad for lad, ms in systems.LADDERS.items() for m in ms}
@@ -3362,7 +3598,8 @@ def main() -> int:
     # seamless-m4t-medium (15), a prefill and all decode steps each
     by_path = {"granite-3-2b": serve["launches"]}
     for model, r in (("granite-moe-1b-a400m", moe_serve),
-                     ("seamless-m4t-medium", seamless_serve)):
+                     ("seamless-m4t-medium", seamless_serve),
+                     ("recurrentgemma-2b", hybrid_serve)):
         by_path[model] = {k: r["prefill_launches"][k]
                           + r["decode_launches"][k]
                           for k in r["prefill_launches"]}
@@ -3376,6 +3613,7 @@ def main() -> int:
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "library_ms": r["library_ms"], "unit": shape[name],
              "matches_plain": True,
+             **({"hd256": hd256} if name == "flash_attention" else {}),
              **{x: r[x] for x in ("tflops", "plan", "rotated_ms",
                                   "cluster_ms", "cluster_rotated_ms",
                                   "two_pass_ms", "two_pass_rotated_ms",
@@ -3386,6 +3624,9 @@ def main() -> int:
         "granite-moe-1b-a400m": {"snapshot": moe_snap, "serving": moe_serve},
         "seamless-m4t-medium": {"snapshot": seamless_snap,
                                 "serving": seamless_serve},
+        "recurrentgemma-2b": {"flash_hd256": hd256,
+                              "snapshot": hybrid_snap,
+                              "serving": hybrid_serve},
         "dense_options": options}))
     print(smi)
     print(json.dumps({"kernels": [{

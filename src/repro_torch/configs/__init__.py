@@ -1,9 +1,7 @@
 """Config registry: one module per assigned architecture.
 
 The port's copy of ``repro.configs``: the same ``ARCHS`` list and
-lookups.  Every architecture's module is ported but recurrentgemma-2b's
-(the hybrid family), whose name raises, naming the ROADMAP queue that
-brings it.
+lookups, every architecture's module ported (``PORTED == ARCHS``).
 """
 from __future__ import annotations
 
@@ -22,16 +20,12 @@ ARCHS = [
     "qwen2-vl-7b",
 ]
 
-PORTED = tuple(a for a in ARCHS if a != "recurrentgemma-2b")
+PORTED = tuple(ARCHS)
 
 
 def _module(name: str):
     if name not in ARCHS:
         raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP Queue 1, Models); the port "
-            f"has {list(PORTED)}")
     return importlib.import_module(
         "repro_torch.configs." + name.replace("-", "_").replace(".", "_"))
 

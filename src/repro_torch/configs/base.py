@@ -5,7 +5,7 @@ fields, properties and shape table, so a configuration means the same
 model in both packages.
 
 ``family`` selects the backbone builder in ``repro_torch.models.model``
-(the port builds all but ``hybrid``):
+(the port builds every family):
   dense  — decoder-only transformer (GQA, RoPE, SwiGLU, opt. qk_norm/SWA)
   moe    — dense backbone with MoE FFN blocks (top-k routing)
   ssm    — mamba2 (SSD, attention-free)

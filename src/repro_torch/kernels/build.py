@@ -16,6 +16,8 @@ import shutil
 import subprocess
 import time
 
+import repro_torch.obs as obs
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.abspath(os.path.join(CSRC, "..", "..", "..", "..",
                                          "build", "kernels"))
@@ -84,8 +86,19 @@ def compile_kernel(name: str) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library, compiled first if this source has no build."""
+    """The kernel library, compiled first if this source has no build.
+
+    Emits one ``EV_COMPILE`` event (``fn`` = ``name``, ``built``: whether
+    nvcc ran, ``seconds``) under the caller's current span: the port's
+    counterpart of the reference's jit-cache misses, which a ladder
+    fill's ``dispatch_compiles`` counts.  The kernels' wrappers load
+    each library once a process."""
+    t0 = time.perf_counter()
     path = library_path(name)
-    if not os.path.exists(path):
+    built = not os.path.exists(path)
+    if built:
         path = compile_kernel(name)["path"]
-    return ctypes.CDLL(path)
+    lib = ctypes.CDLL(path)
+    obs.event(obs.names.EV_COMPILE, fn=name, built=built,
+              seconds=time.perf_counter() - t0)
+    return lib

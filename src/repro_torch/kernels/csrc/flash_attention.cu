@@ -13,17 +13,23 @@
 // 1/sqrt(hd) applied to q.k in float32, NEG_INF = -1e30 on masked scores
 // (never -INFINITY: a row masked in its first tile gets exp(0), wiped
 // later by corr = 0, as in Pallas), the result divided by max(l, 1e-30),
-// ragged S and Sk masked.  Tiles wholly above the causal diagonal or
-// wholly outside the window are never loaded.  Any strides, hd
+// ragged S and Sk masked.  A row that sees no key at all (a window that
+// ends before the keys do, S > Sk - 1 + window) is written as 0, what
+// Pallas gives when it skips every k-block of the row; its running max
+// is still NEG_INF at the end.  Tiles wholly above the causal diagonal
+// or wholly outside the window are never loaded.  Any strides, hd
 // contiguous.  The wrapper's `kernel_for` picks the kernel by dtype.
 //
-// bf16: `flash_mma`, on the tensor cores (hd 16, 32, 64, 128).
+// bf16: `flash_mma`, on the tensor cores (hd 16, 32, 64, 128, 256).
 //  - Four warps a block, each owning an m16 tile of query rows.  Q is
-//    copied once with cp.async and held as mma A fragments (ldmatrix).
-//  - K and V tiles of 64 keys stream through a 2-stage ring in dynamic
-//    shared memory, cp.async.cg 16 bytes a thread, each thread's
-//    addresses worked out once; rows past Sk are zero-filled (src-size
-//    0).  Tile t + 1 is in flight while tile t is computed.
+//    copied once with cp.async; up to hd 128 it is held as mma A
+//    fragments (ldmatrix) for the whole block, at hd 256 it stays in
+//    shared memory and each k-step of Q.K^T reads its fragment there
+//    (see "hd 256" below).
+//  - K and V tiles of 64 keys (32 at hd 256) stream through a 2-stage
+//    ring in dynamic shared memory, cp.async.cg 16 bytes a thread, each
+//    thread's addresses worked out once; rows past Sk are zero-filled
+//    (src-size 0).  Tile t + 1 is in flight while tile t is computed.
 //  - Rows are XOR-swizzled in 16-byte chunks, so that the eight rows an
 //    ldmatrix reads sit in distinct banks (at hd 64 a row is 128 bytes,
 //    and unswizzled every ldmatrix would be an 8-way conflict).
@@ -62,6 +68,23 @@
 // m16 tiles a warp, 8 warps a block, 128-key tiles, a 3-stage ring and
 // 3 blocks an SM were each slower at that shape.
 //
+// hd 256 (recurrentgemma-2b's local attention, 10 query heads on one kv
+// head) is laid out for its width, not as hd 128 with one more case:
+//  - Registers.  The float32 output alone is hd/8 x 4 = 128 registers a
+//    thread; Q held as A fragments would add hd/16 x 4 = 64 and a 64-key
+//    S tile 32, past the 255 a thread may have.  So Q's fragments are
+//    read from shared memory at each of the 16 k-steps (one ldmatrix.x4
+//    beside the K fragments it meets), and the key tile is 32 wide, so
+//    that S is 16 registers.
+//  - Shared memory.  Q is 32 KiB and a 32-key K or V tile 16 KiB, so the
+//    2-stage ring and Q take 96 KiB: two blocks an SM (a 64-key ring
+//    would take 160 KiB and leave one).  With 128 threads and two blocks
+//    an SM, __launch_bounds__ leaves each thread 255 registers.
+//  - A 32-key row of 512 bytes is 32 chunks; the loader's 128 threads
+//    cover 4 rows a pass, not a multiple of the 8-row swizzle period, so
+//    its addresses are worked out per row (at compile time, the loop is
+//    unrolled).
+//
 // float32: `flash_fma`, on the CUDA cores (hd 16, 32, 64), the kernel of
 // the first port: one thread per query row (64 a block), q and the
 // output accumulator in registers, K and V tiles in shared memory read
@@ -78,6 +101,7 @@
 // (phase 8), with the registers and shared memory of this build.
 
 #include <atomic>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 
@@ -218,7 +242,8 @@ __global__ void __launch_bounds__(BQ) flash_fma(FlashArgs a) {
   }
 
   if (!qvalid) return;
-  const float den = fmaxf(l, 1e-30f);
+  // a row that saw no key (m still NEG_INF) is divided by infinity, to 0
+  const float den = m == NEG_INF ? INFINITY : fmaxf(l, 1e-30f);
   float* op = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh +
               static_cast<long long>(qpos) * a.o_ss;
 #pragma unroll
@@ -243,8 +268,6 @@ using bf16 = __nv_bfloat16;
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int TQ = 16 * WARPS;  // query rows per block: an m16 tile a warp
-constexpr int TK = 64;          // keys per K/V tile: 8 n-tiles of 8
-constexpr int NT = TK / 8;
 constexpr int STAGES = 2;       // K/V tiles in the ring
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -252,9 +275,14 @@ constexpr float LOG2E = 1.4426950408889634f;
 // shared memory has NCH 16-byte chunks a row; chunk c of row r is stored
 // at chunk c ^ ((r >> RSH) & (SW - 1)), so that any 8 consecutive rows of
 // one logical chunk fall on 8 distinct 16-byte bank groups (SW chunks
-// span 128 bytes; 8 / SW rows share a 128-byte line).
+// span 128 bytes; 8 / SW rows share a 128-byte line).  TK keys a K/V
+// tile (NT n-tiles of 8); QREG: Q's A fragments live in registers (else
+// they are read from shared memory at each k-step).
 template <int HD>
 struct Tile {
+  static constexpr int TK = HD <= 128 ? 64 : 32;
+  static constexpr int NT = TK / 8;
+  static constexpr bool QREG = HD <= 128;
   static constexpr int KS = HD / 16;  // k-steps of Q.K^T
   static constexpr int NCH = HD / 8;
   static constexpr int SW = NCH < 8 ? NCH : 8;
@@ -348,12 +376,12 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
 }
 
 // What a warp carries from one K/V tile to the next: its 16 rows of Q
-// as A fragments, the float32 output, and for its two rows (C elements
-// 0, 1: row g; 2, 3: row g + 8) the running max in base 2 and this
-// lane's part of the row sum.
+// as A fragments (where QREG holds them there), the float32 output, and
+// for its two rows (C elements 0, 1: row g; 2, 3: row g + 8) the running
+// max in base 2 and this lane's part of the row sum.
 template <int HD>
 struct Warp {
-  uint32_t qa[Tile<HD>::KS][4];
+  uint32_t qa[Tile<HD>::QREG ? Tile<HD>::KS : 1][4];
   float o[HD / 8][4];
   float m[2], l[2];
 };
@@ -363,12 +391,16 @@ struct Warp {
 // are masked one by one, and the pairs of n-tiles that none of its rows
 // sees are skipped (they stay masked: their p, 0, or 1 in a row that has
 // seen no key yet, is wiped by corr = 0 at the row's first key, as in
-// Pallas).  Interior tiles take the branch-free path.
+// Pallas).  Interior tiles take the branch-free path.  sq: the Q tile
+// in shared memory, whose rows qr .. qr + 15 are this warp's, read for
+// its fragments where QREG does not hold them.
 template <int HD, bool EDGE>
-__device__ __forceinline__ void tile_step(Warp<HD>& w, uint32_t sk,
-                                          uint32_t sv, int k0, int qw,
-                                          int lane, const FlashArgs& a,
-                                          float sl) {
+__device__ __forceinline__ void tile_step(Warp<HD>& w, uint32_t sq,
+                                          uint32_t sk, uint32_t sv, int k0,
+                                          int qw, int qr, int lane,
+                                          const FlashArgs& a, float sl) {
+  using L = Tile<HD>;
+  constexpr int TK = L::TK, NT = L::NT;
   const int g = lane >> 2, t4 = lane & 3;
   const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row
 
@@ -390,15 +422,22 @@ __device__ __forceinline__ void tile_step(Warp<HD>& w, uint32_t sk,
 #pragma unroll
   for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < Tile<HD>::KS; ++kk) {
+  for (int kk = 0; kk < L::KS; ++kk) {
+    uint32_t qf[4];  // Q's A fragment of this k-step
+    if constexpr (L::QREG) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qf[e] = w.qa[kk][e];
+    } else {
+      ldsm_x4(qf, sq + swz<HD>(qr + (lane & 15), 2 * kk + (lane >> 4)));
+    }
 #pragma unroll
     for (int jj = 0; jj < NT / 2; ++jj) {
       if (!live(2 * jj)) continue;
       uint32_t bk[4];
       ldsm_x4(bk, sk + swz<HD>(16 * jj + (mi >> 1) * 8 + mr,
                                2 * kk + (mi & 1)));
-      mma(s[2 * jj], w.qa[kk], bk[0], bk[1]);
-      mma(s[2 * jj + 1], w.qa[kk], bk[2], bk[3]);
+      mma(s[2 * jj], qf, bk[0], bk[1]);
+      mma(s[2 * jj + 1], qf, bk[2], bk[3]);
     }
   }
 
@@ -488,6 +527,7 @@ template <int HD>
 __global__ void __launch_bounds__(THREADS, HD <= 64 ? 4 : 2)
     flash_mma(FlashArgs a) {
   using L = Tile<HD>;
+  constexpr int TK = L::TK;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s_q = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
 
@@ -520,12 +560,12 @@ __global__ void __launch_bounds__(THREADS, HD <= 64 ? 4 : 2)
   };
   auto v_stage = [&](int st) { return k_stage(st) + L::KV_BYTES; };
   // this thread's share of a K or V tile: chunk lc of rows lr + i * RS,
-  // its addresses worked out once (a step of RS rows, a multiple of 8,
-  // leaves the swizzle as it is), each K copy issued beside its V copy
-  // (one loader run for all of K, then for all of V, was slower on an
-  // H100)
+  // its addresses worked out once (a step of RS rows, where RS is a
+  // multiple of 8, leaves the swizzle as it is; at hd 256, RS = 4, each
+  // row's own), each K copy issued beside its V copy (one loader run for
+  // all of K, then for all of V, was slower on an H100)
   constexpr int RS = THREADS / L::NCH, NLD = TK / RS;
-  static_assert(THREADS % L::NCH == 0 && TK % RS == 0 && RS % 8 == 0,
+  static_assert(THREADS % L::NCH == 0 && TK % RS == 0,
                 "whole rows per pass");
   const int lr = tid / L::NCH, lc = tid % L::NCH;
   const uint32_t l_dst = swz<HD>(lr, lc);
@@ -539,8 +579,11 @@ __global__ void __launch_bounds__(THREADS, HD <= 64 ? 4 : 2)
 #pragma unroll
     for (int i = 0; i < NLD; ++i) {
       const bool ok = lr + i * RS < rows;  // else zero-fill, read nothing
-      cp_async16(kd + i * RS * HD * 2, ok ? kt + i * RS * a.k_ss : kb, ok);
-      cp_async16(vd + i * RS * HD * 2, ok ? vt + i * RS * a.v_ss : vb, ok);
+      const uint32_t off = RS % 8 == 0
+                               ? i * RS * HD * 2
+                               : swz<HD>(lr + i * RS, lc) - l_dst;
+      cp_async16(kd + off, ok ? kt + i * RS * a.k_ss : kb, ok);
+      cp_async16(vd + off, ok ? vt + i * RS * a.v_ss : vb, ok);
     }
   };
 
@@ -558,10 +601,12 @@ __global__ void __launch_bounds__(THREADS, HD <= 64 ? 4 : 2)
 
   Warp<HD> w;
   const int qw = q0 + warp * 16;  // this warp's first row
+  if constexpr (L::QREG) {
 #pragma unroll
-  for (int kk = 0; kk < L::KS; ++kk)
-    ldsm_x4(w.qa[kk], s_q + swz<HD>(warp * 16 + (lane & 15),
-                                    2 * kk + (lane >> 4)));
+    for (int kk = 0; kk < L::KS; ++kk)
+      ldsm_x4(w.qa[kk], s_q + swz<HD>(warp * 16 + (lane & 15),
+                                      2 * kk + (lane >> 4)));
+  }
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n)
     w.o[n][0] = w.o[n][1] = w.o[n][2] = w.o[n][3] = 0.f;
@@ -587,9 +632,11 @@ __global__ void __launch_bounds__(THREADS, HD <= 64 ? 4 : 2)
                       (a.window > 0 && qw + 15 - k0 >= a.window) ||
                       k0 + TK > a.Sk;
     if (edge)
-      tile_step<HD, true>(w, k_stage(st), v_stage(st), k0, qw, lane, a, sl);
+      tile_step<HD, true>(w, s_q, k_stage(st), v_stage(st), k0, qw,
+                          warp * 16, lane, a, sl);
     else
-      tile_step<HD, false>(w, k_stage(st), v_stage(st), k0, qw, lane, a, sl);
+      tile_step<HD, false>(w, s_q, k_stage(st), v_stage(st), k0, qw,
+                           warp * 16, lane, a, sl);
   }
 
   // epilogue: this warp's rows through its own rows of the Q tile (only
@@ -601,7 +648,10 @@ __global__ void __launch_bounds__(THREADS, HD <= 64 ? 4 : 2)
     l0 += __shfl_xor_sync(0xffffffffu, l0, x);
     l1 += __shfl_xor_sync(0xffffffffu, l1, x);
   }
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  // a row that saw no key (its max still NEG_INF, its o the p = 1 of
+  // masked keys) is divided by infinity, to 0
+  const float d0 = w.m[0] == NEG_INF ? INFINITY : fmaxf(l0, 1e-30f);
+  const float d1 = w.m[1] == NEG_INF ? INFINITY : fmaxf(l1, 1e-30f);
   const int rw = warp * 16 + g;
   __syncwarp();  // the warp's ldmatrix reads of Q come before these stores
 #pragma unroll
@@ -675,6 +725,7 @@ cudaError_t launch_mma(const FlashArgs& a, int hd, cudaStream_t stream) {
     case 32: return launch_mma_hd<32>(a, stream);
     case 64: return launch_mma_hd<64>(a, stream);
     case 128: return launch_mma_hd<128>(a, stream);
+    case 256: return launch_mma_hd<256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -685,6 +736,7 @@ int mma_smem_bytes(int hd) {
     case 32: return Tile<32>::SMEM;
     case 64: return Tile<64>::SMEM;
     case 128: return Tile<128>::SMEM;
+    case 256: return Tile<256>::SMEM;
     default: return -1;
   }
 }
@@ -698,7 +750,7 @@ int flash_attention_args_size(void) {
 }
 
 // dtype: 0 float32 (flash_fma, hd in {16, 32, 64}), 1 bfloat16
-// (flash_mma, hd in {16, 32, 64, 128}; 16-byte aligned pointers, b/h/s
+// (flash_mma, hd in {16, 32, 64, 128, 256}; 16-byte aligned pointers, b/h/s
 // strides multiples of 8); q, k, v and o alike.  Launches on `stream` on
 // the current device; returns cudaGetLastError() (0 = launched).
 int flash_attention_launch(FlashArgs a, int dtype, int hd, void* stream) {

@@ -14,7 +14,12 @@ NEG_INF = -1e30
 
 
 def mha_reference(q, k, v, *, causal=True, window=None):
-    """q [B,H,S,hd]; k,v [B,K,Sk,hd] (GQA). Returns [B,H,S,hd]."""
+    """q [B,H,S,hd]; k,v [B,K,Sk,hd] (GQA). Returns [B,H,S,hd].
+
+    A query row that sees no key (a window that ends before the keys do)
+    gives 0, as the Pallas kernel does when it skips every k-block of the
+    row and as the CUDA kernels do; the JAX oracle's softmax over all
+    -1e30 scores would give the mean of V there instead."""
     B, H, S, hd = q.shape
     K, Sk = k.shape[1], k.shape[2]
     G = H // K
@@ -30,6 +35,8 @@ def mha_reference(q, k, v, *, causal=True, window=None):
         mask = mask & (qpos - kpos < window)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
+    if window is not None:   # rows that see no key
+        p = p.masked_fill(~mask.any(-1, keepdim=True), 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
 
 

@@ -115,7 +115,6 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device=None):
     """Self K/V (``k``, ``v``) and cross K/V (``xk``, ``xv``), each
     [L,B,S,K,hd] of zeros."""
-    L.check_ported(cfg)
     shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.hd)
     return {name: torch.zeros(shape, dtype=dtype, device=device)
             for name in ("k", "v", "xk", "xv")}

@@ -32,18 +32,6 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
-# the model families the port runs (all of the reference's but hybrid)
-FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm")
-
-
-def check_ported(cfg: ModelConfig):
-    """Raise on a family the port does not run yet."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP Queue 1, Models)")
-
-
 class Params(nn.Module):
     """Named weight tensors, registered as parameters without gradients."""
 
@@ -156,7 +144,6 @@ class Attention(Params):
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig) -> Attention:
-    check_ported(cfg)
     D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = dtype_of(cfg)
     norms = {}
@@ -214,7 +201,6 @@ def attn_apply(p, cfg: ModelConfig, x, positions, *, causal=True,
     The attention itself is ``ops.flash_attention`` at every size; the
     reference's switch between two forms of the same function
     (``ATTN_CHUNK_THRESHOLD``) only chose how much memory XLA used."""
-    check_ported(cfg)
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     src = x if kv is None else kv
@@ -243,7 +229,6 @@ def attn_decode(p, cfg: ModelConfig, x, pos, k_cache, v_cache, *,
     a ring of S <= window slots it keeps exactly slots 0..min(pos, S-1),
     and softmax does not depend on the keys' order.  ``positions3``
     [3,B,1] selects M-RoPE.  Returns (out, k_cache, v_cache)."""
-    check_ported(cfg)
     B, _, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     S = k_cache.shape[1]

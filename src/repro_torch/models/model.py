@@ -1,18 +1,18 @@
 """Unified model API, the port of ``repro.models.model``: ``build(cfg)``
 -> ``Model`` with init / forward / init_cache / prefill / decode_step,
-for every family of the reference but hybrid (dense, moe and vlm through
-``transformer``, encdec through ``encdec``, ssm through ``ssm``).
+for every family of the reference (dense, moe and vlm through
+``transformer``, encdec through ``encdec``, ssm through ``ssm``, hybrid
+through ``rglru``).
 
 Entry points run on ``device="cuda"`` unless the caller passes
-``device="cpu"``; with no card and no CPU request they raise.  The
-hybrid family (recurrentgemma-2b) raises, naming the ROADMAP queue that
-brings it.
+``device="cpu"``; with no card and no CPU request they raise.
 
 Parameters cross between the packages as the JAX pytree of numpy arrays
 (layers stacked on axis 0, as the reference's ``init`` vmaps them; the
-encoder's and decoder's under ``enc`` and ``dec``): ``params_from_jax``
-builds the port's ``Transformer``, ``EncDec`` or ``SSM`` from one,
-``params_to_numpy`` gives it back (bf16 leaves as numpy's bfloat16,
+encoder's and decoder's under ``enc`` and ``dec``, the hybrid's
+superblocks and tail under ``super`` and ``tail``): ``params_from_jax``
+builds the port's ``Transformer``, ``EncDec``, ``SSM`` or ``Hybrid``
+from one, ``params_to_numpy`` gives it back (bf16 leaves as numpy's bfloat16,
 which needs ml_dtypes, as jax has it).  ``numpy_params`` draws such a
 tree from a numpy seed, and ``tree_sha256`` digests it, for the
 full-width snapshots that the ``tests/torch_*_regen.py`` scripts make
@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.mmu import resolve_device
-from repro_torch.models import encdec, ssm, transformer
+from repro_torch.models import encdec, rglru, ssm, transformer
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import TOKENS_PER_PAGE
 
@@ -36,13 +36,27 @@ __all__ = ["F32_LEAVES", "Model", "build", "cross_entropy", "dummy_batch",
            "params_to_numpy", "tree_sha256"]
 
 _FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
-           "encdec": encdec, "ssm": ssm}
+           "encdec": encdec, "ssm": ssm, "hybrid": rglru}
+
+
+def _impl_of(cfg: ModelConfig):
+    """The module that implements ``cfg``'s family; raises on a family
+    that is none of the reference's."""
+    if cfg.family not in _FAMILY:
+        raise ValueError(f"{cfg.name}: unknown model family {cfg.family!r}; "
+                         f"the families are {tuple(_FAMILY)}")
+    return _FAMILY[cfg.family]
+
 
 # leaves the reference keeps in float32 whatever the config's dtype
-F32_LEAVES = ("scale", "conv_b", "dt_bias", "A_log", "Dskip", "router")
+F32_LEAVES = ("scale", "conv_b", "dt_bias", "A_log", "Dskip", "router",
+              "ba", "bx", "a_param")
 
 # the pytree's stacks of layers (axis 0 the layer)
-STACKS = ("layers", "enc", "dec")
+STACKS = ("layers", "enc", "dec", "super", "tail")
+
+# families whose prefill fills no cache (the reference's returns none)
+STATELESS_PREFILL = ("ssm", "encdec", "hybrid")
 
 
 def cross_entropy(logits, targets, mask=None):
@@ -63,11 +77,10 @@ class Model:
 
     def __init__(self, cfg: ModelConfig, device=None,
                  page: int = TOKENS_PER_PAGE):
-        L.check_ported(cfg)
+        self._impl = _impl_of(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.page = int(page)
-        self._impl = _FAMILY[cfg.family]
 
     def init(self, generator: torch.Generator):
         """Random parameters drawn from ``generator`` on the model's
@@ -90,8 +103,8 @@ class Model:
 
     def forward(self, params, batch):
         cfg, tokens = self.cfg, batch["tokens"].to(self.device)
-        if cfg.family == "ssm":
-            return ssm.forward(params, cfg, tokens)
+        if cfg.family in ("ssm", "hybrid"):
+            return self._impl.forward(params, cfg, tokens)
         if cfg.family == "encdec":
             src = batch["src_embeds"].to(self.device, L.dtype_of(cfg))
             return encdec.forward(params, cfg, tokens, src)
@@ -104,17 +117,18 @@ class Model:
     def prefill(self, params, batch, cache=None):
         """Returns (logits of the last position, cache).  dense, moe and
         vlm: see ``transformer.prefill`` (a given cache is filled in
-        place).  ssm and encdec: the cache is None, as the reference
-        returns it (encdec's prefill is its forward's last logits); decode
-        starts from ``init_cache``."""
+        place).  ssm, encdec and hybrid: the cache is None, as the
+        reference returns it (encdec's prefill is its forward's last
+        logits); decode starts from ``init_cache``."""
         cfg = self.cfg
-        if cfg.family in ("ssm", "encdec"):
+        if cfg.family in STATELESS_PREFILL:
             if cache is not None:
                 raise ValueError(f"the {cfg.family} prefill fills no cache "
                                  f"(the reference's returns none)")
             if cfg.family == "encdec":
                 return self.forward(params, batch)[:, -1:], None
-            return ssm.prefill(params, cfg, batch["tokens"].to(self.device))
+            return self._impl.prefill(params, cfg,
+                                      batch["tokens"].to(self.device))
         return transformer.prefill(params, cfg,
                                    batch["tokens"].to(self.device), cache,
                                    **self._extras(batch))
@@ -129,9 +143,9 @@ class Model:
         if cfg.family == "ssm":
             return ssm.decode_step(params, cfg, cache, tokens)
         pos = pos.to(self.device)
-        if cfg.family == "encdec":
-            return encdec.decode_step(params, cfg, cache, tokens, pos,
-                                      page=self.page)
+        if cfg.family in ("encdec", "hybrid"):
+            return self._impl.decode_step(params, cfg, cache, tokens, pos,
+                                          page=self.page)
         positions3 = (extras or {}).get("positions3")
         if positions3 is not None:
             positions3 = positions3.to(self.device)
@@ -194,7 +208,7 @@ def _ffn_shapes(cfg: ModelConfig) -> dict:
 def param_shapes(cfg: ModelConfig) -> dict:
     """Path -> shape of every leaf of the JAX parameter pytree (layers
     stacked on axis 0), paths in sorted order."""
-    L.check_ported(cfg)
+    _impl_of(cfg)
     D, V = cfg.d_model, cfg.padded_vocab
     s = {("embed", "tok"): (V, D), ("ln_f", "scale"): (D,)}
     if not cfg.tie_embeddings:
@@ -204,7 +218,23 @@ def param_shapes(cfg: ModelConfig) -> dict:
         return {(name,) + path: shape for path, shape in shapes.items()}
 
     norm = {("scale",): (D,)}
-    if cfg.family == "ssm":
+    if cfg.family == "hybrid":
+        W, nb = rglru.lru_width(cfg), rglru.N_GATE_BLOCKS
+        mlp = _ffn_shapes(cfg)
+        rec = {("wxin",): (D, W), ("wgate",): (D, W), ("conv_w",): (4, W),
+               ("conv_b",): (W,), ("wout",): (W, D),
+               ("lru", "wa"): (nb, W // nb, W // nb), ("lru", "ba"): (W,),
+               ("lru", "wx"): (nb, W // nb, W // nb), ("lru", "bx"): (W,),
+               ("lru", "a_param"): (W,), **sub("ln1", norm),
+               **sub("ln2", norm), **sub("mlp", mlp)}
+        att = {**sub("attn", _attn_shapes(cfg)), **sub("ln1", norm),
+               **sub("ln2", norm), **sub("mlp", mlp)}
+        n_super, tail = rglru.layout(cfg)
+        stacks = {"super": (n_super, {**sub("rec1", rec), **sub("rec2", rec),
+                                      **sub("attn", att)})}
+        if tail:
+            stacks["tail"] = (tail, rec)
+    elif cfg.family == "ssm":
         di, G, N, H = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
         conv_dim = di + 2 * G * N
         stacks = {"layers": (cfg.n_layers, {
@@ -268,8 +298,8 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_jax(tree, cfg: ModelConfig, device=None):
-    """The port's parameters (``Transformer`` or ``SSM``) from the JAX
-    pytree of numpy arrays.
+    """The port's parameters (``Transformer``, ``EncDec``, ``SSM`` or
+    ``Hybrid``) from the JAX pytree of numpy arrays.
 
     Every leaf is copied (never shared with the caller's buffer) and cast
     to the dtype ``repro.models`` gives it (``_leaf_dtype``).  Raises on a
@@ -301,6 +331,25 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
         return mod(L.RMSNorm, sub, i)
 
     embed, ln_f = mod(L.Embed, ("embed",)), norm("ln_f")
+    if cfg.family == "hybrid":
+        def rec(*sub, i):
+            return mod(rglru.RecBlock, sub, i, ln1=norm(*sub, "ln1", i=i),
+                       lru=mod(rglru.RGLRU, sub + ("lru",), i),
+                       ln2=norm(*sub, "ln2", i=i),
+                       mlp=mod(L.MLP, sub + ("mlp",), i))
+
+        n_super, tail = rglru.layout(cfg)
+        supers = [rglru.Super(
+            rec1=rec("super", "rec1", i=i), rec2=rec("super", "rec2", i=i),
+            attn=rglru.AttnBlock(
+                ln1=norm("super", "attn", "ln1", i=i),
+                attn=attn(("super", "attn", "attn"), i),
+                ln2=norm("super", "attn", "ln2", i=i),
+                mlp=mod(L.MLP, ("super", "attn", "mlp"), i)))
+            for i in range(n_super)]
+        return rglru.Hybrid(embed=embed, super_=supers,
+                            tail=[rec("tail", i=i) for i in range(tail)],
+                            ln_f=ln_f)
     if cfg.family == "ssm":
         blocks = [ssm.Block(
             ln=norm("layers", "ln", i=i),
@@ -349,8 +398,12 @@ def _draw(rng, path, shape) -> np.ndarray:
     """One leaf of ``numpy_params``."""
     if path[-1] in ("scale", "Dskip"):
         return np.ones(shape, np.float32)
-    if path[-1] == "conv_b":
+    if path[-1] in ("conv_b", "ba", "bx"):
         return np.zeros(shape, np.float32)
+    if path[-1] == "a_param":
+        lam = rng.uniform(0.9, 0.999, shape)
+        return np.log(np.expm1(-np.log(lam) / rglru.LRU_C)).astype(
+            np.float32)
     if path[-1] == "A_log":
         return np.log(rng.uniform(1.0, 16.0, shape)).astype(np.float32)
     if path[-1] == "dt_bias":
@@ -361,6 +414,8 @@ def _draw(rng, path, shape) -> np.ndarray:
         return a * np.float32(0.1)
     if path[0] not in STACKS:
         fan_in = shape[0]
+    elif path[-1] in ("wa", "wx"):
+        fan_in = shape[-2]    # the RG-LRU's diagonal blocks: W / 16
     elif path[-2] == "ffn" and len(shape) == 4:
         fan_in = shape[2]     # experts [n,E,D,F] / [n,E,F,D]: D or F
     else:
@@ -375,11 +430,15 @@ def numpy_params(cfg: ModelConfig, seed: int) -> dict:
     norm scales and Dskip 1, conv_b 0, conv_w 0.1-normal, every other
     matrix normal(0, 1/fan_in) with fan_in its first per-layer axis, but
     an expert tensor's its second (D for wi and wg, F for wo: the
-    reference's ``in_axis=1``).
+    reference's ``in_axis=1``), and an RG-LRU gate block's its last but
+    one (W / 16, the reference's ``_bdiag_init``).
     A_log and dt_bias follow Mamba-2's published init (A = -exp(A_log)
     uniform in [-16, -1]; softplus(dt_bias) log-uniform in [1e-3, 1e-1]),
     where the reference's init has zeros, so that a chunk's decay sums
-    reach the kernel's clip at -60.  Both packages cast the matrices to
+    reach the kernel's clip at -60.  The RG-LRU's a_param follows the
+    reference's init (a = exp(-8 softplus(a_param)) uniform in (0.9,
+    0.999)), so that the recurrence remembers over tens of steps; its
+    biases ba and bx are 0.  Both packages cast the matrices to
     ``cfg.dtype`` on loading."""
     rng = np.random.default_rng(seed)
     tree = {}

@@ -118,7 +118,6 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device=None):
     """KV cache ``{"k", "v"}``, each [L,B,S,K,hd] of zeros with S =
     ``cache_slots(cfg, seq_len)``."""
-    L.check_ported(cfg)
     shape = (cfg.n_layers, batch, cache_slots(cfg, seq_len), cfg.n_kv_heads,
              cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

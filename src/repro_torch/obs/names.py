@@ -27,9 +27,10 @@ Span taxonomy (docs/architecture.md, "Observability"):
   │   └─ time_shard_round     (event) one speculative hand-off round of
   │                           ``parallel.time_shard_scan``, with the
   │                           exact-known prefix after the round
-  ├─ xla_compile              (event) one jit-cache miss captured by
-  │                           ``analysis.recompile.count_compiles``,
-  │                           carrying the compiled function's name
+  ├─ xla_compile              (event) in the port: one kernel library
+  │                           built or loaded by ``kernels.build.load``
+  │                           (the reference's jit-cache miss; the name
+  │                           is kept), carrying the library's name
   ├─ pallas_kernel            (event, trace-time) a ``blocked_scan``
   │                           kernel build: block size, grid, interpret
   └─ device_memory            (event) live device-memory stats where the

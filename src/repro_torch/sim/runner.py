@@ -19,7 +19,9 @@ the same Stats bit for bit.
 (``mmu.make_systems_runner``), as a producer/consumer pipeline: trace
 generation runs on a thread pool while the previous chunk of workloads
 simulates, and every chunk has the same width, the last padded by
-repeating its final workload.
+repeating its final workload.  Each fill runs under the reference's
+``ladder_fill`` span tree (``repro_torch.obs``), and ``LADDER_PERF``
+gets the record ``obs.report.fill_record`` derives from it.
 """
 from __future__ import annotations
 
@@ -34,9 +36,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from repro_torch.core.mmu import (make_systems_runner, simulate,
-                                  simulate_batch)
-from repro_torch.sim import systems, trace_gen
+import repro_torch.obs as obs
+from repro_torch.core.mmu import (make_systems_runner, resolve_device,
+                                  simulate, simulate_batch)
+from repro_torch.sim import parallel, systems, trace_gen
 
 CACHE_DIR = os.environ.get(
     "REPRO_TORCH_SIM_CACHE",
@@ -56,6 +59,16 @@ CHUNK_MAX = int(os.environ.get("REPRO_SIM_CHUNK_MAX", 8))
 
 # trace-generation threads of run_ladder's producer pool
 GEN_WORKERS = int(os.environ.get("REPRO_GEN_WORKERS", 4))
+
+# one record a run_ladder fill, in fill order: obs.report.fill_record of
+# the fill's closed span tree (the function ``python -m repro_torch.obs
+# report`` applies to the trace file), never assembled by hand
+LADDER_PERF: list[dict] = []
+
+# the kernel library whose builds and loads a fill's
+# ``dispatch_compiles`` counts (``kernels.build`` emits an EV_COMPILE
+# event, fn = the library, each time it builds or loads one)
+DISPATCH_LIB = "mmu_step"
 
 
 def auto_chunk(n_workloads: int, cap: int | None = None) -> int:
@@ -235,7 +248,7 @@ def run(system: str, workload: str, n: int = 150_000, seed: int = 0,
 
 def run_ladder(ladder: str, workloads=None, n: int = 150_000, seed: int = 0,
                cache: bool = True, members=None, chunk: int | None = None,
-               device=None):
+               device=None, mesh=None, time_shards: int = 1):
     """Fill the cache for a whole system ladder through one batched scan.
 
     Every member of ``systems.LADDERS[ladder]`` (or of `members`, a
@@ -253,6 +266,25 @@ def run_ladder(ladder: str, workloads=None, n: int = 150_000, seed: int = 0,
     multicore family (``systems.mix_cores`` above 1) takes mix specs as
     workloads, generates their [T, C] traces and stores per-core tuples,
     as ``run`` does.  Returns dict system -> dict workload -> result.
+
+    By default the grid runs on ``device`` alone.  ``mesh`` = (sys, wl[,
+    core]) spreads it over the visible cards in that factorization
+    (``parallel.plan_mesh``; on the CPU every cell runs on ``device``);
+    ``time_shards > 1`` splits each trace's time axis
+    (``parallel.time_shard_scan``) and needs a 1x1 mesh.  None of them
+    changes a result.
+
+    A fill that simulates runs under a ``ladder_fill`` span (trace_gen
+    spans on the pool threads, parented to it explicitly; chunk_wait and
+    dispatch spans for each chunk), and ``LADDER_PERF`` gets
+    ``obs.report.fill_record`` of the closed tree.  Fields that mean
+    something else in torch: ``backend`` is ``"cuda"`` or ``"plain"``
+    (the device's path), ``block`` is None (the kernel takes the whole
+    trace a launch), ``devices`` the cells of the mesh (1 without one),
+    and ``dispatch_compiles`` counts the EV_COMPILE events
+    ``kernels.build`` emits when it builds or loads ``DISPATCH_LIB``
+    during the fill, so that ``one_compile`` holds in a warm process;
+    the event keeps the reference's name, ``xla_compile``.
     """
     members = tuple(members or systems.LADDERS[ladder])
     strays = sorted(set(members) - set(systems.LADDERS[ladder]))
@@ -276,23 +308,51 @@ def run_ladder(ladder: str, workloads=None, n: int = 150_000, seed: int = 0,
     cfg = systems.ladder_base_config(ladder)
     dyns = systems.ladder_dyn(members)
     n_cores = systems.mix_cores(members)
+    auto = chunk is None and CHUNK is None
     chunk = chunk or CHUNK or auto_chunk(len(workloads))
-    run_fn = make_systems_runner(cfg, device=device)
+    dev = resolve_device(device)
+    time_shards = int(time_shards or 1)
+    plan, extra = None, {}
+    if mesh is not None or time_shards > 1:
+        if time_shards > 1 and mesh is None:
+            mesh = (1, 1)   # the time axis takes the devices
+        plan = parallel.plan_mesh(
+            len(members), chunk, force=tuple(mesh), n_cores=n_cores)
+        extra = {"plan": plan, "time_shards": time_shards}
+    run_fn = make_systems_runner(cfg, device=device, **extra)
+    tr = obs.tracer()
+    fill = obs.span(
+        obs.names.SPAN_LADDER_FILL, ladder=ladder, n_systems=len(members),
+        n_members=len(members), n_workloads=len(missing), sim_n=n,
+        devices=plan.n_devices if plan else 1,
+        mesh=([plan.sys_dim, plan.wl_dim] + ([plan.core_dim]
+                                             if plan.core_dim > 1 else [])
+              if plan else [1, 1]),
+        cores=n_cores, chunk=chunk, chunk_auto=auto,
+        backend="cuda" if dev.type == "cuda" else "plain", block=None,
+        dispatch_fn=DISPATCH_LIB)
 
     def gen(w):
-        if n_cores > 1:
-            return trace_gen.generate_mix(w, n=n, seed=seed,
-                                          n_cores=n_cores)
-        return trace_gen.generate(w, n=n, seed=seed)
+        # on a pool thread: the fill is attached as the parent explicitly
+        with obs.span(obs.names.SPAN_TRACE_GEN, parent=fill, wl=w):
+            if n_cores > 1:
+                return trace_gen.generate_mix(w, n=n, seed=seed,
+                                              n_cores=n_cores)
+            return trace_gen.generate(w, n=n, seed=seed)
 
-    with ThreadPoolExecutor(max_workers=min(len(missing),
-                                            GEN_WORKERS)) as pool:
+    n_chunks = 0
+    with fill, ThreadPoolExecutor(max_workers=min(len(missing),
+                                                  GEN_WORKERS)) as pool:
         futs = {w: pool.submit(gen, w) for w in missing}
         for lo in range(0, len(missing), chunk):
             group = missing[lo:lo + chunk]
-            gens = [futs[w].result() for w in group]
+            with obs.span(obs.names.SPAN_CHUNK_WAIT, workloads=list(group)):
+                gens = [futs[w].result() for w in group]
             padded = gens + [gens[-1]] * (chunk - len(gens))
-            per, extras = run_fn(dyns, _stack_traces(padded, n))
+            with obs.span(obs.names.SPAN_DISPATCH, chunk_index=n_chunks,
+                          workloads=list(group), cores=n_cores):
+                per, extras = run_fn(dyns, _stack_traces(padded, n))
+            n_chunks += 1
             for si, s in enumerate(members):
                 for wi, (w, g) in enumerate(zip(group, gens)):
                     if w in out[s]:
@@ -305,4 +365,9 @@ def run_ladder(ladder: str, workloads=None, n: int = 150_000, seed: int = 0,
                     if cache:
                         _store(_path(s, w, n, seed, None), result)
                     out[s][w] = result
+        tinfo = getattr(run_fn, "last_time_shard_info", None)
+        fill.set(n_chunks=n_chunks,
+                 t_shards=tinfo["t_shards"] if tinfo else 1,
+                 t_rounds=tinfo["rounds"] if tinfo else None)
+    LADDER_PERF.append(obs.report.fill_record(tr.events, fill.id, tr.path))
     return out

@@ -57,6 +57,7 @@ def flash_inputs(B, S, H, K, hd, dtype, seed=0):
     (1, 128, 2, 2, 32),   # MHA
     (1, 256, 8, 1, 64),   # MQA
     (2, 128, 6, 3, 16),   # odd group
+    (1, 128, 10, 1, 256),  # hd 256, G 10 on one kv head (recurrentgemma)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
@@ -80,6 +81,18 @@ def test_flash_plain_windowed_matches_jax(window):
     assert_close(got, want, TOL_F32)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_hd256_window_binds(dtype):
+    """recurrentgemma-2b's local attention at its head width, 10 query
+    heads on one kv head, over 256 positions under a window of 64 that
+    binds (the full model's window, 2048, binds only past 2048 tokens)."""
+    (jq, tq), (jk, tk), (jv, tv) = flash_inputs(1, 256, 10, 1, 256, dtype, 5)
+    got = tops.flash_attention(tq, tk, tv, causal=True, window=64)
+    want = jops.flash_attention(jq, jk, jv, causal=True, window=64,
+                                block_q=64, block_k=64)
+    assert_close(got, want, TOL_F32 if dtype == "float32" else TOL_FLASH_BF16)
+
+
 @pytest.mark.parametrize("S", [1, 77, 200])
 def test_flash_plain_ragged_matches_ref(S):
     """Lengths that are no multiple of a tile (the Pallas wrapper asserts
@@ -90,6 +103,27 @@ def test_flash_plain_ragged_matches_ref(S):
     want = jref.mha_reference(jnp.swapaxes(jq, 1, 2), jnp.swapaxes(jk, 1, 2),
                               jnp.swapaxes(jv, 1, 2), causal=True, window=50)
     assert_close(got, want, TOL_F32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_rows_that_see_no_key_are_zero(causal):
+    """S > Sk - 1 + window leaves rows Sk - 1 + window .. S - 1 no key.
+    The plain version gives 0 there, as the Pallas kernel does when it
+    skips every k-block of such a row: with one query row a block, no row
+    that sees no key shares a block with one that does, and the rest of
+    the rows are exact."""
+    rng = np.random.default_rng(7)
+    B, S, Sk, H, K, hd, window = 1, 40, 12, 2, 1, 16, 8
+    (jq, tq), (jk, tk), (jv, tv) = (
+        both(rng.standard_normal(shape, dtype=np.float32), "float32")
+        for shape in ((B, S, H, hd), (B, Sk, K, hd), (B, Sk, K, hd)))
+    got = tops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                block_q=1, block_k=4)
+    assert_close(got, want, TOL_F32)
+    blind = Sk - 1 + window
+    assert not got[:, blind:].any()
+    assert got[:, :blind].abs().sum(-1).min() > 0
 
 
 def paged_inputs(B, H, K, hd, page, nb, P, dtype, seed=1):
@@ -319,13 +353,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 ALIGNED = [64 * 512, 64, 32 * 64] * 4   # b, h, s strides of q, k, v, o
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_for_each_dtype_and_width(dtype, hd):
     """bf16 runs on the tensor cores at every width; float32 on the CUDA
-    cores up to 64, and is refused at 128 (no fallback to either)."""
+    cores up to 64, and is refused at 128 and 256 (no fallback to
+    either)."""
     td = DTYPES[dtype][1]
-    if dtype == "float32" and hd == 128:
+    if dtype == "float32" and hd >= 128:
         with pytest.raises(ValueError, match="fma_f32 kernel takes head "
                                              "widths"):
             tfa.kernel_for(td, hd, ALIGNED, [0] * 4)

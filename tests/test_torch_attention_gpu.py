@@ -80,6 +80,21 @@ def test_flash_kernel_windowed(cuda, window):
     assert_close(got, want, 1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_rows_that_see_no_key_are_zero(cuda, dtype, causal):
+    """S > Sk - 1 + window: rows 126 .. 199 see no key, and both kernels
+    write 0 there, as the plain version does; rows 64 .. 127 share a
+    q tile with rows that see keys."""
+    rng = np.random.default_rng(3)
+    q, k, v = (draw(s, dtype, cuda, rng) for s in
+               ((2, 4, 200, 32), (2, 2, 77, 32), (2, 2, 77, 32)))
+    got = fa.flash_attention(q, k, v, causal=causal, window=50)
+    assert not got[:, :, 126:].any()
+    want = ref.mha_reference(q, k, v, causal=causal, window=50)
+    assert_close(got, want, 1e-5 if dtype == "float32" else 2e-2)
+
+
 def mma_matches_plain(q, k, v, *, causal, window=None, model_layout=False):
     """One bf16 call through the wrapper ([B,S,H,hd] views through ops
     where ``model_layout``), counted on mma_bf16, against the plain

@@ -273,17 +273,16 @@ def test_qwen2_vl_serving_matches_jax(dtype):
 
 
 def test_every_architecture_but_hybrid_builds():
-    """get_config and Model(cfg, "cpu") for the nine ported architectures
-    (their full configs, equal to the reference's); recurrentgemma-2b
-    raises, naming the ROADMAP item that brings it."""
-    assert set(tconfigs.ARCHS) - set(tconfigs.PORTED) == {"recurrentgemma-2b"}
-    for arch in tconfigs.PORTED:
+    """get_config and Model(cfg, "cpu") for all ten architectures, the
+    hybrid recurrentgemma-2b included (their full configs, equal to the
+    reference's field for field)."""
+    assert tuple(tconfigs.PORTED) == tuple(tconfigs.ARCHS)
+    assert len(tconfigs.ARCHS) == 10
+    for arch in tconfigs.ARCHS:
         cfg = tconfigs.get_config(arch)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
             jget_config(arch))
         assert TM.build(cfg, "cpu").cfg is cfg
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, Models"):
-        tconfigs.get_config("recurrentgemma-2b")
 
 
 def test_dummy_batch_draws_the_stub_inputs():

@@ -259,7 +259,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch, repro_torch.core.mmu, repro_torch.core.metrics,"
         " repro_torch.core.timing, repro_torch.sim.runner,"
         " repro_torch.sim.systems, repro_torch.kernels.mmu_step,"
-        " repro_torch.kernels.build\n"
+        " repro_torch.kernels.build, repro_torch.models.model,"
+        " repro_torch.sim.sweep\n"
         "import chip_smoke\n"
         "import runpy; runpy.run_path('examples/quickstart_torch.py')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"

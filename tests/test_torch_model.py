@@ -71,7 +71,7 @@ def both(a: np.ndarray, dtype: str):
 # ---------------------------------------------------------------- configs
 
 
-@pytest.mark.parametrize("arch", tconfigs.PORTED)
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
 def test_config_copy_equals_the_reference(arch):
     j, t = jget_config(arch), tconfigs.get_config(arch)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
@@ -81,10 +81,12 @@ def test_config_copy_equals_the_reference(arch):
         dataclasses.asdict(tconfigs.get_smoke_config(arch))
 
 
-@pytest.mark.parametrize("arch", [a for a in tconfigs.ARCHS
-                                  if a not in tconfigs.PORTED])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "llama-3-8b"])
 def test_unported_configs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every architecture of the reference is ported; a name outside its
+    list raises, naming the list."""
+    assert tuple(tconfigs.PORTED) == tuple(tconfigs.ARCHS)
+    with pytest.raises(KeyError, match="recurrentgemma-2b"):
         tconfigs.get_config(arch)
 
 
@@ -259,11 +261,11 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_options_raise():
-    """Only the hybrid family is left unported; the page size must divide
-    the cache."""
+    """The page size must divide the cache (every family of the reference
+    is ported; a family outside them raises)."""
     _, tc = cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, Models"):
-        TM.build(dataclasses.replace(tc, family="hybrid"), "cpu")
+    with pytest.raises(ValueError, match="unknown model family"):
+        TM.build(dataclasses.replace(tc, family="retnet"), "cpu")
     m = TM.build(tc, "cpu", page=16)
     params = m.init(torch.Generator().manual_seed(0))
     cache = m.init_cache(1, 24, torch.float32)
