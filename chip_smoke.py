@@ -109,7 +109,21 @@ parallel, and drives its paths on the card:
   depth, 26 layers, 8 requests x 512 tokens and 64 greedy decode steps
   from ``init_cache`` over a ring of 640 slots, counted (8 flash launches
   a prefill, 8 paged a step), timed, profiled, and checked against the
-  plain path.
+  plain path;
+- training (phase 18): the flash and ssd_intra wrappers under autograd
+  (the kernel forward, the plain version's VJP backward) at granite-3-2b's,
+  recurrentgemma-2b's and seamless-m4t-medium's attention shapes and
+  mamba2-2.7b's intra-chunk block, each gradient against the plain
+  version's; granite-3-2b at full width, 2 layers, float32, three
+  ``make_train_step`` steps over the data pipeline's batches against the
+  JAX snapshot ``tests/golden/torch_granite_train.json`` (loss, gradient
+  norm, lr, each leaf's gradient norm and change); one bf16 train step of
+  mamba2-2.7b (2 layers) and recurrentgemma-2b (3 layers) at full width,
+  kernel path against plain path; granite-3-2b at full depth, 4 x 512
+  tokens a step, timed (step ms, tokens/s, 6ND FLOP/s against the bf16
+  peak, peak memory, flash launches a step) and profiled;
+  ``examples/train_100m_torch.py`` for 60 steps and resumed to 70 from
+  its checkpoint; the trainer's fault path against an uninterrupted run.
 
 Any failed check raises, so the exit code is non-zero; no phase's
 failure is caught.  With no CUDA device, or without the repository around it, it
@@ -2564,6 +2578,500 @@ def serving_engine(dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------- training
+
+# phase 18 (a): the two wrappers under autograd at model shapes, in the
+# model's [B,S,H,hd] views: (what, B, S, Sk, H, K, hd, causal, window)
+TRAIN_FLASH_CASES = [
+    ("granite-3-2b prefill", 4, 512, 512, 32, 8, 64, True, None),
+    ("recurrentgemma-2b local attention", 4, 512, 512, 10, 1, 256, True,
+     2048),
+    ("seamless-m4t-medium cross attention", 4, 512, 384, 16, 16, 64, False,
+     None)]
+# mamba2-2.7b's intra-chunk block: (T, q, G, r, p, n), 32 chunks of 128
+TRAIN_SSD_CASE = (32, 128, 1, 80, 64, 128)
+# each input's gradient through a kernel's autograd Function against the
+# plain version's autograd gradient on the same inputs: the backward is
+# the plain version's VJP from the saved inputs, so only the card's
+# reductions could reorder; at most this share of the largest gradient
+TRAIN_GRAD_TOL = 1e-6
+# (b): granite-3-2b at full width, 2 layers, float32 (fma_f32 at hd 64;
+# TF32 off), three make_train_step steps over the pipeline's batches
+# against tests/golden/torch_granite_train.json.  Set before the first
+# run on the card: loss, gradient norm and lr of each step within
+# TRAIN_TOL relative; each leaf's norm of step 0's gradient and of its
+# change over the three steps within TRAIN_LEAF_TOL relative
+TRAIN_TOL, TRAIN_LEAF_TOL = 1e-4, 1e-3
+# (c): one bf16 train step of mamba2-2.7b (2 layers) and
+# recurrentgemma-2b (3 layers) at full width through the kernels,
+# against the same step through their plain versions on the card (B x S
+# from the pipeline).  The flash kernel rounds its weights to bf16 and
+# ssd_intra's tensor-core kernel sums CB in another order, which moves a
+# bf16 activation by an ulp (phase 6's 2e-2).  The two paths are
+# deterministic and measured 6.8e-7 and 9.2e-7 apart on the loss, 4.5e-5
+# and 2.4e-4 on the gradient norm (H100 80GB HBM3, 700 W); the bounds
+# sit about ten times above that, so a wrong block output shows
+TRAIN_KVP = dict(B=2, S=256, loss=1e-5, grad_norm=2e-3)
+# (d): granite-3-2b at full depth, bf16: B x S tokens a step, a warm-up
+# step, then TRAIN_TIMED steps timed and one profiled
+TRAIN_B, TRAIN_S, TRAIN_TIMED = 4, 512, 5
+# (e): examples/train_100m_torch.py: 60 steps (a checkpoint at 50, the
+# final save at 60), then on to 70 from the checkpoint at 60
+TRAIN_EXAMPLE_STEPS = (60, 70)
+# (f): the trainer's fault path, granite-3-2b's smoke config (bf16):
+# a crash at step 5 of 8, restored from step 4's checkpoint, against an
+# uninterrupted run (tests/test_trainer_fault.py's bound)
+TRAIN_FAULT = dict(steps=8, ckpt_every=2, fault_at=5, tol=1e-5)
+
+
+def train_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+    return {"flash_attention": dict(fa.LAUNCHES_BY_KERNEL),
+            "ssd_intra": dict(ssd_scan.LAUNCHES_BY_KERNEL)}
+
+
+def zero_train_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+    zero_attention_counts()
+    ssd_scan.LAUNCHES = 0
+    ssd_scan.LAUNCHES_BY_KERNEL.update(mma_bf16=0, fma_f32=0)
+    fa.LAUNCHES = 0
+
+
+def grads_equal(got, want, what: str) -> float:
+    """Max |got - want| over the gradients; raises beyond TRAIN_GRAD_TOL
+    of each gradient's largest element."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        if not bool(torch.isfinite(g).all()) or err > TRAIN_GRAD_TOL * scale:
+            raise AssertionError(f"{what}: gradient {i} off by {err} "
+                                 f"(largest {scale})")
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def train_wrappers(dev) -> dict:
+    """Phase 18 (a): the flash and ssd_intra wrappers under autograd at
+    model shapes: one launch each, the output within phase 6's and 9's
+    tolerances of the plain version, each input's gradient equal to the
+    plain version's autograd gradient (TRAIN_GRAD_TOL)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref, ssd_scan
+
+    rng = np.random.default_rng(18)
+    out = {}
+    for what, B, S, Sk, H, K, hd, causal, window in TRAIN_FLASH_CASES:
+        def leaf(*shape):
+            return torch.from_numpy(rng.standard_normal(
+                shape, dtype=np.float32)).to(dev, torch.bfloat16) \
+                .requires_grad_()
+        q, k, v = leaf(B, S, H, hd), leaf(B, Sk, K, hd), leaf(B, Sk, K, hd)
+        do = torch.from_numpy(rng.standard_normal(
+            (B, S, H, hd), dtype=np.float32)).to(dev, torch.bfloat16)
+        before = fa.LAUNCHES_BY_KERNEL["mma_bf16"]
+        o = ops.flash_attention(q, k, v, causal=causal, window=window)
+        if fa.LAUNCHES_BY_KERNEL["mma_bf16"] != before + 1 \
+                or o.grad_fn is None:
+            raise AssertionError(f"{what}: the forward did not launch "
+                                 f"mma_bf16 under autograd")
+        got = torch.autograd.grad(o, (q, k, v), do)
+        want_o = ref.mha_reference(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window).transpose(1, 2)
+        want = torch.autograd.grad(want_o, (q, k, v), do)
+        err = close(o.detach(), want_o.detach(), FLASH_BF16_TOL, what)
+        gerr = grads_equal(got, want, what)
+        out[what] = {"max_abs_err": err, "grad_rel_err": gerr}
+        print(f"flash under autograd, {what} (B={B}, S={S}, Sk={Sk}, H={H}, "
+              f"K={K}, hd={hd}, {'causal' if causal else 'non-causal'}, "
+              f"window {window}): 1 launch, output max abs err {err:.4g} "
+              f"(tolerance {FLASH_BF16_TOL}), gradients of q, k, v within "
+              f"{gerr:.3g} of the plain version's largest (bound "
+              f"{TRAIN_GRAD_TOL})")
+    T, q_, G, r, p, n = TRAIN_SSD_CASE
+    x, dt, dA, Bm, Cm = ssd_inputs(T, q_, G, r, p, n, torch.bfloat16, dev,
+                                   rng)
+    ins = [t.detach().requires_grad_() for t in (x, dt, dA, Bm, Cm)]
+    dy = torch.from_numpy(rng.standard_normal(
+        (T, q_, G * r, p), dtype=np.float32)).to(dev)
+    dS = torch.from_numpy(rng.standard_normal(
+        (T, G * r, n, p), dtype=np.float32)).to(dev)
+    before = ssd_scan.LAUNCHES_BY_KERNEL["mma_bf16"]
+    y, S_ = ssd_scan.ssd_intra(*ins, mode="model")
+    if ssd_scan.LAUNCHES_BY_KERNEL["mma_bf16"] != before + 1:
+        raise AssertionError("ssd_intra under autograd did not launch "
+                             "mma_bf16")
+    got = torch.autograd.grad((y, S_), ins, (dy, dS))
+    wy, wS = ref.ssd_intra_plain(*ins, mode="model")
+    want = torch.autograd.grad((wy, wS), ins, (dy, dS))
+    what = "mamba2-2.7b intra-chunk block"
+    err = max(close(y.detach(), wy.detach(), SSD_TOL[torch.bfloat16], what),
+              close(S_.detach(), wS.detach(), SSD_TOL[torch.bfloat16], what))
+    gerr = grads_equal(got, want, what)
+    out[what] = {"max_abs_err": err, "grad_rel_err": gerr}
+    print(f"ssd_intra under autograd, {what} (T={T}, q={q_}, {G * r} heads "
+          f"of {p}, state {n}, bf16, model rounding): 1 launch, output max "
+          f"abs err {err:.4g} (tolerance {SSD_TOL[torch.bfloat16]}), "
+          f"gradients of x, dt, dA, B, C within {gerr:.3g} of the plain "
+          f"version's largest (bound {TRAIN_GRAD_TOL})")
+    return out
+
+
+def leaf_norms(named) -> dict:
+    """JAX path -> the L2 norm of the leaf (a stack's layers together),
+    float64 sums; ``named``: port name -> tensor."""
+    from repro_torch.models import model as M
+
+    return {"/".join(path): float(torch.sqrt(sum(
+        torch.sum(named[n].detach().double() ** 2) for n in names)))
+        for path, names in M.jax_layout(named).items()}
+
+
+def draw_train_snapshot() -> dict:
+    """Phase 18 (b)'s inputs, drawn on the host while phase 1 builds the
+    kernels: the snapshot, the 2-layer float32 config, its weights and
+    the pipeline's batches, each checked against the snapshot's sha256."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models import model as M
+
+    snap = load_snapshot("torch_granite_train.json")
+    cfg = dataclasses.replace(get_config("granite-3-2b"),
+                              n_layers=snap["n_layers"], dtype=snap["dtype"])
+    t0 = time.perf_counter()
+    tree = M.numpy_params(cfg, snap["seed"])
+    if M.tree_sha256(tree) != snap["weights_sha256"]:
+        raise AssertionError("the weights differ from the ones the snapshot "
+                             "was made from (numpy draws other normals?)")
+    data = Pipeline(DataConfig(vocab_size=cfg.vocab_size,
+                               batch=snap["batch"], seq_len=snap["seq_len"],
+                               seed=snap["seed"]))
+    batches = [data.batch_at(s) for s in range(len(snap["steps"]))]
+    if M.tree_sha256({}, *batches) != snap["batches_sha256"]:
+        raise AssertionError("the pipeline's batches differ from the "
+                             "reference's (sha256)")
+    return {"snap": snap, "cfg": cfg, "tree": tree, "batches": batches,
+            "seconds": time.perf_counter() - t0}
+
+
+def rel_close(got: float, want: float, tol: float, what: str) -> float:
+    err = abs(got - want) / abs(want)
+    if not np.isfinite(got) or err > tol:
+        raise AssertionError(f"{what}: {got} against {want}, relative "
+                             f"error {err} beyond {tol}")
+    return err
+
+
+def train_vs_snapshot(dev, drawn: dict) -> dict:
+    """Phase 18 (b): granite-3-2b at full width, 2 layers, float32, three
+    make_train_step steps against the JAX snapshot."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainConfig, init_state, \
+        make_train_step
+
+    snap, cfg = drawn["snap"], drawn["cfg"]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        m = M.build(cfg, dev)
+        st = init_state(M.params_from_jax(drawn["tree"], cfg, dev))
+        p0 = {n: p.detach().clone() for n, p in st.params.named_parameters()}
+        batches = [{"tokens": torch.from_numpy(b).to(dev)}
+                   for b in drawn["batches"]]
+        named = dict(st.params.named_parameters())
+        loss = m.loss(st.params, batches[0])
+        g0 = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        worst = {"step": 0.0, "grad_leaf": 0.0, "change_leaf": 0.0}
+        got = leaf_norms(g0)
+        del g0, loss
+        if got.keys() != snap["grad_norms_step0"].keys():
+            raise AssertionError("the gradient's leaves are not the "
+                                 "snapshot's")
+        for k, w in snap["grad_norms_step0"].items():
+            worst["grad_leaf"] = max(worst["grad_leaf"], rel_close(
+                got[k], w, TRAIN_LEAF_TOL, f"step 0 gradient norm of {k}"))
+        step = make_train_step(m, TrainConfig(
+            opt=adamw.AdamWConfig(**snap["adamw"])))
+        metrics = []
+        for s, b in enumerate(batches):
+            st, met = step(st, b)
+            met = {k: float(v) for k, v in met.items()}
+            metrics.append(met)
+            for k, w in snap["steps"][s].items():
+                worst["step"] = max(worst["step"], rel_close(
+                    met[k], w, TRAIN_TOL, f"step {s} {k}"))
+        change = leaf_norms({n: p.detach() - p0[n]
+                             for n, p in st.params.named_parameters()})
+        for k, w in snap["param_change_norms"].items():
+            worst["change_leaf"] = max(worst["change_leaf"], rel_close(
+                change[k], w, TRAIN_LEAF_TOL, f"change of {k}"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"batches and weights equal the snapshot's (sha256; drawn on the "
+          f"host in {drawn['seconds']:.1f} s during phase 1)")
+    for s, met in enumerate(metrics):
+        print(f"step {s}: loss {met['loss']:.6f} grad_norm "
+              f"{met['grad_norm']:.6f} lr {met['lr']:.6g} (snapshot "
+              f"{snap['steps'][s]['loss']:.6f}, "
+              f"{snap['steps'][s]['grad_norm']:.6f})")
+    print(f"{cfg.name} {snap['n_layers']} layers float32, {len(batches)} "
+          f"steps of B={snap['batch']} x {snap['seq_len']}: largest relative "
+          f"error {worst['step']:.3g} on loss, grad_norm and lr (tolerance "
+          f"{TRAIN_TOL}); {len(got)} leaves: step 0's gradient norms within "
+          f"{worst['grad_leaf']:.3g}, their changes over the steps within "
+          f"{worst['change_leaf']:.3g} (tolerance {TRAIN_LEAF_TOL})")
+    return {"steps": metrics, "worst_rel_err": worst}
+
+
+def train_kernel_vs_plain(dev) -> dict:
+    """Phase 18 (c): one bf16 train step of mamba2-2.7b (2 layers) and
+    recurrentgemma-2b (3 layers) at full width through the kernels, then
+    the same step from the same state through their plain versions on
+    the card; loss and gradient norm against TRAIN_KVP's bounds.  The
+    kernel step's launches are counted (a remat layer launches twice)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.kernels import ref, ssd_scan
+    from repro_torch.models import model as M
+    from repro_torch.train.train_step import TrainConfig, init_state, \
+        make_train_step
+
+    out = {}
+    for arch, layers in (("mamba2-2.7b", 2), ("recurrentgemma-2b", 3)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        m = M.build(cfg, dev)
+        gen = torch.Generator(dev).manual_seed(18)
+        params = m.init(gen)
+        if cfg.family == "ssm":
+            with torch.no_grad():
+                mamba2_dt_a_init(params, gen)
+        st = init_state(params)
+        data = Pipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                   batch=TRAIN_KVP["B"],
+                                   seq_len=TRAIN_KVP["S"], seed=18))
+        batch = {"tokens": torch.from_numpy(data.batch_at(0)).to(dev)}
+        step = make_train_step(m, TrainConfig())
+        zero_train_counts()
+        _, kern = step(st, batch)
+        kern = {k: float(v) for k, v in kern.items()}
+        counts = train_counts()
+        restore = plain_attention()
+        saved = ssd_scan.ssd_intra
+        ssd_scan.ssd_intra = ref.ssd_intra_plain
+        try:
+            _, plain = step(st, batch)
+        finally:
+            ssd_scan.ssd_intra = saved
+            restore()
+        plain = {k: float(v) for k, v in plain.items()}
+        what = f"{arch} ({layers} layers, full width, bf16)"
+        err = {k: rel_close(kern[k], plain[k], TRAIN_KVP[k],
+                            f"{what} kernel step's {k}")
+               for k in ("loss", "grad_norm")}
+        key = "ssd_intra" if cfg.family == "ssm" else "flash_attention"
+        n = sum(counts[key].values())
+        if n != 2 * (layers if cfg.family == "ssm" else 1):
+            raise AssertionError(f"{what}: {n} {key} launches in a step, "
+                                 f"want the forward's and remat's")
+        print(f"{what}, a train step of {TRAIN_KVP['B']} x "
+              f"{TRAIN_KVP['S']}: kernel path loss {kern['loss']:.6f} grad "
+              f"norm {kern['grad_norm']:.6f}, plain path {plain['loss']:.6f} "
+              f"{plain['grad_norm']:.6f}: relative errors {err['loss']:.3g}"
+              f", {err['grad_norm']:.3g} (bounds {TRAIN_KVP['loss']}, "
+              f"{TRAIN_KVP['grad_norm']}); {key} launches {counts[key]}")
+        out[arch] = {"kernel": kern, "plain": plain, "rel_err": err,
+                     "launches": counts[key]}
+        del m, params, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_full_depth(dev, smi: str) -> dict:
+    """Phase 18 (d): granite-3-2b at full depth in bf16, TRAIN_B x TRAIN_S
+    tokens a step from the pipeline: a warm-up step, TRAIN_TIMED timed
+    steps (host clock after a sync), one profiled; 6ND FLOP/s against
+    the card's dense bf16 peak, peak memory, flash launches a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainConfig, init_state, \
+        make_train_step
+
+    cfg = get_config("granite-3-2b")
+    m = M.build(cfg, dev)
+    st = init_state(m.init(torch.Generator(dev).manual_seed(18)))
+    data = Pipeline(DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_B,
+                               seq_len=TRAIN_S, seed=18))
+    batches = [{"tokens": torch.from_numpy(data.batch_at(s)).to(dev)}
+               for s in range(TRAIN_TIMED + 2)]
+    step = make_train_step(m, TrainConfig(opt=adamw.AdamWConfig(
+        warmup_steps=1, total_steps=TRAIN_TIMED + 2)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, met = step(st, batches[0])                       # warm-up
+    losses = [float(met["loss"])]
+    zero_train_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[1:TRAIN_TIMED + 1]:
+        st, met = step(st, b)
+    losses.append(float(met["loss"]))                    # waits for the card
+    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+    flash = fa.LAUNCHES_BY_KERNEL["mma_bf16"] // TRAIN_TIMED
+    if fa.LAUNCHES_BY_KERNEL["mma_bf16"] != 2 * cfg.n_layers * TRAIN_TIMED \
+            or fa.LAUNCHES_BY_KERNEL["fma_f32"]:
+        raise AssertionError(f"flash launches {fa.LAUNCHES_BY_KERNEL} over "
+                             f"{TRAIN_TIMED} steps: want 2 a layer, bf16")
+    box = {}
+
+    def one():
+        box["st"], box["met"] = step(st, batches[-1])
+    wall, rows = profiled(one)
+    losses.append(float(box["met"]["loss"]))
+    del box
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"granite-3-2b training: losses {losses}")
+    tokens = TRAIN_B * TRAIN_S
+    flops = 6 * cfg.n_params() * tokens / (step_ms / 1e3)
+    prof = report_rows("granite-3-2b train step (profiled)", wall, rows, 1)
+    res = {"step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+           "flops_6nd_per_s": flops, "bf16_peak_flops": BF16_TFLOPS,
+           "peak_share": flops / BF16_TFLOPS, "peak_gib": peak,
+           "flash_launches_per_step": flash,
+           "busy_share": prof["busy_ms"] / prof["wall_ms"],
+           "profiled": prof, "losses": losses, "n_params": cfg.n_params(),
+           "card": smi}
+    print(f"granite-3-2b training, {cfg.n_layers} layers, bf16, {TRAIN_B} x "
+          f"{TRAIN_S} tokens a step: {step_ms:.2f} ms a step "
+          f"({res['tokens_per_s']:.0f} tokens/s), 6ND "
+          f"{flops / 1e12:.1f} TFLOP/s = {res['peak_share']:.1%} of the "
+          f"card's dense bf16 peak ({BF16_TFLOPS / 1e12:.0f} TFLOP/s, data "
+          f"sheet); peak {peak:.2f} GiB; {flash} flash launches a step "
+          f"(forward and remat); device busy {res['busy_share']:.1%} of "
+          f"the profiled step; losses {[round(x, 4) for x in losses]} "
+          f"({smi})")
+    del st, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_example(dev) -> dict:
+    """Phase 18 (e): examples/train_100m_torch.py's main for 60 steps into
+    a temp dir (a checkpoint at 50, the final save at 60), then to 70
+    resuming at 60; the loss falls over the first run."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "train_100m_torch", os.path.join(ROOT, "examples",
+                                         "train_100m_torch.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    first, second = TRAIN_EXAMPLE_STEPS
+    tmp = tempfile.mkdtemp(prefix="train_100m_torch_")
+    try:
+        t0 = time.perf_counter()
+        args = ["--ckpt-dir", tmp, "--device", str(dev)]
+        hist, tr, start = ex.main(["--steps", str(first)] + args)
+        wall1 = time.perf_counter() - t0
+        # the trainer absorbs a failed step by restoring and replaying;
+        # here no step may fail, so every restart is a fault
+        if start != 0 or len(hist) != first or tr.ckpt.all_steps() != [
+                50, first] or tr.n_restarts != 0:
+            raise AssertionError(f"first run: start {start}, {len(hist)} "
+                                 f"steps, checkpoints {tr.ckpt.all_steps()}"
+                                 f", {tr.n_restarts} restarts")
+        head, tail = np.mean(hist[:5]), np.mean(hist[-5:])
+        if not tail < head:
+            raise AssertionError(f"the loss did not fall: {head} -> {tail}")
+        t0 = time.perf_counter()
+        hist2, tr2, start2 = ex.main(["--steps", str(second)] + args)
+        wall2 = time.perf_counter() - t0
+        if start2 != first or len(hist2) != second - first \
+                or tr2.ckpt.latest_step() != second or tr2.n_restarts != 0:
+            raise AssertionError(f"second run: start {start2}, "
+                                 f"{len(hist2)} steps, latest checkpoint "
+                                 f"{tr2.ckpt.latest_step()}, "
+                                 f"{tr2.n_restarts} restarts")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    med = float(np.median(tr.step_times[1:])) * 1e3
+    print(f"examples/train_100m_torch.py: {first} steps in {wall1:.1f} s "
+          f"(median step {med:.1f} ms, checkpoints at 50 and {first}), loss "
+          f"{head:.3f} -> {tail:.3f} (means of the first and last 5); "
+          f"resumed at {start2} and ran to {second} in {wall2:.1f} s, loss "
+          f"{hist2[-1]:.3f}")
+    return {"wall_s": [wall1, wall2], "median_step_ms": med,
+            "loss_first5": head, "loss_last5": tail,
+            "resumed_at": start2, "final_loss": hist2[-1]}
+
+
+def train_fault(dev) -> dict:
+    """Phase 18 (f): the trainer's fault path on the card, granite-3-2b's
+    smoke config (bf16): a crash at step TRAIN_FAULT["fault_at"] restores
+    the last checkpoint and replays; the final params equal an
+    uninterrupted run's within TRAIN_FAULT["tol"]."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainConfig, init_state, \
+        make_train_step
+    from repro_torch.train.trainer import LoopConfig, Trainer
+
+    f = TRAIN_FAULT
+    cfg = get_smoke_config("granite-3-2b")
+    m = M.build(cfg, dev)
+    data = Pipeline(DataConfig(vocab_size=cfg.vocab_size, batch=4,
+                               seq_len=32, seed=1))
+    step_fn = make_train_step(m, TrainConfig(opt=adamw.AdamWConfig(
+        lr=3e-3, warmup_steps=2, total_steps=f["steps"])))
+
+    def batch_fn(s):
+        return {"tokens": torch.from_numpy(data.batch_at(s)).to(dev)}
+
+    tmp = tempfile.mkdtemp(prefix="train_fault_")
+    try:
+        def run(where, hook=None):
+            st = init_state(m.init(torch.Generator(dev).manual_seed(0)))
+            tr = Trainer(step_fn, batch_fn, LoopConfig(
+                total_steps=f["steps"], ckpt_every=f["ckpt_every"],
+                ckpt_dir=os.path.join(tmp, where), log_every=1000),
+                fault_hook=hook)
+            return tr.run(st)[0], tr
+
+        def fault(step):
+            if step == f["fault_at"] and not getattr(fault, "hit", False):
+                fault.hit = True
+                raise RuntimeError("injected node failure")
+
+        f1, tr1 = run("a")
+        f2, tr2 = run("b", fault)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    d = max(float((a.detach().float() - b.detach().float()).abs().max())
+            for a, b in zip(f1.params.parameters(), f2.params.parameters()))
+    if tr1.n_restarts != 0 or tr2.n_restarts != 1 or d >= f["tol"]:
+        raise AssertionError(f"the uninterrupted run: {tr1.n_restarts} "
+                             f"restarts; the restarted run: {tr2.n_restarts}"
+                             f" restarts, params off by {d}")
+    print(f"trainer fault path ({cfg.name}, {f['steps']} steps, a crash at "
+          f"step {f['fault_at']}, checkpoints every {f['ckpt_every']}): 1 "
+          f"restart, final params within {d:.3g} of an uninterrupted run "
+          f"(bound {f['tol']})")
+    return {"restarts": tr2.n_restarts, "max_abs_diff": d}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2589,10 +3097,12 @@ def main() -> int:
     print(smi)
     with ThreadPoolExecutor(1) as host:
         hybrid_draw = host.submit(draw_hybrid_snapshot)   # for phase 17
+        train_draw = host.submit(draw_train_snapshot)     # for phase 18
         with ThreadPoolExecutor(len(LIBRARIES)) as pool:
             builds = dict(zip(LIBRARIES, pool.map(build.compile_kernel,
                                                   LIBRARIES)))
         hybrid_inputs = hybrid_draw.result()
+        train_inputs = train_draw.result()
     for src, built in builds.items():
         print(f"built {src} in {built['seconds']:.2f} s")
         for ln in built["log"].splitlines():
@@ -3573,6 +4083,23 @@ def main() -> int:
         hybrid_serve["prefill_launches"]["flash_attention"])
     print(f"phase 17: {time.perf_counter() - t:.1f} s")
 
+    # ----------------------------------------------------------- 18
+    torch.cuda.empty_cache()
+    t = phase("18. training: the flash and ssd_intra wrappers under "
+              "autograd, granite-3-2b (2 layers, float32) against the JAX "
+              "snapshot, mamba2-2.7b and recurrentgemma-2b kernel path "
+              "against plain path, granite-3-2b at full depth, "
+              "examples/train_100m_torch.py, the trainer's fault path")
+    training = {"wrappers": train_wrappers(dev)}
+    training["snapshot"] = train_vs_snapshot(dev, train_inputs)
+    del train_inputs
+    torch.cuda.empty_cache()
+    training["kernel_vs_plain"] = train_kernel_vs_plain(dev)
+    training["full_depth"] = train_full_depth(dev, smi)
+    training["example"] = train_example(dev)
+    training["fault"] = train_fault(dev)
+    print(f"phase 18: {time.perf_counter() - t:.1f} s")
+
     # each registered system's static instantiation (composition/placement)
     # and, for a ladder member, the ladder instantiation the tables run
     ladder_of = {m: lad for lad, ms in systems.LADDERS.items() for m in ms}
@@ -3596,7 +4123,13 @@ def main() -> int:
     # each serving path's launches, its counts zeroed before it ran:
     # granite-3-2b (phase 8), granite-moe-1b-a400m (14) and
     # seamless-m4t-medium (15), a prefill and all decode steps each
-    by_path = {"granite-3-2b": serve["launches"]}
+    by_path = {"granite-3-2b": serve["launches"],
+               # phase 18 (d): the timed train steps, each layer's forward
+               # and its remat recomputation
+               f"granite-3-2b training ({TRAIN_TIMED} steps)": {
+                   "flash_attention": training["full_depth"][
+                       "flash_launches_per_step"] * TRAIN_TIMED,
+                   "paged_attention": 0}}
     for model, r in (("granite-moe-1b-a400m", moe_serve),
                      ("seamless-m4t-medium", seamless_serve),
                      ("recurrentgemma-2b", hybrid_serve)):
@@ -3624,10 +4157,14 @@ def main() -> int:
         "granite-moe-1b-a400m": {"snapshot": moe_snap, "serving": moe_serve},
         "seamless-m4t-medium": {"snapshot": seamless_snap,
                                 "serving": seamless_serve},
+        "training": training,
         "recurrentgemma-2b": {"flash_hd256": hd256,
                               "snapshot": hybrid_snap,
                               "serving": hybrid_serve},
         "dense_options": options}))
+    ssd_train_by_kernel = training["kernel_vs_plain"]["mamba2-2.7b"][
+        "launches"]
+    ssd_train = sum(ssd_train_by_kernel.values())
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "mmu_step", "route": "cuda",
@@ -3663,8 +4200,14 @@ def main() -> int:
         "name": "ssd_intra", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:49",
-        "launches": mamba["launches"],
-        "launches_by_kernel": mamba["launches_by_kernel"],
+        "launches": mamba["launches"] + ssd_train,
+        "launches_by_path": {"mamba2-2.7b": mamba["launches"],
+                             "mamba2-2.7b training (2 layers, a step)":
+                             ssd_train},
+        "launches_by_kernel": {
+            k: mamba["launches_by_kernel"].get(k, 0)
+            + ssd_train_by_kernel.get(k, 0)
+            for k in {**mamba["launches_by_kernel"], **ssd_train_by_kernel}},
         "max_abs_err": ssd_err,
         **mamba["ssd"], "unit": mamba["unit"], "matches_plain": True}]}))
     print(json.dumps({"ok": True, "device": {

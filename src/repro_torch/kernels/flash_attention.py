@@ -3,7 +3,9 @@ CUDA kernels written by hand for Hopper (``csrc/flash_attention.cu``).
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:85``
 (``flash_attention``; body ``_kernel`` at :26).  The prefill attention of
-the port's transformer runs through it, one launch per layer.
+the port's transformer runs through it, one launch per layer, and so
+does the training forward (``_Flash``: the kernel forward, the plain
+version's VJP backward).
 
 ``flash_attention`` picks the path from the device of the tensors it is
 given: on CUDA tensors it launches a kernel (or raises); on CPU tensors
@@ -24,7 +26,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 # kernel launches made by flash_attention since import, in all and by
-# kernel
+# kernel (training counts its forward's and remat's recomputation's)
 LAUNCHES = 0
 LAUNCHES_BY_KERNEL = {"mma_bf16": 0, "fma_f32": 0}
 
@@ -164,12 +166,36 @@ def launch(q, k, v, *, causal=True, window=None):
     return o
 
 
+class _Flash(torch.autograd.Function):
+    """The kernel as the forward; the backward is the VJP of
+    ``ref.mha_reference`` recomputed from the saved q, k and v (the
+    reference's Pallas kernel has no VJP, and its models train through
+    plain JAX)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return launch(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, do):
+        return ref.vjp(ref.mha_reference, ctx.saved_tensors,
+                       ctx.needs_input_grad[:3], (do,), causal=ctx.causal,
+                       window=ctx.window) + (None, None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """q [B,H,S,hd]; k,v [B,K,Sk,hd] with H % K == 0. Returns [B,H,S,hd].
 
-    On the card this launches the dtype's CUDA kernel; on the CPU it runs
-    ``ref.mha_reference``."""
+    On the card this launches the dtype's CUDA kernel, under autograd
+    through ``_Flash`` (which keeps q, k and v for the backward; a
+    ``remat`` layer launches it again there); on the CPU it runs
+    ``ref.mha_reference``, which autograd differentiates."""
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _Flash.apply(q, k, v, causal, window)
         return launch(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":
         check(q, k, v, window)

@@ -3,14 +3,43 @@ port's copy of ``repro.kernels.ref``.
 
 Each computes in float32 and casts back to the input's dtype, as the JAX
 oracles do (``ssd_intra_plain`` in its ``model`` mode keeps float32, as
-the model does).  The kernel wrappers run these for CPU tensors, and
-``chip_smoke.py`` holds the CUDA kernels against them on the card.
+the model does).  The kernel wrappers run these for CPU tensors, their
+autograd VJPs are the backward of the kernels under training
+(``vjp``), and ``chip_smoke.py`` holds the CUDA kernels against them on
+the card.
 """
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30
+
+
+def vjp(fn, inputs, needs, cotangents, **kw):
+    """The gradients of ``fn(*inputs, **kw)`` for the inputs whose entry
+    of ``needs`` is true (None for the others), against ``cotangents``
+    (one per output): the autograd VJP of the plain version, recomputed
+    from the inputs.  The kernels' autograd Functions run their forward
+    on the card and take their backward from here."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(bool(n)) for x, n in
+              zip(inputs, needs)]
+        out = fn(*xs, **kw)
+        out = out if isinstance(out, tuple) else (out,)
+        wrt = [x for x, n in zip(xs, needs) if n]
+        got = iter(torch.autograd.grad(out, wrt, cotangents,
+                                       allow_unused=True))
+    return tuple(next(got) if n else None for n in needs)
+
+
+def _heads(x, G: int, dim: int):
+    """``x.repeat_interleave(G, dim)``, as a broadcast: its backward sums
+    the G copies in a fixed order, where ``repeat_interleave``'s adds them
+    with atomics (a training step on the card must repeat bit for
+    bit)."""
+    shape = list(x.shape)
+    x = x.unsqueeze(dim + 1).expand(*shape[:dim + 1], G, *shape[dim + 1:])
+    return x.reshape(*shape[:dim], shape[dim] * G, *shape[dim + 1:])
 
 
 def mha_reference(q, k, v, *, causal=True, window=None):
@@ -23,8 +52,7 @@ def mha_reference(q, k, v, *, causal=True, window=None):
     B, H, S, hd = q.shape
     K, Sk = k.shape[1], k.shape[2]
     G = H // K
-    kf = k.float().repeat_interleave(G, dim=1)
-    vf = v.float().repeat_interleave(G, dim=1)
+    kf, vf = _heads(k.float(), G, 1), _heads(v.float(), G, 1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / (hd ** 0.5)
     qpos = torch.arange(S, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
@@ -102,14 +130,14 @@ def ssd_intra_plain(x, dt, dA, B, C, *, mode="pallas"):
 
     cs = torch.cumsum(dA, 1).permute(0, 2, 1)                  # [T,R,q]
     CB = torch.einsum("tign,tjgn->tgij", C.float(), B.float())
-    CB = CB.repeat_interleave(r, dim=1)                        # [T,R,q,q]
+    CB = _heads(CB, r, 1)                                      # [T,R,q,q]
     L = _decay(cs[..., :, None] - cs[..., None, :])
     L = L * torch.tril(torch.ones((q, q), device=x.device))
     dtj = dt.permute(0, 2, 1)[:, :, None, :]                   # [T,R,1,q]
     W = rnd(rnd(rnd(CB) * rnd(L)) * rnd(dtj))
     y = torch.einsum("trij,tjrp->tirp", W, x.float())
     w = rnd(_decay(cs[..., -1:] - cs) * dt.permute(0, 2, 1))   # [T,R,q]
-    Bw = B.float().repeat_interleave(r, dim=2) * w.permute(0, 2, 1)[..., None]
+    Bw = _heads(B.float(), r, 2) * w.permute(0, 2, 1)[..., None]
     S = torch.einsum("tqrn,tqrp->trnp", Bw, x.float())
     out = x.dtype if mode == "pallas" else torch.float32
     return y.to(out), S.to(out)

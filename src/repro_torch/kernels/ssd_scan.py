@@ -4,7 +4,7 @@ Hopper (``csrc/ssd_scan.cu``).
 Replaces the TPU kernel ``src/repro/kernels/ssd_scan.py:49``
 (``ssd_intra``; body ``_kernel`` at :21).  The port's
 ``models.ssm.ssd_chunked`` runs it once per mamba2 layer, for every chunk
-and head of the prompt.
+and head of the prompt, in serving and in training (``_SsdIntra``).
 
 ``ssd_intra`` picks the path from the device of the tensors it is given:
 on CUDA tensors it launches the kernel (or raises); on CPU tensors it runs
@@ -188,13 +188,36 @@ def launch(x, dt, dA, B, C, *, mode="pallas"):
     return y, S
 
 
+class _SsdIntra(torch.autograd.Function):
+    """The kernel as the forward; the backward is the VJP of
+    ``ref.ssd_intra_plain`` in the same ``mode``, recomputed from the
+    saved inputs (the reference's Pallas kernel has no VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, dA, B, C, mode):
+        ctx.save_for_backward(x, dt, dA, B, C)
+        ctx.mode = mode
+        return launch(x, dt, dA, B, C, mode=mode)
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        return ref.vjp(ref.ssd_intra_plain, ctx.saved_tensors,
+                       ctx.needs_input_grad[:5], (dy, dS),
+                       mode=ctx.mode) + (None,)
+
+
 def ssd_intra(x, dt, dA, B, C, *, mode: str = "pallas"):
     """x [T,q,R,p]; dt, dA [T,q,R] float32; B, C [T,q,G,n] with head h
     reading group h // (R // G).  Returns (y [T,q,R,p], S [T,R,n,p]).
 
-    On the card this launches the CUDA kernel ``kernel_for`` picks; on
-    the CPU it runs ``ref.ssd_intra_plain``."""
+    On the card this launches the CUDA kernel ``kernel_for`` picks, under
+    autograd through ``_SsdIntra`` (the kernel forward, the plain
+    version's VJP backward); on the CPU it runs ``ref.ssd_intra_plain``,
+    which autograd differentiates."""
     if x.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, dt, dA, B, C)):
+            return _SsdIntra.apply(x, dt, dA, B, C, mode)
         return launch(x, dt, dA, B, C, mode=mode)
     if x.device.type == "cpu":
         check(x, dt, dA, B, C, mode)

@@ -72,41 +72,47 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, device=device)[None, :].expand(B, S)
 
 
-@torch.no_grad()
-def encode(params: EncDec, cfg: ModelConfig, src_embeds):
-    """src_embeds [B,Ss,D] -> the encoder's output [B,Ss,D]."""
+def _enc_layer(lp: EncBlock, cfg: ModelConfig, x, pos, cos_sin):
+    h = L.rms_norm(lp.ln1, x, cfg.norm_eps)
+    a, _ = L.attn_apply(lp.attn, cfg, h, pos, causal=False, cos_sin=cos_sin)
+    x = x + a
+    return x + L.mlp_apply(lp.mlp, L.rms_norm(lp.ln2, x, cfg.norm_eps))
+
+
+def _dec_layer(lp: DecBlock, cfg: ModelConfig, x, enc, pos, cos_sin):
+    h = L.rms_norm(lp.ln1, x, cfg.norm_eps)
+    a, _ = L.attn_apply(lp.attn, cfg, h, pos, cos_sin=cos_sin)
+    x = x + a
+    h = L.rms_norm(lp.lnx, x, cfg.norm_eps)
+    a, _ = L.attn_apply(lp.cross, cfg, h, pos, kv=enc)
+    x = x + a
+    return x + L.mlp_apply(lp.mlp, L.rms_norm(lp.ln2, x, cfg.norm_eps))
+
+
+def encode(params: EncDec, cfg: ModelConfig, src_embeds, remat: bool = True):
+    """src_embeds [B,Ss,D] -> the encoder's output [B,Ss,D].  Under
+    autograd with ``remat`` each layer is recomputed in the backward
+    pass (``L.remat``)."""
     B, Ss, _ = src_embeds.shape
     x = src_embeds
     pos = _positions(B, Ss, x.device)
     cos_sin = L.rope_cos_sin(pos, cfg.hd, cfg.rope_theta)
     for lp in params.enc:
-        h = L.rms_norm(lp.ln1, x, cfg.norm_eps)
-        a, _ = L.attn_apply(lp.attn, cfg, h, pos, causal=False,
-                            cos_sin=cos_sin)
-        x = x + a
-        h = L.rms_norm(lp.ln2, x, cfg.norm_eps)
-        x = x + L.mlp_apply(lp.mlp, h)
+        x = L.remat(_enc_layer, remat, lp, cfg, x, pos, cos_sin)
     return L.rms_norm(params.enc_ln, x, cfg.norm_eps)
 
 
-@torch.no_grad()
-def forward(params: EncDec, cfg: ModelConfig, tokens, src_embeds):
+def forward(params: EncDec, cfg: ModelConfig, tokens, src_embeds,
+            remat: bool = True):
     """Teacher-forced forward: tokens [B,St] over src_embeds [B,Ss,D] ->
     decoder logits [B,St,V] (float32)."""
-    enc = encode(params, cfg, src_embeds)
+    enc = encode(params, cfg, src_embeds, remat)
     B, St = tokens.shape
     pos = _positions(B, St, tokens.device)
     cos_sin = L.rope_cos_sin(pos, cfg.hd, cfg.rope_theta)
     x = L.embed_apply(params.embed, tokens)
     for lp in params.dec:
-        h = L.rms_norm(lp.ln1, x, cfg.norm_eps)
-        a, _ = L.attn_apply(lp.attn, cfg, h, pos, cos_sin=cos_sin)
-        x = x + a
-        h = L.rms_norm(lp.lnx, x, cfg.norm_eps)
-        a, _ = L.attn_apply(lp.cross, cfg, h, pos, kv=enc)
-        x = x + a
-        h = L.rms_norm(lp.ln2, x, cfg.norm_eps)
-        x = x + L.mlp_apply(lp.mlp, h)
+        x = L.remat(_dec_layer, remat, lp, cfg, x, enc, pos, cos_sin)
     x = L.rms_norm(params.ln_f, x, cfg.norm_eps)
     return L.logits_apply(params.embed, x)
 

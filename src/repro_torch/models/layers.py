@@ -3,8 +3,11 @@
 Weights live in ``nn.Module``s (``Params`` subclasses) in the JAX
 package's ``[in, out]`` orientation (``x @ w``), under the JAX dict's
 key names, so that carrying a JAX pytree across is a copy, not a
-transpose.  They hold no gradients: the port serves, it does not train
-yet.  Each block also has the JAX package's functional form
+transpose.  They are made without gradients, which is what serving
+wants; ``trainable(params)`` turns every weight of a model trainable
+(``train.train_step.init_state`` calls it), after which the forward
+builds the autograd graph and ``remat`` recomputes a layer in the
+backward pass.  Each block also has the JAX package's functional form
 (``rms_norm(p, x, eps)``, ``attn_apply(p, cfg, ...)``, ...), which the
 tests hold against the reference one by one.
 
@@ -20,7 +23,9 @@ mask, decode through a ring cache), M-RoPE and cross-attention.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -33,12 +38,30 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 class Params(nn.Module):
-    """Named weight tensors, registered as parameters without gradients."""
+    """Named weight tensors, registered as parameters without gradients
+    (``trainable`` turns them on)."""
 
     def __init__(self, **tensors):
         super().__init__()
         for name, t in tensors.items():
             self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+
+
+def trainable(params: nn.Module) -> nn.Module:
+    """Every weight of ``params`` set to require gradients, in place;
+    returns ``params``."""
+    return params.requires_grad_(True)
+
+
+def remat(fn, on: bool, *args):
+    """``fn(*args)``; under autograd with ``on``, through
+    ``torch.utils.checkpoint`` (non-reentrant): only the inputs are kept,
+    and the backward pass runs ``fn`` again, as the reference's
+    ``jax.checkpoint(..., nothing_saveable)``."""
+    if on and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def dense_init(gen: torch.Generator, shape, in_axis=0, dtype=torch.float32):
@@ -288,7 +311,7 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff=None) -> MLP:
 
 
 def mlp_apply(p, x):
-    gate = torch.nn.functional.silu(matmul(x, p.wg).float()).to(x.dtype)
+    gate = F.silu(matmul(x, p.wg).float()).to(x.dtype)
     return matmul(gate * matmul(x, p.wi), p.wo)
 
 
@@ -315,8 +338,10 @@ def embed_init(gen: torch.Generator, cfg: ModelConfig) -> Embed:
 
 def embed_apply(p, tokens, input_embeds=None):
     """Token embeddings [B,S,D]; ``input_embeds`` [B,P,D] (the vlm and
-    audio stubs) replace the first P rows, as the reference's."""
-    x = p.tok[tokens.long()]
+    audio stubs) replace the first P rows, as the reference's.
+    ``F.embedding``: its backward on the card sums a repeated token's rows
+    in a fixed order, where indexing's adds them with atomics."""
+    x = F.embedding(tokens.long(), p.tok)
     if input_embeds is not None:
         P = input_embeds.shape[1]
         x = torch.cat([input_embeds.to(x.dtype), x[:, P:]], dim=1)

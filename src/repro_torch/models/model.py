@@ -1,5 +1,6 @@
 """Unified model API, the port of ``repro.models.model``: ``build(cfg)``
--> ``Model`` with init / forward / init_cache / prefill / decode_step,
+-> ``Model`` with init / forward / loss / init_cache / prefill /
+decode_step,
 for every family of the reference (dense, moe and vlm through
 ``transformer``, encdec through ``encdec``, ssm through ``ssm``, hybrid
 through ``rglru``).
@@ -20,20 +21,23 @@ with the JAX package and ``chip_smoke.py`` checks the port against.
 """
 from __future__ import annotations
 
+import copy
 import hashlib
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.mmu import resolve_device
-from repro_torch.models import encdec, rglru, ssm, transformer
+from repro_torch.models import encdec, moe, rglru, ssm, transformer
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import TOKENS_PER_PAGE
 
 __all__ = ["F32_LEAVES", "Model", "build", "cross_entropy", "dummy_batch",
-           "numpy_params", "param_shapes", "params_from_jax",
-           "params_to_numpy", "tree_sha256"]
+           "jax_layout", "jax_path", "named_tensors", "numpy_params",
+           "param_shapes", "params_from_jax", "params_to_numpy",
+           "tree_sha256", "with_tensors"]
 
 _FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
            "encdec": encdec, "ssm": ssm, "hybrid": rglru}
@@ -101,14 +105,36 @@ class Model:
                 out[arg] = batch[key].to(self.device)
         return out
 
-    def forward(self, params, batch):
+    def forward(self, params, batch, remat: bool = True):
+        """Logits [B,S,V] (float32).  Under autograd with ``remat``, each
+        layer (each superblock for the hybrid) keeps only its input and
+        recomputes the rest in the backward pass, as the reference's
+        ``jax.checkpoint(..., nothing_saveable)``; it changes no
+        value."""
         cfg, tokens = self.cfg, batch["tokens"].to(self.device)
         if cfg.family in ("ssm", "hybrid"):
-            return self._impl.forward(params, cfg, tokens)
+            return self._impl.forward(params, cfg, tokens, remat=remat)
         if cfg.family == "encdec":
             src = batch["src_embeds"].to(self.device, L.dtype_of(cfg))
-            return encdec.forward(params, cfg, tokens, src)
-        return transformer.forward(params, cfg, tokens, **self._extras(batch))
+            return encdec.forward(params, cfg, tokens, src, remat=remat)
+        return transformer.forward(params, cfg, tokens, remat=remat,
+                                   **self._extras(batch))
+
+    def loss(self, params, batch, remat: bool = True):
+        """Next-token cross-entropy of ``forward``'s logits[:, :-1]
+        against tokens[:, 1:] (``loss_mask`` [B,S-1] weighs the
+        positions), plus, for moe, 0.01 times layer 0's router balance
+        loss on the embedding stream, as the reference's ``Model.loss``."""
+        logits = self.forward(params, batch, remat)
+        tokens = batch["tokens"].to(self.device)
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = mask.to(self.device, torch.float32)
+        lv = cross_entropy(logits[:, :-1], tokens[:, 1:], mask)
+        if self.cfg.family == "moe":
+            x = L.embed_apply(params.embed, tokens)
+            lv = lv + 0.01 * moe.aux_loss(params.layers[0].ffn, x, self.cfg)
+        return lv
 
     def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16):
         return self._impl.init_cache(self.cfg, batch, seq_len, dtype,
@@ -126,7 +152,7 @@ class Model:
                 raise ValueError(f"the {cfg.family} prefill fills no cache "
                                  f"(the reference's returns none)")
             if cfg.family == "encdec":
-                return self.forward(params, batch)[:, -1:], None
+                return self.forward(params, batch, remat=False)[:, -1:], None
             return self._impl.prefill(params, cfg,
                                       batch["tokens"].to(self.device))
         return transformer.prefill(params, cfg,
@@ -377,20 +403,58 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
     return transformer.Transformer(embed=embed, layers=blocks, ln_f=ln_f)
 
 
+def jax_path(name: str) -> tuple:
+    """The JAX pytree path of the port's parameter ``name`` (a dotted
+    ``named_parameters`` name) and its layer in the stack, or None where
+    the reference stacks nothing: ``layers.3.ln1.scale`` -> (("layers",
+    "ln1", "scale"), 3)."""
+    parts = tuple(name.split("."))
+    if parts[0] in STACKS and len(parts) > 2 and parts[1].isdigit():
+        return (parts[0],) + parts[2:], int(parts[1])
+    return parts, None
+
+
+def jax_layout(names) -> dict:
+    """JAX path -> the port's names of its leaf (a stack's in layer
+    order), in the reference's leaf order (``jax.tree.flatten`` of a
+    dict sorts its keys, which orders the paths lexicographically)."""
+    out = {}
+    for name in names:
+        path, i = jax_path(name)
+        out.setdefault(path, []).append((-1 if i is None else i, name))
+    return {path: [n for _, n in sorted(out[path])] for path in sorted(out)}
+
+
+def named_tensors(params) -> dict:
+    """name -> tensor: a module's ``named_parameters``, or a dict as it
+    is."""
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def with_tensors(params, tensors: dict):
+    """``params`` with each named tensor replaced by ``tensors[name]``: a
+    new module of the same structure (no tensor copied; each parameter
+    keeps its ``requires_grad``), or a new dict."""
+    if isinstance(params, nn.Module):
+        memo = {id(p): nn.Parameter(tensors[n], requires_grad=p.requires_grad)
+                for n, p in params.named_parameters()}
+        return copy.deepcopy(params, memo)
+    return {n: tensors[n] for n in params}
+
+
 def params_to_numpy(params) -> dict:
     """The JAX pytree of numpy arrays (layers stacked on axis 0)."""
-    tree, per_layer = {}, {}
-    for name, p in params.named_parameters():
-        path = tuple(name.split("."))
-        if path[0] in STACKS:
-            per_layer.setdefault((path[0],) + path[2:], []).append(_numpy(p))
-            continue
-        tree.setdefault(path[0], {})[path[1]] = _numpy(p)
-    for path, leaves in per_layer.items():
+    ps = named_tensors(params)
+    tree = {}
+    for path, names in jax_layout(ps).items():
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = np.stack(leaves)
+        leaves = [_numpy(ps[n]) for n in names]
+        node[path[-1]] = (np.stack(leaves) if jax_path(names[0])[1] is not None
+                          else leaves[0])
     return tree
 
 

@@ -24,8 +24,10 @@ x's dtype; the sum cast to x's dtype at the end.  Selection is exact
 (the reference adds one row to zeros), so only the order of the <= k
 terms of a token's sum differs.
 
-The load-balancing loss (``aux_loss``) belongs to training, which is not
-ported yet (ROADMAP Queue 1, item 9).
+``aux_loss`` is the reference's load-balancing loss, which
+``Model.loss`` adds for training.  Under autograd the expert products
+widen bf16 operands to float32 first (the CPU's form, the same sums):
+the card's bf16-in, float32-out ``bmm`` has no backward.
 """
 from __future__ import annotations
 
@@ -110,7 +112,8 @@ def _bmm_f32(a, b):
     operands are widened first, as the reference does there)."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.device.type == "cuda":
+    if a.device.type == "cuda" and not (torch.is_grad_enabled() and (
+            a.requires_grad or b.requires_grad)):
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 
@@ -140,3 +143,14 @@ def moe_apply(p, x, cfg: ModelConfig):
     y = torch.zeros(G * M + 1, D, dtype=torch.float32, device=dev)
     y.index_add_(0, src, out.float() * w[:, None])
     return y[:G * M].to(dt).view(B, S, D)
+
+
+def aux_loss(p, x, cfg: ModelConfig):
+    """The Switch load-balancing loss E * sum_e f_e * P_e of x [B,S,D]:
+    f_e the share of tokens whose top gate is expert e (ties to the
+    lower expert, as ``argmax``), P_e the mean gate; float32."""
+    gates = torch.softmax(torch.matmul(x.float(), p.router), dim=-1)
+    top1 = torch.argmax(gates, dim=-1)
+    f = torch.mean(F.one_hot(top1, cfg.n_experts).float(), dim=(0, 1))
+    P = torch.mean(gates, dim=(0, 1))
+    return cfg.n_experts * torch.sum(f * P)

@@ -168,8 +168,9 @@ def rglru_apply(p, x, h0=None):
     i, log_a = _gates(p, x)
     a = torch.exp(log_a)
     gated = _gated(i, log_a, x)
-    if h0 is not None:
-        gated[:, 0] += a[:, 0] * h0.float()
+    if h0 is not None:   # out of place: autograd may hold ``gated``
+        gated = torch.cat([gated[:, :1] + a[:, :1] * h0.float()[:, None],
+                           gated[:, 1:]], 1)
     h = linear_scan(a, gated)
     return h.to(x.dtype), h[:, -1]
 
@@ -274,25 +275,31 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> Hybrid:
                   ln_f=L.rms_norm_init(cfg.d_model, gen.device))
 
 
-def _hidden(params: Hybrid, cfg: ModelConfig, tokens):
-    """The residual stream after the last block, [B,S,D]."""
+def _super(sp: Super, cfg: ModelConfig, x, positions, cos_sin):
+    x = rec_block_apply(sp.rec1, cfg, x)
+    x = rec_block_apply(sp.rec2, cfg, x)
+    return attn_block_apply(sp.attn, cfg, x, positions, cos_sin)
+
+
+def _hidden(params: Hybrid, cfg: ModelConfig, tokens, remat: bool = False):
+    """The residual stream after the last block, [B,S,D]; ``remat``
+    (``L.remat``) recomputes each superblock and each tail block in the
+    backward pass, as the reference checkpoints its two scans' bodies."""
     B, S = tokens.shape
     x = L.embed_apply(params.embed, tokens)
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     cos_sin = L.positional_cos_sin(cfg, positions)
     for sp in params.super:
-        x = rec_block_apply(sp.rec1, cfg, x)
-        x = rec_block_apply(sp.rec2, cfg, x)
-        x = attn_block_apply(sp.attn, cfg, x, positions, cos_sin)
+        x = L.remat(_super, remat, sp, cfg, x, positions, cos_sin)
     for lp in params.tail:
-        x = rec_block_apply(lp, cfg, x)
+        x = L.remat(rec_block_apply, remat, lp, cfg, x)
     return x
 
 
-@torch.no_grad()
-def forward(params: Hybrid, cfg: ModelConfig, tokens):
+def forward(params: Hybrid, cfg: ModelConfig, tokens, remat: bool = True):
     """tokens [B,S] -> logits [B,S,V] (float32)."""
-    x = L.rms_norm(params.ln_f, _hidden(params, cfg, tokens), cfg.norm_eps)
+    x = L.rms_norm(params.ln_f, _hidden(params, cfg, tokens, remat),
+                   cfg.norm_eps)
     return L.logits_apply(params.embed, x)
 
 

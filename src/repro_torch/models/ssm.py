@@ -91,7 +91,6 @@ def _causal_conv(x, w, b):
     return y + b.to(y.dtype)
 
 
-@torch.no_grad()
 def ssd_chunked(x, dtv, A, B, C, chunk: int, state0=None):
     """SSD over a full sequence.
 
@@ -116,15 +115,17 @@ def ssd_chunked(x, dtv, A, B, C, chunk: int, state0=None):
     cs = torch.cumsum(dA, dim=2)                  # within-chunk cumsum
     chunk_decay = torch.exp(torch.clamp(dA.sum(dim=2), -60.0, 0.0))
 
-    if state0 is not None:
-        S_loc[:, 0] += state0.float() * chunk_decay[:, 0][..., None, None]
     # inter-chunk recurrence S_c = S_{c-1} * decay_c + S_loc_c; the state
-    # entering chunk c is S_{c-1} (zero for c = 0)
-    S_prev = torch.zeros_like(S_loc)
+    # entering chunk c is S_{c-1} (zero for c = 0).  No tensor is written
+    # in place: under autograd S_loc is the kernel's saved output.
     acc = S_loc[:, 0]
+    if state0 is not None:
+        acc = acc + state0.float() * chunk_decay[:, 0][..., None, None]
+    states = [torch.zeros_like(acc)]
     for c in range(1, nc):
-        S_prev[:, c] = acc
+        states.append(acc)
         acc = acc * chunk_decay[:, c][..., None, None] + S_loc[:, c]
+    S_prev = torch.stack(states, dim=1)
     Cb = C.reshape(b, nc, q, g, n)
     y_inter = torch.einsum("bcqgn,bcgrnp->bcqgrp", Cb.float(),
                            S_prev.to(x.dtype).float())
@@ -133,7 +134,6 @@ def ssd_chunked(x, dtv, A, B, C, chunk: int, state0=None):
     return y.to(x.dtype), acc.to(x.dtype)
 
 
-@torch.no_grad()
 def ssm_apply(p, cfg: ModelConfig, u, state=None, return_state=False):
     """Full-sequence mamba2 mixer. u [B,S,D] -> [B,S,D] (and the final
     state [B,G,r,N,P] in u's dtype with ``return_state``)."""
@@ -218,19 +218,24 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> SSM:
                ln_f=L.rms_norm_init(cfg.d_model, gen.device))
 
 
-def _hidden(params: SSM, cfg: ModelConfig, tokens):
-    """The residual stream after the last layer, [B,S,D]."""
+def _layer(lp: Block, cfg: ModelConfig, x):
+    return x + ssm_apply(lp.mixer, cfg, L.rms_norm(lp.ln, x, cfg.norm_eps))
+
+
+def _hidden(params: SSM, cfg: ModelConfig, tokens, remat: bool = False):
+    """The residual stream after the last layer, [B,S,D]; ``remat``: see
+    ``L.remat``."""
     x = L.embed_apply(params.embed, tokens)
     for lp in params.layers:
-        h = L.rms_norm(lp.ln, x, cfg.norm_eps)
-        x = x + ssm_apply(lp.mixer, cfg, h)
+        x = L.remat(_layer, remat, lp, cfg, x)
     return x
 
 
-@torch.no_grad()
-def forward(params: SSM, cfg: ModelConfig, tokens):
-    """tokens [B,S] -> logits [B,S,V] (float32)."""
-    x = L.rms_norm(params.ln_f, _hidden(params, cfg, tokens), cfg.norm_eps)
+def forward(params: SSM, cfg: ModelConfig, tokens, remat: bool = True):
+    """tokens [B,S] -> logits [B,S,V] (float32).  Under autograd with
+    ``remat`` each layer is recomputed in the backward pass."""
+    x = L.rms_norm(params.ln_f, _hidden(params, cfg, tokens, remat),
+                   cfg.norm_eps)
     return L.logits_apply(params.embed, x)
 
 

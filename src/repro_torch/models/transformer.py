@@ -94,16 +94,20 @@ def _embed(params: Transformer, cfg: ModelConfig, tokens, positions3,
     return x, positions, L.positional_cos_sin(cfg, positions, positions3)
 
 
-@torch.no_grad()
+def _layer(lp: Block, cfg: ModelConfig, x, positions, cos_sin):
+    return _block(lp, cfg, x, positions, cos_sin)[0]
+
+
 def forward(params: Transformer, cfg: ModelConfig, tokens, *,
-            positions3=None, input_embeds=None):
+            positions3=None, input_embeds=None, remat: bool = True):
     """Full-sequence forward: tokens [B,S] -> logits [B,S,V] (float32).
     ``positions3`` [3,B,S]: M-RoPE's streams; ``input_embeds`` [B,P,D]
-    replace the first P embedding rows."""
+    replace the first P embedding rows.  Under autograd with ``remat``
+    each layer is recomputed in the backward pass (``L.remat``)."""
     x, positions, cos_sin = _embed(params, cfg, tokens, positions3,
                                    input_embeds)
     for lp in params.layers:
-        x, _ = _block(lp, cfg, x, positions, cos_sin)
+        x = L.remat(_layer, remat, lp, cfg, x, positions, cos_sin)
     x = L.rms_norm(params.ln_f, x, cfg.norm_eps)
     return L.logits_apply(params.embed, x)
 
