@@ -47,9 +47,9 @@ parallel, and drives its paths on the card:
   bf16 on the tensor cores, float32 on the CUDA cores, each call
   checked to have taken its dtype's kernel) and ``paged_attention``
   (decode; each case in the form its plan picks and in the other) kernels
-  against their plain versions at the JAX tests' shapes, granite's, and
+  against their plain versions at the JAX tests' shapes, granite's,
   bf16 at hd 128, with windows, ragged S != Sk and the model's strided
-  views, the paged kernel also at hd 128 and 256, ragged clusters and
+  views, and float32 at the hd-128 and hd-256 prefills of phases 16-17, the paged kernel also at hd 128 and 256, ragged clusters and
   qwen3-32b's 4096-token geometry; the model at full width, 2 layers,
   against the JAX snapshot ``tests/golden/torch_granite_fullwidth.json``;
   then at full width and depth, 8 requests x 512 prompt tokens and 64
@@ -123,7 +123,17 @@ parallel, and drives its paths on the card:
   tokens a step, timed (step ms, tokens/s, 6ND FLOP/s against the bf16
   peak, peak memory, flash launches a step) and profiled;
   ``examples/train_100m_torch.py`` for 60 steps and resumed to 70 from
-  its checkpoint; the trainer's fault path against an uninterrupted run.
+  its checkpoint; the trainer's fault path against an uninterrupted run;
+  recurrentgemma-2b's attention shape under autograd in float32 too;
+- float32 flash at hd 128 and 256 and the tooling (phase 19): the
+  float32 kernel (``flash_fma_split``) timed at qwen3-32b's and
+  recurrentgemma-2b's prefill beside its plain version and SDPA; yi-6b
+  (2 layers) and recurrentgemma-2b (3 layers) float32 forwards at full
+  width, kernel path against plain path; ``python -m
+  repro_torch.analysis --all`` in a subprocess (its recompile guard
+  counting the ``mmu_step`` library's one load); a ladder fill under
+  ``obs.torchprof.maybe_profile``, its trace holding the ladder kernel
+  and its obs trace one ``device_memory`` event.
 
 Any failed check raises, so the exit code is non-zero; no phase's
 failure is caught.  With no CUDA device, or without the repository around it, it
@@ -139,6 +149,7 @@ import hashlib
 import json
 import multiprocessing
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -519,10 +530,10 @@ FLASH_BF16_TOL, PAGED_BF16_TOL = 2e-2, 3e-2
 # tests/test_kernels_flash.py's shapes, then granite-3-2b's prefill
 FLASH_SHAPES = [(1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 256, 8, 1, 64),
                 (2, 128, 6, 3, 16), (8, 512, 32, 8, 64)]
-# bf16 only, where float32 has no kernel or no need: (B, S, Sk, H, K, hd,
-# causal, model layout) -- ragged S and Sk (no multiple of a tile, Sk !=
-# S), hd 128 (the width of the dense configs queued next), and the
-# model's [B,S,H,hd] views at hd 128
+# bf16 only (float32 at hd 128 and 256 is held at the model shapes
+# below): (B, S, Sk, H, K, hd, causal, model layout) -- ragged S and Sk
+# (no multiple of a tile, Sk != S), hd 128, and the model's [B,S,H,hd]
+# views at hd 128
 FLASH_BF16_CASES = [(2, 77, 200, 4, 2, 64, True, False),
                     (2, 77, 200, 4, 2, 64, False, False),
                     (2, 200, 77, 4, 2, 64, True, False),
@@ -660,8 +671,10 @@ def paged_bound_ms(q, k_pages, tables, lens):
 def attention_vs_plain(dev):
     """Phase 6: both attention kernels against their plain versions on
     the card, at the JAX tests' shapes, granite-3-2b's and the prefill
-    and decode shapes of phases 14-16.  Returns the max abs error of each
-    kernel."""
+    and decode shapes of phases 14-16, and flash in float32 at the hd-128
+    prefills of phase 16 and recurrentgemma-2b's hd-256 prefill.  Returns
+    the max abs error of each kernel, and of the float32 flash kernel at
+    hd 128 and at hd 256."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
@@ -672,7 +685,8 @@ def attention_vs_plain(dev):
         return torch.from_numpy(rng.standard_normal(
             shape, dtype=np.float32)).to(dev).to(dtype)
 
-    errs = {"flash_attention": 0.0, "paged_attention": 0.0}
+    errs = {"flash_attention": 0.0, "paged_attention": 0.0,
+            "fma_f32_hd128": 0.0, "fma_f32_hd256": 0.0}
     # (B, S, Sk, H, K, hd, dtype, causal, window, model layout)
     cases = [(B, S, S, H, K, hd, dt, c, None, False)
              for B, S, H, K, hd in FLASH_SHAPES
@@ -683,6 +697,12 @@ def attention_vs_plain(dev):
               for B, S, Sk, H, K, hd, c, lay in FLASH_BF16_CASES]
     cases += [(B, S, Sk, H, K, hd, torch.bfloat16, c, w, True)
               for B, S, Sk, H, K, hd, c, w in FLASH_MODEL_CASES]
+    # float32 at hd 128 and 256 (flash_fma_split): the hd-128 prefills of
+    # phase 16 and recurrentgemma-2b's of phase 17
+    cases += [(B, S, Sk, H, K, hd, torch.float32, c, w, True)
+              for B, S, Sk, H, K, hd, c, w in FLASH_MODEL_CASES if hd == 128]
+    B, S, Sk, H, K, c, w, lay = HYBRID_FLASH_CASES[0]
+    cases.append((B, S, Sk, H, K, HYBRID_HD, torch.float32, c, w, lay))
     for B, S, Sk, H, K, hd, dt, causal, window, layout in cases:
         if layout:   # [B,S,H,hd] tensors seen as [B,H,S,hd], as ops does
             q = draw((B, S, H, hd), dt).transpose(1, 2)
@@ -701,6 +721,8 @@ def attention_vs_plain(dev):
         tol = TOL.get(dt, FLASH_BF16_TOL)
         err = close(got, want, tol, f"flash {B, S, Sk, H, K, hd}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
+        if dt == torch.float32 and hd >= 128:
+            errs[f"fma_f32_hd{hd}"] = max(errs[f"fma_f32_hd{hd}"], err)
         print(f"flash {kern} B={B} S={S} Sk={Sk} H={H} K={K} hd={hd} "
               f"{str(dt)[6:]} causal={causal} window={window}"
               f"{' [B,S,H,hd] views' if layout else ''}: max abs err "
@@ -2192,8 +2214,8 @@ def flash_hd256(dev, flash_log: str, smi: str) -> dict:
     HYBRID_FLASH_CASES (FLASH_BF16_TOL, each call checked to have taken
     the mma_bf16 kernel), then timed at the hybrid's prefill shape beside
     the plain version and SDPA (k and v repeated to the 10 query heads),
-    with its bound, registers, spills and shared memory.  A float32 call
-    at hd 256 must raise (no kernel takes it)."""
+    with its bound, registers, spills and shared memory (float32 at hd
+    256 is phase 6's and 19's)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -2227,12 +2249,6 @@ def flash_hd256(dev, flash_log: str, smi: str) -> dict:
               f"causal={causal} window={window}"
               f"{' [B,S,H,hd] views' if layout else ''}: max abs err "
               f"{e:.3g} (tolerance {FLASH_BF16_TOL})")
-    try:
-        fa.flash_attention(q.float(), k.float(), v.float())
-    except ValueError as e:
-        print(f"float32 at hd {hd} raises, as it must: {e}")
-    else:
-        raise AssertionError(f"a float32 flash call at hd {hd} ran")
     B, S, _, H, K, causal, window, _ = HYBRID_FLASH_CASES[0]
     q = draw((B, S, H, hd)).transpose(1, 2)
     k, v = (draw((B, S, K, hd)).transpose(1, 2) for _ in range(2))
@@ -2589,6 +2605,9 @@ TRAIN_FLASH_CASES = [
     ("seamless-m4t-medium cross attention", 4, 512, 384, 16, 16, 64, False,
      None)]
 # mamba2-2.7b's intra-chunk block: (T, q, G, r, p, n), 32 chunks of 128
+# the cases run in float32 too (the fma_f32 kernel, flash_fma_split at
+# hd 256), within phase 6's float32 tolerance
+TRAIN_FLASH_F32 = ("recurrentgemma-2b local attention",)
 TRAIN_SSD_CASE = (32, 128, 1, 80, 64, 128)
 # each input's gradient through a kernel's autograd Function against the
 # plain version's autograd gradient on the same inputs: the backward is
@@ -2663,32 +2682,36 @@ def train_wrappers(dev) -> dict:
 
     rng = np.random.default_rng(18)
     out = {}
-    for what, B, S, Sk, H, K, hd, causal, window in TRAIN_FLASH_CASES:
+    runs = [(c, torch.bfloat16) for c in TRAIN_FLASH_CASES]
+    runs += [(c, torch.float32) for c in TRAIN_FLASH_CASES
+             if c[0] in TRAIN_FLASH_F32]
+    for (what, B, S, Sk, H, K, hd, causal, window), dt in runs:
         def leaf(*shape):
             return torch.from_numpy(rng.standard_normal(
-                shape, dtype=np.float32)).to(dev, torch.bfloat16) \
-                .requires_grad_()
+                shape, dtype=np.float32)).to(dev, dt).requires_grad_()
         q, k, v = leaf(B, S, H, hd), leaf(B, Sk, K, hd), leaf(B, Sk, K, hd)
         do = torch.from_numpy(rng.standard_normal(
-            (B, S, H, hd), dtype=np.float32)).to(dev, torch.bfloat16)
-        before = fa.LAUNCHES_BY_KERNEL["mma_bf16"]
+            (B, S, H, hd), dtype=np.float32)).to(dev, dt)
+        kern, tol = FLASH_KERNEL[dt], TOL.get(dt, FLASH_BF16_TOL)
+        if dt == torch.float32:
+            what = f"{what} (float32)"
+        before = fa.LAUNCHES_BY_KERNEL[kern]
         o = ops.flash_attention(q, k, v, causal=causal, window=window)
-        if fa.LAUNCHES_BY_KERNEL["mma_bf16"] != before + 1 \
-                or o.grad_fn is None:
+        if fa.LAUNCHES_BY_KERNEL[kern] != before + 1 or o.grad_fn is None:
             raise AssertionError(f"{what}: the forward did not launch "
-                                 f"mma_bf16 under autograd")
+                                 f"{kern} under autograd")
         got = torch.autograd.grad(o, (q, k, v), do)
         want_o = ref.mha_reference(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window).transpose(1, 2)
         want = torch.autograd.grad(want_o, (q, k, v), do)
-        err = close(o.detach(), want_o.detach(), FLASH_BF16_TOL, what)
+        err = close(o.detach(), want_o.detach(), tol, what)
         gerr = grads_equal(got, want, what)
         out[what] = {"max_abs_err": err, "grad_rel_err": gerr}
         print(f"flash under autograd, {what} (B={B}, S={S}, Sk={Sk}, H={H}, "
               f"K={K}, hd={hd}, {'causal' if causal else 'non-causal'}, "
-              f"window {window}): 1 launch, output max abs err {err:.4g} "
-              f"(tolerance {FLASH_BF16_TOL}), gradients of q, k, v within "
+              f"window {window}): 1 {kern} launch, output max abs err "
+              f"{err:.4g} (tolerance {tol}), gradients of q, k, v within "
               f"{gerr:.3g} of the plain version's largest (bound "
               f"{TRAIN_GRAD_TOL})")
     T, q_, G, r, p, n = TRAIN_SSD_CASE
@@ -3070,6 +3093,271 @@ def train_fault(dev) -> dict:
           f"restart, final params within {d:.3g} of an uninterrupted run "
           f"(bound {f['tol']})")
     return {"restarts": tr2.n_restarts, "max_abs_diff": d}
+
+
+# ------------------------------------------ float32 flash and the tooling
+
+# phase 19 (a): the float32 flash kernel at hd 128 and 256
+# (flash_fma_split), timed at qwen3-32b's prefill and recurrentgemma-2b's
+# (window 2048, which does not bind at 512, so SDPA's causal mask is the
+# same function): (what, B, S, H, K, hd, causal, window), the model's
+# [B,S,H,hd] views
+F32_TIMED = [("qwen3-32b prefill", 2, 256, 64, 8, 128, True, None),
+             ("recurrentgemma-2b prefill", 8, 512, 10, 1, 256, True, 2048)]
+# (b): float32 forwards at full width through the kernels against the
+# same through the plain versions on the card: (name, layers, B, S).
+# Both paths are float32 with TF32 off; only the attention's sums are
+# taken in another order, so the logits agree to a float32 model bound,
+# the CPU tests' 1e-4, taken of the largest logit
+F32_FORWARDS = [("yi-6b", 2, 2, 256), ("recurrentgemma-2b", 3, 2, 256)]
+F32_FWD_TOL = 1e-4
+# (d): one ladder fill under the profiler: the native ladder's first two
+# members over two workloads, one a chunk
+PROF_FILL = dict(workloads=["bc", "rnd"], n=4000)
+# the most the fill's peak may stand above what was allocated before it,
+# in units of its own state and traces: the state it starts from and
+# what the scan and its finalize make beside it
+PROF_MEM_FACTOR = 2
+
+
+def attention_layers(cfg) -> int:
+    """The layers of ``cfg`` that run flash attention in a forward."""
+    if cfg.family != "hybrid":
+        return cfg.n_layers
+    p = cfg.block_pattern
+    return sum(p[i % len(p)] == "attn" for i in range(cfg.n_layers))
+
+
+def float32_and_tooling(dev, flash_log: str, smi: str) -> dict:
+    """Phase 19: (a) the float32 flash kernel at hd 128 and 256 against
+    its plain version and timed beside it and SDPA, with its bound,
+    registers, spills and shared memory; (b) float32 forwards of yi-6b
+    (2 layers) and recurrentgemma-2b (3 layers) at full width, kernel
+    path against plain path, every flash launch on fma_f32 and counted;
+    (c) ``python -m repro_torch.analysis --all`` in a subprocess (exit
+    code 0), its recompile guard's fill counting one load of the real
+    mmu_step library; (d) a ladder fill under
+    ``obs.torchprof.maybe_profile``: the profiler's trace holds the
+    ladder instantiation's kernel, and the fill's obs trace one
+    device_memory event whose peak is the fill's own: above what was
+    allocated before it, by at most twice its state and traces."""
+    import repro_torch.obs as obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.stages import make_state, state_leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mmu_step, ref
+    from repro_torch.models import model as M
+    from repro_torch.obs import report, torchprof
+    from repro_torch.sim import runner, systems, trace_gen
+
+    out = {"timed": {}, "forwards": {}}
+    rng = np.random.default_rng(19)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev)
+
+    # (a)
+    for what, B, S, H, K, hd, causal, window in F32_TIMED:
+        q = draw(B, S, H, hd).transpose(1, 2)
+        k, v = (draw(B, S, K, hd).transpose(1, 2) for _ in range(2))
+        kx, vx = (x.repeat_interleave(H // K, dim=1) for x in (k, v))
+        before = fa.LAUNCHES_BY_KERNEL["fma_f32"]
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        if fa.LAUNCHES_BY_KERNEL["fma_f32"] != before + 1:
+            raise AssertionError(f"{what}: float32 did not launch fma_f32")
+        want = ref.mha_reference(q, k, v, causal=causal, window=window)
+        r = {"max_abs_err": close(got, want, TOL[torch.float32], what),
+             "ms": device_ms(lambda: fa.flash_attention(
+                 q, k, v, causal=causal, window=window)),
+             "plain_ms": device_ms(lambda: ref.mha_reference(
+                 q, k, v, causal=causal, window=window)),
+             "library_ms": device_ms(
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     q, kx, vx, is_causal=causal))}
+        r["bound_ms"], r["bound_by"] = flash_bound_ms(q, k, causal, window)
+        ops_ = flash_ops(q, k, causal, window)
+        r["tflops"] = ops_ / (r["ms"] * 1e-3) / 1e12
+        r["ptxas"] = ptxas_usage(flash_log, f"flash_fma_splitILi{hd}E")
+        r["smem_bytes"] = fa.smem_bytes(torch.float32, hd)
+        r["unit"] = (f"{what}: B={B}, S={S}, H={H}, K={K}, hd={hd}, "
+                     f"float32, causal, window {window}, [B,S,H,hd] views")
+        r["card"] = smi
+        out["timed"][hd] = r
+        print(f"flash_attention (fma_f32, flash_fma_split<{hd}>): "
+              f"{r['ptxas']}; {r['smem_bytes']} bytes of static shared "
+              f"memory a block; max abs err {r['max_abs_err']:.3g} "
+              f"(tolerance {TOL[torch.float32]}); {r['ms']:.4f} ms at "
+              f"{r['unit']}, plain {r['plain_ms']:.4f} ms, SDPA "
+              f"{r['library_ms']:.4f} ms; {r['tflops']:.1f} TFLOP/s on the "
+              f"{ops_ / 1e9:.2f} GFLOP the mask keeps, "
+              f"{r['bound_ms'] / r['ms']:.1%} of the bound "
+              f"({r['bound_ms']:.5f} ms, {r['bound_by']}); {smi}")
+        del q, k, v, kx, vx, got, want
+
+    # (c) starts here, on the host, while (b) runs on the card
+    tmp = tempfile.mkdtemp(prefix="tooling_")
+    atrace = os.path.join(tmp, "analysis.jsonl")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               REPRO_OBS_TRACE=atrace,
+               REPRO_TORCH_SIM_CACHE=os.path.join(tmp, "cache"))
+    env.pop("REPRO_OBS_TORCHPROF", None)
+    t_an = time.perf_counter()
+    analysis = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--all"], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # (b)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            for name, layers, B, S in F32_FORWARDS:
+                cfg = dataclasses.replace(get_config(name), n_layers=layers,
+                                          dtype="float32")
+                m = M.build(cfg, dev)
+                gen = torch.Generator(device=dev).manual_seed(0)
+                params = m.init(gen)
+                batch = M.dummy_batch(cfg, B, S, gen)
+                zero_attention_counts()
+                with torch.no_grad():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lg = m.forward(params, batch, remat=False)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    launches = dict(fa.LAUNCHES_BY_KERNEL)
+                    want_n = attention_layers(cfg)
+                    if launches != {"mma_bf16": 0, "fma_f32": want_n} \
+                            or fa.LAUNCHES != want_n:
+                        raise AssertionError(
+                            f"{name}: the float32 forward launched "
+                            f"{launches}, want {want_n} fma_f32")
+                    if tuple(lg.shape) != (B, S, cfg.vocab_size):
+                        raise AssertionError(f"{name}: logits "
+                                             f"{tuple(lg.shape)}")
+                    restore = plain_attention()
+                    try:
+                        plain = m.forward(params, batch, remat=False)
+                    finally:
+                        restore()
+                what = (f"{name} ({layers} layers, full width, float32, "
+                        f"{B} x {S}, G {cfg.n_heads // cfg.n_kv_heads}, hd "
+                        f"{cfg.hd})")
+                err = close_scaled(lg, plain, F32_FWD_TOL, what)
+                out["forwards"][name] = {
+                    "layers": layers, "B": B, "S": S, "hd": cfg.hd,
+                    "launches": launches["fma_f32"], "forward_ms": ms,
+                    "max_abs_err": err,
+                    "largest_logit": float(plain.abs().max()),
+                    "card": smi}
+                print(f"{what}: kernel path == plain path, max abs err "
+                      f"{err:.4g} on the logits (bound {F32_FWD_TOL} of the "
+                      f"largest, {float(plain.abs().max()):.3g}); "
+                      f"{launches['fma_f32']} fma_f32 launches; forward "
+                      f"{ms:.2f} ms (host clock after a sync, the first "
+                      f"call); {smi}")
+                del m, params, batch, lg, plain
+                torch.cuda.empty_cache()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+
+        # (c)
+        stdout, stderr = analysis.communicate(timeout=600)
+    finally:
+        if analysis.poll() is None:
+            analysis.kill()
+            analysis.wait()
+    an_s = time.perf_counter() - t_an
+    if analysis.returncode != 0:
+        raise AssertionError(f"python -m repro_torch.analysis --all exited "
+                             f"{analysis.returncode}:\n{stdout}\n{stderr}")
+    events = report.read_trace(atrace)
+    rec = report.fill_record(events, trace_file=atrace)
+    loads = [e for e in events if e.get("name") == obs.names.EV_COMPILE
+             and e["attrs"].get("fn") == runner.DISPATCH_LIB]
+    if (rec["backend"], rec["dispatch_compiles"], rec["n_chunks"],
+            len(loads)) != ("cuda", 1, 2, 1):
+        raise AssertionError(f"the recompile guard's fill: {rec}, "
+                             f"{len(loads)} loads of {runner.DISPATCH_LIB}")
+    out["analysis"] = {"rc": analysis.returncode, "wall_s": an_s,
+                       "recompile_fill": rec}
+    print(f"python -m repro_torch.analysis --all: exit 0 in {an_s:.1f} s "
+          f"(a subprocess, beside (b)); its recompile guard's fill ran on "
+          f"the card ({rec['n_members']} members, {rec['n_chunks']} "
+          f"chunks) and loaded {runner.DISPATCH_LIB} once "
+          f"(dispatch_compiles {rec['dispatch_compiles']}, built "
+          f"{loads[0]['attrs']['built']})")
+    print("  " + " | ".join(stderr.strip().splitlines()[-6:]))
+
+    # (d)
+    tr = obs.configure(os.path.join(tmp, "fill.jsonl"))
+    try:
+        members = systems.LADDERS["radix"][:2]
+        logdir = os.path.join(tmp, "prof")
+        # what the fill itself holds on the card: the MMUState of its
+        # lanes (members x one workload a chunk) and their traces
+        lanes = len(members)
+        state_bytes = sum(
+            x.numel() * x.element_size() for x in state_leaves(make_state(
+                systems.ladder_base_config("radix"), lanes)))
+        trace = trace_gen.generate(PROF_FILL["workloads"][0],
+                                   n=PROF_FILL["n"])["trace"]
+        trace_bytes = lanes * sum(x.nbytes for x in trace.values())
+        own_bound = PROF_MEM_FACTOR * (state_bytes + trace_bytes)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        with torchprof.maybe_profile(logdir) as ppath:
+            runner.run_ladder("radix", workloads=PROF_FILL["workloads"],
+                              n=PROF_FILL["n"], members=members, chunk=1,
+                              cache=False, device=dev)
+        wall = time.perf_counter() - t0
+        with open(ppath) as f:
+            kernels = sorted({e["name"] for e in json.load(f)["traceEvents"]
+                              if e.get("cat") == "kernel"})
+        # the ladder instantiation, by its demangled name (template
+        # arguments: L2 and TLB placement, composition code, ladder)
+        code = dict(mmu_step.LADDER_COMPOSITIONS.values())["ladder_native"]
+        inst = re.compile(r"mmu_step_kernel<\s*false\s*,\s*false\s*,\s*"
+                          rf"{code}\s*,\s*true\s*>")
+        ladder = [k for k in kernels if inst.search(k)
+                  or mmu_entry(code, "device", dyn=True) in k]
+        if not ladder:
+            raise AssertionError(f"the profiler's trace holds no "
+                                 f"ladder_native kernel: {kernels}")
+        fill = report.fill_spans(tr.events)[-1]
+        mem = [e for e in tr.events
+               if e.get("name") == obs.names.EV_DEVICE_MEMORY
+               and e["parent"] == fill["id"]]
+        peak = mem[0]["attrs"]["devices"]["0"]["allocated_bytes.all.peak"] \
+            if len(mem) == 1 else 0
+        if len(mem) != 1 or not base < peak <= base + own_bound:
+            raise AssertionError(
+                f"the fill's device_memory events: {len(mem)}, peak {peak} "
+                f"bytes, want one, the peak above the {base} bytes "
+                f"allocated before the fill and at most {own_bound} above "
+                f"them ({PROF_MEM_FACTOR} x its state's {state_bytes} and "
+                f"its traces' {trace_bytes})")
+        rec = runner.LADDER_PERF[-1]
+    finally:
+        tr.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["profiled_fill"] = {"wall_s": wall, "ladder_kernel": ladder[0],
+                            "peak_allocated_bytes": peak,
+                            "allocated_before_bytes": base,
+                            "state_bytes": state_bytes,
+                            "trace_bytes": trace_bytes,
+                            "ladder_perf": rec}
+    print(f"run_ladder('radix', {list(members)}, n={PROF_FILL['n']}, "
+          f"{len(PROF_FILL['workloads'])} chunks) under "
+          f"torchprof.maybe_profile: {wall:.2f} s; the trace holds "
+          f"{ladder[0]!r}; one device_memory event, peak allocated "
+          f"{peak / 2**20:.1f} MiB, {(peak - base) / 2**20:.1f} MiB above "
+          f"the {base / 2**20:.1f} MiB held before the fill, "
+          f"{(peak - base) / (state_bytes + trace_bytes):.2f} x its state "
+          f"and traces ({(state_bytes + trace_bytes) / 2**20:.1f} MiB; "
+          f"bound {PROF_MEM_FACTOR} x); record {json.dumps(rec)}")
+    return out
 
 
 def main() -> int:
@@ -4100,6 +4388,14 @@ def main() -> int:
     training["fault"] = train_fault(dev)
     print(f"phase 18: {time.perf_counter() - t:.1f} s")
 
+    # ----------------------------------------------------------- 19
+    torch.cuda.empty_cache()
+    t = phase("19. float32 flash at hd 128 and 256 (timed; yi-6b and "
+              "recurrentgemma-2b forwards, kernel path against plain path), "
+              "python -m repro_torch.analysis --all, a profiled ladder fill")
+    tooling = float32_and_tooling(dev, builds["flash_attention"]["log"], smi)
+    print(f"phase 19: {time.perf_counter() - t:.1f} s")
+
     # each registered system's static instantiation (composition/placement)
     # and, for a ladder member, the ladder instantiation the tables run
     ladder_of = {m: lad for lad, ms in systems.LADDERS.items() for m in ms}
@@ -4153,6 +4449,23 @@ def main() -> int:
                                   "long_context") if x in r}}
             for name, line, r in (("flash_attention", 85, serve["flash"]),
                                   ("paged_attention", 73, serve["paged"]))]
+    # the float32 flash kernel at hd 128 and 256 (fma_f32's
+    # flash_fma_split), its launches those of phase 19's forwards
+    for hd, model in ((128, "yi-6b"), (256, "recurrentgemma-2b")):
+        r = tooling["timed"][hd]
+        attn.append({
+            "name": f"flash_attention_fma_f32_hd{hd}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:85",
+            "launches": tooling["forwards"][model]["launches"],
+            "launches_by_path": {f"{model} float32 forward": tooling[
+                "forwards"][model]["launches"]},
+            "max_abs_err": max(r["max_abs_err"],
+                               attn_errs[f"fma_f32_hd{hd}"]),
+            **{x: r[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "unit", "tflops", "ptxas",
+                                 "smem_bytes")},
+            "matches_plain": True})
     print("models: " + json.dumps({
         "granite-moe-1b-a400m": {"snapshot": moe_snap, "serving": moe_serve},
         "seamless-m4t-medium": {"snapshot": seamless_snap,
@@ -4161,7 +4474,8 @@ def main() -> int:
         "recurrentgemma-2b": {"flash_hd256": hd256,
                               "snapshot": hybrid_snap,
                               "serving": hybrid_serve},
-        "dense_options": options}))
+        "dense_options": options,
+        "float32_and_tooling": tooling}))
     ssd_train_by_kernel = training["kernel_vs_plain"]["mamba2-2.7b"][
         "launches"]
     ssd_train = sum(ssd_train_by_kernel.values())

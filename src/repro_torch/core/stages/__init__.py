@@ -28,6 +28,9 @@ from repro_torch.core.stages.revelator import RevelatorStage
 from repro_torch.core.stages.utopia import RestSegStage
 from repro_torch.core.stages.victima import VictimaStage
 
+# the walker stages, one of which ends every composition
+WALK_STAGES = ("ptw", "ptw2d")
+
 STAGES: dict[str, Stage] = {
     s.name: s for s in (L1TLBStage(), L2TLBStage(), RevelatorStage(),
                         VictimaStage(), L3TLBStage(), POMStage(),

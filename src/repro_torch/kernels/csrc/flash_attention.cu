@@ -93,6 +93,36 @@
 // kernel tests is 1e-5, which TF32 tensor cores (about 1e-3) cannot
 // meet, and float32 is not the serving dtype.
 //
+// float32 at hd 128 and 256: `flash_fma_split`.  One thread a row would
+// hold q[HD] and acc[HD] in registers, 256 floats at hd 128 before a
+// score (past the 255 a thread may have), and flash_fma's 64-key K/V
+// tiles would take 64 or 128 KiB of static shared memory (past 48 KB).
+// So:
+//  - A query row is split over T = 8 neighbouring lanes of a warp at
+//    both widths; each owns HD / 8 of its dims (16 at hd 128, 32 at hd
+//    256), float4 chunks g, g + T, g + 2T, ... of the row (lane g of the
+//    group), so that the T lanes of a row read T neighbouring chunks of a
+//    K or V row from shared memory (no bank conflict; the rows of a warp
+//    read the same key, a broadcast).  q and the accumulator are 32
+//    registers at hd 128 and 64 at hd 256.
+//  - A score is the T partial dot products summed by __shfl_xor_sync
+//    inside the group; the butterfly gives every lane of the group the
+//    same sum, bit for bit, so the online-softmax max and sum are the
+//    same in every lane and each lane rescales its own dims.
+//  - 256 threads a block, 32 rows; K/V tiles of 32 keys at hd 128 and 16
+//    at hd 256, 32 KiB of static shared memory either way.
+//    __launch_bounds__(256, 2) caps a thread at 128 registers, so that
+//    two blocks fit an SM: ptxas (sm_90a) fits hd 128 in them with no
+//    spills, and spills 36 bytes at hd 256 (32 dims a lane, 16 scores).
+//    8 lanes a row is the fastest of 4, 8, 16 and 32 at both widths on
+//    the H100 (4 at hd 128 spills under the cap); tools/
+//    flash_split_lanes.py times each, and PERF.md keeps its numbers.
+//  - Plain float32 FMAs and expf, the masks, GQA and the no-key rule of
+//    flash_fma, unchanged.
+//  - Bound (qwen3-32b's prefill, B 2, S 256, H 64, K 8, causal): about
+//    32 us of FMAs at 67 TFLOP/s against about 11 us of bytes; the time
+//    measured is in PERF.md and printed by chip_smoke.py.
+//
 // Bound and build.  At granite-3-2b's prefill the least time is set by
 // the bytes (12.5 us; the 8.6 GFLOP the causal mask keeps take 8.7 us
 // at 989 TFLOP/s).  ptxas (-Xptxas -v, sm_90a): flash_mma<64> 128
@@ -250,12 +280,166 @@ __global__ void __launch_bounds__(BQ) flash_fma(FlashArgs a) {
   for (int d = 0; d < HD; ++d) op[d] = acc[d] / den;
 }
 
+// ------------------------------------------------ float32, hd 128, 256
+
+constexpr int SPLIT_THREADS = 256;
+
+// Shapes of flash_fma_split for one head width: T lanes a query row,
+// NF float4 chunks a lane, ROWS rows a block, BKS keys a K/V tile.
+template <int HD>
+struct Split {
+  static constexpr int T = 8;
+  static constexpr int NF = HD / (4 * T);
+  static constexpr int ROWS = SPLIT_THREADS / T;
+  static constexpr int BKS = HD <= 128 ? 32 : 16;
+  static constexpr int SMEM = 2 * BKS * HD * 4;
+  static_assert(T * NF * 4 == HD && 32 % T == 0, "a row in one warp");
+  static_assert(BKS % CH == 0, "whole softmax chunks a tile");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(SPLIT_THREADS, 2)
+    flash_fma_split(FlashArgs a) {
+  using L = Split<HD>;
+  constexpr int T = L::T, NF = L::NF, BKS = L::BKS;
+  __shared__ __align__(16) float ks[BKS * HD];
+  __shared__ __align__(16) float vs[BKS * HD];
+
+  const int q0 = blockIdx.x * L::ROWS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (a.H / a.K);
+  const int tid = threadIdx.x;
+  const int g = tid % T;  // this lane's share of its row
+  const int qpos = q0 + tid / T;
+  const bool qvalid = qpos < a.S;
+
+  // chunk i of this lane: dims 4 * (g + T * i) .. + 3
+  float q[4 * NF];
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb +
+                    h * a.q_sh + static_cast<long long>(qpos) * a.q_ss;
+#pragma unroll
+  for (int i = 0; i < NF; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      q[4 * i + c] = qvalid ? qp[4 * (g + T * i) + c] : 0.f;
+
+  float acc[4 * NF];
+#pragma unroll
+  for (int d = 0; d < 4 * NF; ++d) acc[d] = 0.f;
+  float m = NEG_INF, l = 0.f;
+
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + kh * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + kh * a.v_sh;
+
+  // the k-tiles any row of this block can see
+  const int nk = (a.Sk + BKS - 1) / BKS;
+  const int qlast = min(q0 + L::ROWS, a.S) - 1;
+  int t_lo = 0, t_hi = nk;
+  if (a.causal) t_hi = min(nk, qlast / BKS + 1);
+  if (a.window > 0) {
+    const int lo = q0 - a.window + 1;  // first key the first row sees
+    if (lo > 0) t_lo = lo / BKS;
+  }
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * BKS;
+    __syncthreads();  // every thread is done with the last tile
+    for (int i = tid; i < BKS * HD; i += SPLIT_THREADS) {
+      const int r = i / HD, d = i % HD;
+      const int kp = k0 + r;
+      float kx = 0.f, vx = 0.f;
+      if (kp < a.Sk) {
+        kx = kb[static_cast<long long>(kp) * a.k_ss + d];
+        vx = vb[static_cast<long long>(kp) * a.v_ss + d];
+      }
+      ks[i] = kx;
+      vs[i] = vx;
+    }
+    __syncthreads();
+
+    for (int j0 = 0; j0 < BKS; j0 += CH) {
+      float s[CH];
+      float mc = NEG_INF;
+#pragma unroll
+      for (int jj = 0; jj < CH; ++jj) {
+        const float4* kr =
+            reinterpret_cast<const float4*>(ks + (j0 + jj) * HD);
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < NF; ++i) {
+          const float4 kk = kr[g + T * i];
+          dot += q[4 * i] * kk.x;
+          dot += q[4 * i + 1] * kk.y;
+          dot += q[4 * i + 2] * kk.z;
+          dot += q[4 * i + 3] * kk.w;
+        }
+#pragma unroll
+        for (int x = 1; x < T; x <<= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, x);
+        const int kp = k0 + j0 + jj;
+        bool ok = kp < a.Sk;
+        if (a.causal) ok = ok && qpos >= kp;
+        if (a.window > 0) ok = ok && (qpos - kp < a.window);
+        s[jj] = ok ? dot * a.scale : NEG_INF;
+        mc = fmaxf(mc, s[jj]);
+      }
+      const float mn = fmaxf(m, mc);
+      const float corr = expf(m - mn);
+      float ps = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < CH; ++jj) {
+        s[jj] = expf(s[jj] - mn);
+        ps += s[jj];
+      }
+      l = l * corr + ps;
+#pragma unroll
+      for (int d = 0; d < 4 * NF; ++d) acc[d] *= corr;
+#pragma unroll
+      for (int jj = 0; jj < CH; ++jj) {
+        const float pj = s[jj];
+        const float4* vr =
+            reinterpret_cast<const float4*>(vs + (j0 + jj) * HD);
+#pragma unroll
+        for (int i = 0; i < NF; ++i) {
+          const float4 vv = vr[g + T * i];
+          acc[4 * i] += pj * vv.x;
+          acc[4 * i + 1] += pj * vv.y;
+          acc[4 * i + 2] += pj * vv.z;
+          acc[4 * i + 3] += pj * vv.w;
+        }
+      }
+      m = mn;
+    }
+  }
+
+  if (!qvalid) return;
+  // a row that saw no key (m still NEG_INF) is divided by infinity, to 0
+  const float den = m == NEG_INF ? INFINITY : fmaxf(l, 1e-30f);
+  float* op = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh +
+              static_cast<long long>(qpos) * a.o_ss;
+#pragma unroll
+  for (int i = 0; i < NF; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      op[4 * (g + T * i) + c] = acc[4 * i + c] / den;
+}
+
+template <int HD>
+void launch_split(const FlashArgs& a, cudaStream_t stream) {
+  using L = Split<HD>;
+  const dim3 grid((a.S + L::ROWS - 1) / L::ROWS, a.H, a.B);
+  flash_fma_split<HD><<<grid, SPLIT_THREADS, 0, stream>>>(a);
+}
+
 cudaError_t launch_fma(const FlashArgs& a, int hd, cudaStream_t stream) {
   const dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
   switch (hd) {
     case 16: flash_fma<16><<<grid, BQ, 0, stream>>>(a); break;
     case 32: flash_fma<32><<<grid, BQ, 0, stream>>>(a); break;
     case 64: flash_fma<64><<<grid, BQ, 0, stream>>>(a); break;
+    case 128: launch_split<128>(a, stream); break;
+    case 256: launch_split<256>(a, stream); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -749,7 +933,8 @@ int flash_attention_args_size(void) {
   return static_cast<int>(sizeof(FlashArgs));
 }
 
-// dtype: 0 float32 (flash_fma, hd in {16, 32, 64}), 1 bfloat16
+// dtype: 0 float32 (flash_fma, hd in {16, 32, 64}; flash_fma_split, hd
+// in {128, 256}), 1 bfloat16
 // (flash_mma, hd in {16, 32, 64, 128, 256}; 16-byte aligned pointers, b/h/s
 // strides multiples of 8); q, k, v and o alike.  Launches on `stream` on
 // the current device; returns cudaGetLastError() (0 = launched).
@@ -762,10 +947,13 @@ int flash_attention_launch(FlashArgs a, int dtype, int hd, void* stream) {
 }
 
 // Bytes of shared memory a launch of the kernel for (dtype, hd) uses:
-// flash_fma's static tiles, flash_mma's dynamic Q tile and K/V ring.
+// flash_fma's and flash_fma_split's static tiles, flash_mma's dynamic Q
+// tile and K/V ring.
 int flash_attention_smem_bytes(int dtype, int hd) {
   if (dtype == 0 && (hd == 16 || hd == 32 || hd == 64))
     return 2 * BK * hd * 4;
+  if (dtype == 0 && hd == 128) return Split<128>::SMEM;
+  if (dtype == 0 && hd == 256) return Split<256>::SMEM;
   if (dtype == 1) return mma_smem_bytes(hd);
   return -1;
 }

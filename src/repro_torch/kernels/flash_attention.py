@@ -13,9 +13,11 @@ it runs the plain PyTorch version, ``ref.mha_reference``.  No flag or
 environment variable chooses the path.  On the card ``kernel_for``
 picks the kernel from the dtype: bf16 runs on the tensor cores
 (``mma_bf16``, hd 16 to 256), float32 on the CUDA cores (``fma_f32``, hd
-16 to 64, whose float32 FMAs meet the 1e-5 tolerance that TF32 cannot).
-A call that the dtype's kernel cannot take raises (float32 at hd 128 or
-256, say); none passes to the other kernel or to the plain version.
+16 to 256, whose float32 FMAs meet the 1e-5 tolerance that TF32 cannot:
+``flash_fma`` up to hd 64, ``flash_fma_split`` at 128 and 256, a query
+row split over 8 lanes).  A call that the dtype's kernel cannot take
+raises (a head width of 48, say); none passes to the other kernel or to
+the plain version.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ LAUNCHES_BY_KERNEL = {"mma_bf16": 0, "fma_f32": 0}
 
 # dtype -> (kernel, the C side's dtype code, head widths it is built for)
 KERNELS = {torch.bfloat16: ("mma_bf16", 1, (16, 32, 64, 128, 256)),
-           torch.float32: ("fma_f32", 0, (16, 32, 64))}
+           torch.float32: ("fma_f32", 0, (16, 32, 64, 128, 256))}
 
 _p, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int32
 

@@ -20,7 +20,9 @@ implicit nesting does not cross threads).  ``python -m repro_torch.obs
 report`` reconstructs BENCH records from the JSONL — see ``report``.
 
 Stdlib-only, so any layer — ``sim.parallel`` included — may import it
-without cycles.  The reference's ``jaxprof`` has no counterpart here.
+without cycles.  The reference's ``jaxprof`` has its counterpart in
+``torchprof`` (torch.profiler and ``torch.cuda.memory_stats``), which
+imports torch only when called.
 """
 from __future__ import annotations
 

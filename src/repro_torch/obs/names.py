@@ -33,8 +33,10 @@ Span taxonomy (docs/architecture.md, "Observability"):
   │                           is kept), carrying the library's name
   ├─ pallas_kernel            (event, trace-time) a ``blocked_scan``
   │                           kernel build: block size, grid, interpret
-  └─ device_memory            (event) live device-memory stats where the
-                              backend exposes them (TPU phase-2 runs)
+  └─ device_memory            (event) each card's memory stats
+                              (``torch.cuda.memory_stats``, emitted by
+                              ``obs.torchprof`` at the end of a fill
+                              that ran on the card)
 
   serve.decode_step           one timed serving decode tick
                               (``serve.engine.decode_step``)

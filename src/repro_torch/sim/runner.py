@@ -21,7 +21,11 @@ generation runs on a thread pool while the previous chunk of workloads
 simulates, and every chunk has the same width, the last padded by
 repeating its final workload.  Each fill runs under the reference's
 ``ladder_fill`` span tree (``repro_torch.obs``), and ``LADDER_PERF``
-gets the record ``obs.report.fill_record`` derives from it.
+gets the record ``obs.report.fill_record`` derives from it.  A fill runs
+under ``obs.torchprof.maybe_profile`` (a no-op unless
+``REPRO_OBS_TORCHPROF`` names a log dir) and, where it runs on the
+card, ends with one ``device_memory`` event whose peaks are the fill's
+own, as the reference does with ``jaxprof``.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import numpy as np
 import repro_torch.obs as obs
 from repro_torch.core.mmu import (make_systems_runner, resolve_device,
                                   simulate, simulate_batch)
+from repro_torch.obs import torchprof
 from repro_torch.sim import parallel, systems, trace_gen
 
 CACHE_DIR = os.environ.get(
@@ -341,8 +346,9 @@ def run_ladder(ladder: str, workloads=None, n: int = 150_000, seed: int = 0,
             return trace_gen.generate(w, n=n, seed=seed)
 
     n_chunks = 0
-    with fill, ThreadPoolExecutor(max_workers=min(len(missing),
-                                                  GEN_WORKERS)) as pool:
+    torchprof.reset_device_peaks(dev)  # nothing off the card
+    with fill, torchprof.maybe_profile(), ThreadPoolExecutor(
+            max_workers=min(len(missing), GEN_WORKERS)) as pool:
         futs = {w: pool.submit(gen, w) for w in missing}
         for lo in range(0, len(missing), chunk):
             group = missing[lo:lo + chunk]
@@ -369,5 +375,6 @@ def run_ladder(ladder: str, workloads=None, n: int = 150_000, seed: int = 0,
         fill.set(n_chunks=n_chunks,
                  t_shards=tinfo["t_shards"] if tinfo else 1,
                  t_rounds=tinfo["rounds"] if tinfo else None)
+        torchprof.device_memory_event(obs.event, dev)  # nothing off the card
     LADDER_PERF.append(obs.report.fill_record(tr.events, fill.id, tr.path))
     return out

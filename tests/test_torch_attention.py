@@ -57,6 +57,7 @@ def flash_inputs(B, S, H, K, hd, dtype, seed=0):
     (1, 128, 2, 2, 32),   # MHA
     (1, 256, 8, 1, 64),   # MQA
     (2, 128, 6, 3, 16),   # odd group
+    (1, 128, 8, 2, 128),  # hd 128, G 4 (the dense configs' width)
     (1, 128, 10, 1, 256),  # hd 256, G 10 on one kv head (recurrentgemma)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -356,15 +357,10 @@ ALIGNED = [64 * 512, 64, 32 * 64] * 4   # b, h, s strides of q, k, v, o
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_for_each_dtype_and_width(dtype, hd):
-    """bf16 runs on the tensor cores at every width; float32 on the CUDA
-    cores up to 64, and is refused at 128 and 256 (no fallback to
-    either)."""
+    """bf16 runs on the tensor cores at every width, float32 on the CUDA
+    cores at every width: hd 128 and 256 too, as the reference's kernel
+    takes any head width in either dtype."""
     td = DTYPES[dtype][1]
-    if dtype == "float32" and hd >= 128:
-        with pytest.raises(ValueError, match="fma_f32 kernel takes head "
-                                             "widths"):
-            tfa.kernel_for(td, hd, ALIGNED, [0] * 4)
-        return
     want = "mma_bf16" if dtype == "bfloat16" else "fma_f32"
     assert tfa.kernel_for(td, hd, ALIGNED, [0] * 4) == want
 
@@ -374,6 +370,11 @@ def test_flash_kernel_for_refuses_what_the_mma_kernel_cannot_take():
     with pytest.raises(ValueError, match="mma_bf16 kernel takes head "
                                          "widths"):
         tfa.kernel_for(bf, 96, ALIGNED, [0] * 4)
+    # a width no float32 kernel is built for raises too, and passes to
+    # neither the bf16 kernel nor the plain version
+    with pytest.raises(ValueError, match="fma_f32 kernel takes head "
+                                         "widths"):
+        tfa.kernel_for(torch.float32, 96, ALIGNED, [0] * 4)
     odd = list(ALIGNED)
     odd[5] = 66                         # k's s stride
     with pytest.raises(ValueError, match="multiples of 8 elements, got "

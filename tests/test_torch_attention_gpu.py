@@ -13,8 +13,8 @@ wrapper's path for CUDA tensors) and the plain version (``kernels.ref``)
 see the same tensors.  Tolerances are the JAX kernel tests' own: float32
 1e-5; bfloat16 2e-2 for flash and 3e-2 for paged attention.  Every bf16
 flash call must run on the tensor-core kernel (``mma_bf16``) and every
-float32 call on the CUDA-core kernel (``fma_f32``): the tests count
-``LAUNCHES_BY_KERNEL``.
+float32 call on the CUDA-core kernels (``fma_f32``, hd 16 to 256): the
+tests count ``LAUNCHES_BY_KERNEL``.
 """
 import numpy as np
 import pytest
@@ -162,6 +162,50 @@ def test_flash_mma_refuses_misaligned_views(cuda):
     assert fa.LAUNCHES == n and fa.LAUNCHES_BY_KERNEL == by
 
 
+# float32 at hd 128 and 256 (flash_fma_split): (B, S, Sk, H, K, hd, causal,
+# window) -- the hd-128 prefills of chip_smoke.py's phase 16 (qwen3-32b
+# G 8, mixtral-8x7b with its window and with a window that binds,
+# qwen2-vl-7b G 7), ragged S != Sk; recurrentgemma-2b's local attention
+# (hd 256, G 10 on one kv head) where its window binds, and a window
+# that leaves rows 126 .. 199 no key (0 there)
+FMA_WIDE = [(2, 256, 256, 64, 8, 128, True, None),
+            (2, 256, 256, 32, 8, 128, True, 4096),
+            (2, 300, 300, 32, 8, 128, True, 128),
+            (2, 256, 256, 28, 4, 128, True, None),
+            (2, 77, 200, 8, 2, 128, False, None),
+            (2, 200, 77, 8, 2, 128, True, None),
+            (1, 512, 512, 10, 1, 256, True, 64),
+            (2, 300, 300, 10, 1, 256, True, 128),
+            (2, 200, 77, 10, 1, 256, False, 50)]
+
+
+@pytest.mark.parametrize("B,S,Sk,H,K,hd,causal,window", FMA_WIDE)
+def test_flash_fma_hd128_and_256(cuda, B, S, Sk, H, K, hd, causal, window):
+    """float32 at the widths the first float32 kernel did not take, in the
+    model's [B,S,H,hd] views, counted on fma_f32, within 1e-5 of the
+    plain version computed in full float32 (TF32 off)."""
+    rng = np.random.default_rng(6)
+    q = draw((B, S, H, hd), "float32", cuda, rng)
+    k, v = (draw((B, Sk, K, hd), "float32", cuda, rng) for _ in range(2))
+    n, by = fa.LAUNCHES, dict(fa.LAUNCHES_BY_KERNEL)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES == n + 1
+    by["fma_f32"] += 1
+    assert fa.LAUNCHES_BY_KERNEL == by
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = ref.mha_reference(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=causal,
+                                 window=window).transpose(1, 2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    blind = Sk - 1 + window if window else S   # rows that see no key
+    if blind < S:
+        assert not got[:, blind:].any()
+    assert_close(got, want, 1e-5)
+
+
 # (B, H, K, hd, page, nb, P, lens): lens None draws them in [1, nb*page)
 PAGED_CASES = [
     (2, 4, 2, 64, 64, 4, 16, None), (1, 8, 1, 32, 32, 8, 16, None),
@@ -201,9 +245,12 @@ def test_paged_kernel_matches_plain(cuda, B, H, K, hd, page, nb, P, lens,
 
 
 def test_kernels_refuse_on_the_card(cuda):
-    q = torch.zeros(1, 4, 8, 128, device=cuda)
-    with pytest.raises(ValueError, match="head widths"):
-        fa.flash_attention(q, q[:, :2], q[:, :2])
+    n = fa.LAUNCHES
+    for dtype in (torch.float32, torch.bfloat16):  # no kernel at hd 48
+        q = torch.zeros(1, 4, 8, 48, device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="head widths"):
+            fa.flash_attention(q, q[:, :2], q[:, :2])
+    assert fa.LAUNCHES == n
     qd = torch.zeros(2, 4, 16, device=cuda)
     pages = torch.zeros(4, 8, 2, 16, device=cuda)
     with pytest.raises(TypeError, match="int32"):

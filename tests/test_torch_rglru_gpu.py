@@ -9,11 +9,11 @@ runs on a machine with one through (jax is not needed there, hence
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu \\
         tests/test_torch_rglru_gpu.py
 
-Tolerances: the flash kernel in bf16 at the JAX kernel tests' 2e-2; the
-full-width snapshot (3 layers, bf16) at 2e-2 on the top-8 logits and
-the logsumexp, chip_smoke.py's SNAP_TOL (the port's plain path on a CPU:
-3.5e-3); the smoke model in float32 at 1e-4, the CPU tests' float32
-model bound.
+Tolerances: the flash kernel in bf16 at the JAX kernel tests' 2e-2, in
+float32 at their 1e-5; the full-width snapshot (3 layers, bf16) at 2e-2
+on the top-8 logits and the logsumexp, chip_smoke.py's SNAP_TOL (the
+port's plain path on a CPU: 3.5e-3); the smoke model in float32 at
+1e-4, the CPU tests' float32 model bound.
 """
 import dataclasses
 import json
@@ -73,10 +73,20 @@ def test_flash_hd256_matches_plain(cuda, B, S, Sk, causal, window, layout):
                                rtol=2e-2)
 
 
-def test_flash_hd256_float32_has_no_kernel(cuda):
-    q = torch.zeros(1, 10, 64, 256, device=cuda)
-    with pytest.raises(ValueError, match="fma_f32 kernel takes head widths"):
-        fa.flash_attention(q, q[:, :1], q[:, :1])
+def test_flash_hd256_float32_matches_plain(cuda):
+    """float32 at hd 256 launches the CUDA-core kernel (fma_f32's
+    flash_fma_split) and matches the plain version within the float32
+    tolerance of the JAX kernel tests, 1e-5, at the prefill's
+    local-attention shape under a window that binds."""
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        s, dtype=np.float32)).to(cuda) for s in
+        ((1, 10, 512, 256), (1, 1, 512, 256), (1, 1, 512, 256)))
+    before = fa.LAUNCHES_BY_KERNEL["fma_f32"]
+    got = fa.flash_attention(q, k, v, causal=True, window=64)
+    assert fa.LAUNCHES_BY_KERNEL["fma_f32"] == before + 1
+    want = ref.mha_reference(q, k, v, causal=True, window=64)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
 def test_full_width_snapshot_on_the_card(cuda):
