@@ -125,9 +125,10 @@ parallel, and drives its paths on the card:
   ``examples/train_100m_torch.py`` for 60 steps and resumed to 70 from
   its checkpoint; the trainer's fault path against an uninterrupted run;
   recurrentgemma-2b's attention shape under autograd in float32 too;
-- float32 flash at hd 128 and 256 and the tooling (phase 19): the
-  float32 kernel (``flash_fma_split``) timed at qwen3-32b's and
-  recurrentgemma-2b's prefill beside its plain version and SDPA; yi-6b
+- float32 flash and the tooling (phase 19): the float32 kernel
+  (``flash_tf32x3``, 3xTF32 on the tensor cores) timed at granite-3-2b's
+  (hd 64), qwen3-32b's (hd 128) and recurrentgemma-2b's (hd 256)
+  prefill beside its plain version, SDPA and both bounds; yi-6b
   (2 layers) and recurrentgemma-2b (3 layers) float32 forwards at full
   width, kernel path against plain path; ``python -m
   repro_torch.analysis --all`` in a subprocess (its recompile guard
@@ -525,6 +526,7 @@ def latency_floor_device(cfg, st, l1_ns: float, l2_ns: float):
 
 BF16_TFLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate (data sheet)
 F32_TFLOPS = 67e12     # H100 SXM float32 rate outside the tensor cores
+TF32_TFLOPS = 495e12   # H100 SXM dense TF32 tensor-core rate (data sheet)
 TOL = {torch.float32: 1e-5}   # the JAX kernel tests' tolerances
 FLASH_BF16_TOL, PAGED_BF16_TOL = 2e-2, 3e-2
 # tests/test_kernels_flash.py's shapes, then granite-3-2b's prefill
@@ -553,7 +555,7 @@ FLASH_MODEL_CASES = [(8, 512, 512, 16, 8, 64, True, None),
                      (2, 256, 256, 32, 8, 128, True, 4096),
                      (2, 300, 300, 32, 8, 128, True, 128),
                      (2, 256, 256, 28, 4, 128, True, None)]
-FLASH_KERNEL = {torch.float32: "fma_f32", torch.bfloat16: "mma_bf16"}
+FLASH_KERNEL = {torch.float32: "mma_tf32x3", torch.bfloat16: "mma_bf16"}
 # quoted, not measured by this script: the bf16 flash kernel's time at
 # granite's prefill when it ran on the CUDA cores, before the
 # tensor-core kernel (earlier runs of this script, NVIDIA H100 80GB HBM3,
@@ -650,6 +652,18 @@ def flash_bound_ms(q, k, causal, window=None):
         else "operations"
 
 
+def flash_tf32x3_bound_ms(q, k, causal, window=None):
+    """Least time of float32 flash attention on the tensor cores in
+    3xTF32 (three TF32 products a float32 product): q, k, v read once and
+    o written once over the memory rate, or 3 x flash_ops over the TF32
+    rate."""
+    ops_ = 3 * flash_ops(q, k, causal, window)
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / TF32_TFLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
 def paged_bound_ms(q, k_pages, tables, lens):
     """Least time of paged decode attention: the K and V rows up to
     lens read once, q, tables and lens read and o written once, over the
@@ -674,7 +688,7 @@ def attention_vs_plain(dev):
     and decode shapes of phases 14-16, and flash in float32 at the hd-128
     prefills of phase 16 and recurrentgemma-2b's hd-256 prefill.  Returns
     the max abs error of each kernel, and of the float32 flash kernel at
-    hd 128 and at hd 256."""
+    each head width."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
@@ -686,7 +700,7 @@ def attention_vs_plain(dev):
             shape, dtype=np.float32)).to(dev).to(dtype)
 
     errs = {"flash_attention": 0.0, "paged_attention": 0.0,
-            "fma_f32_hd128": 0.0, "fma_f32_hd256": 0.0}
+            **{f"mma_tf32x3_hd{hd}": 0.0 for hd in (16, 32, 64, 128, 256)}}
     # (B, S, Sk, H, K, hd, dtype, causal, window, model layout)
     cases = [(B, S, S, H, K, hd, dt, c, None, False)
              for B, S, H, K, hd in FLASH_SHAPES
@@ -697,8 +711,8 @@ def attention_vs_plain(dev):
               for B, S, Sk, H, K, hd, c, lay in FLASH_BF16_CASES]
     cases += [(B, S, Sk, H, K, hd, torch.bfloat16, c, w, True)
               for B, S, Sk, H, K, hd, c, w in FLASH_MODEL_CASES]
-    # float32 at hd 128 and 256 (flash_fma_split): the hd-128 prefills of
-    # phase 16 and recurrentgemma-2b's of phase 17
+    # float32 at hd 128 and 256 too: the hd-128 prefills of phase 16 and
+    # recurrentgemma-2b's of phase 17
     cases += [(B, S, Sk, H, K, hd, torch.float32, c, w, True)
               for B, S, Sk, H, K, hd, c, w in FLASH_MODEL_CASES if hd == 128]
     B, S, Sk, H, K, c, w, lay = HYBRID_FLASH_CASES[0]
@@ -721,8 +735,8 @@ def attention_vs_plain(dev):
         tol = TOL.get(dt, FLASH_BF16_TOL)
         err = close(got, want, tol, f"flash {B, S, Sk, H, K, hd}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
-        if dt == torch.float32 and hd >= 128:
-            errs[f"fma_f32_hd{hd}"] = max(errs[f"fma_f32_hd{hd}"], err)
+        if dt == torch.float32:
+            errs[f"mma_tf32x3_hd{hd}"] = max(errs[f"mma_tf32x3_hd{hd}"], err)
         print(f"flash {kern} B={B} S={S} Sk={Sk} H={H} K={K} hd={hd} "
               f"{str(dt)[6:]} causal={causal} window={window}"
               f"{' [B,S,H,hd] views' if layout else ''}: max abs err "
@@ -944,7 +958,7 @@ def serving_path(dev, flash_log, paged_log):
     cache = m.init_cache(SERVE_B, SERVE_CACHE)
     finite = torch.ones((), dtype=torch.bool, device=dev)
     fa.LAUNCHES = pa.LAUNCHES = 0
-    fa.LAUNCHES_BY_KERNEL.update(mma_bf16=0, fma_f32=0)
+    fa.LAUNCHES_BY_KERNEL.update(mma_bf16=0, mma_tf32x3=0)
     pa.LAUNCHES_BY_FORM.update(cluster=0, two_pass=0)
     t0 = time.perf_counter()
     lg, cache = m.prefill(params, prompt, cache)
@@ -954,7 +968,7 @@ def serving_path(dev, flash_log, paged_log):
     if (fa.LAUNCHES, pa.LAUNCHES) != (cfg.n_layers, 0):
         raise AssertionError(f"prefill launched flash {fa.LAUNCHES} and "
                              f"paged {pa.LAUNCHES} times")
-    if fa.LAUNCHES_BY_KERNEL != {"mma_bf16": cfg.n_layers, "fma_f32": 0}:
+    if fa.LAUNCHES_BY_KERNEL != {"mma_bf16": cfg.n_layers, "mma_tf32x3": 0}:
         raise AssertionError(f"the bf16 prefill's flash launches went to "
                              f"{fa.LAUNCHES_BY_KERNEL}, not all to mma_bf16")
     print(f"prefill: flash launches by kernel {fa.LAUNCHES_BY_KERNEL}")
@@ -1910,7 +1924,7 @@ def zero_attention_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     fa.LAUNCHES = pa.LAUNCHES = 0
-    fa.LAUNCHES_BY_KERNEL.update(mma_bf16=0, fma_f32=0)
+    fa.LAUNCHES_BY_KERNEL.update(mma_bf16=0, mma_tf32x3=0)
     pa.LAUNCHES_BY_FORM.update(cluster=0, two_pass=0)
 
 
@@ -2184,7 +2198,7 @@ def dense_options(dev, smi: str) -> dict:
     if r["left_out"]["flip"] or r["left_out"]["capacity"]:
         raise AssertionError("float32 routes differ between the kernel and "
                              "plain paths")
-    if fa.LAUNCHES_BY_KERNEL["fma_f32"] == 0 or pa.LAUNCHES == 0:
+    if fa.LAUNCHES_BY_KERNEL["mma_tf32x3"] == 0 or pa.LAUNCHES == 0:
         raise AssertionError("the float32 ring did not run the kernels")
     out["mixtral-8x7b-smoke-ring"] = r
     print(f"phase 16's times: host clock after a sync, on {smi}")
@@ -2605,7 +2619,7 @@ TRAIN_FLASH_CASES = [
     ("seamless-m4t-medium cross attention", 4, 512, 384, 16, 16, 64, False,
      None)]
 # mamba2-2.7b's intra-chunk block: (T, q, G, r, p, n), 32 chunks of 128
-# the cases run in float32 too (the fma_f32 kernel, flash_fma_split at
+# the cases run in float32 too (the mma_tf32x3 kernel, flash_tf32x3 at
 # hd 256), within phase 6's float32 tolerance
 TRAIN_FLASH_F32 = ("recurrentgemma-2b local attention",)
 TRAIN_SSD_CASE = (32, 128, 1, 80, 64, 128)
@@ -2614,12 +2628,13 @@ TRAIN_SSD_CASE = (32, 128, 1, 80, 64, 128)
 # the plain version's VJP from the saved inputs, so only the card's
 # reductions could reorder; at most this share of the largest gradient
 TRAIN_GRAD_TOL = 1e-6
-# (b): granite-3-2b at full width, 2 layers, float32 (fma_f32 at hd 64;
-# TF32 off), three make_train_step steps over the pipeline's batches
-# against tests/golden/torch_granite_train.json.  Set before the first
-# run on the card: loss, gradient norm and lr of each step within
-# TRAIN_TOL relative; each leaf's norm of step 0's gradient and of its
-# change over the three steps within TRAIN_LEAF_TOL relative
+# (b): granite-3-2b at full width, 2 layers, float32 (mma_tf32x3 at hd
+# 64; TF32 off for the plain products), three make_train_step steps over
+# the pipeline's batches against tests/golden/torch_granite_train.json.
+# Set before the first run on the card: loss, gradient norm and lr of
+# each step within TRAIN_TOL relative; each leaf's norm of step 0's
+# gradient and of its change over the three steps within TRAIN_LEAF_TOL
+# relative
 TRAIN_TOL, TRAIN_LEAF_TOL = 1e-4, 1e-3
 # (c): one bf16 train step of mamba2-2.7b (2 layers) and
 # recurrentgemma-2b (3 layers) at full width through the kernels,
@@ -2798,9 +2813,12 @@ def train_vs_snapshot(dev, drawn: dict) -> dict:
     from repro_torch.train.train_step import TrainConfig, init_state, \
         make_train_step
 
+    from repro_torch.kernels import flash_attention as fa
+
     snap, cfg = drawn["snap"], drawn["cfg"]
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    zero_train_counts()
     try:
         m = M.build(cfg, dev)
         st = init_state(M.params_from_jax(drawn["tree"], cfg, dev))
@@ -2836,6 +2854,12 @@ def train_vs_snapshot(dev, drawn: dict) -> dict:
                 change[k], w, TRAIN_LEAF_TOL, f"change of {k}"))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+    # the float32 flash kernel at hd 64: each layer's forward and its
+    # remat recomputation, for step 0's gradient and each step
+    launches = dict(fa.LAUNCHES_BY_KERNEL)
+    if launches["mma_tf32x3"] == 0 or launches["mma_bf16"]:
+        raise AssertionError(f"the float32 steps' flash launches went to "
+                             f"{launches}, not to mma_tf32x3")
     print(f"batches and weights equal the snapshot's (sha256; drawn on the "
           f"host in {drawn['seconds']:.1f} s during phase 1)")
     for s, met in enumerate(metrics):
@@ -2848,8 +2872,10 @@ def train_vs_snapshot(dev, drawn: dict) -> dict:
           f"error {worst['step']:.3g} on loss, grad_norm and lr (tolerance "
           f"{TRAIN_TOL}); {len(got)} leaves: step 0's gradient norms within "
           f"{worst['grad_leaf']:.3g}, their changes over the steps within "
-          f"{worst['change_leaf']:.3g} (tolerance {TRAIN_LEAF_TOL})")
-    return {"steps": metrics, "worst_rel_err": worst}
+          f"{worst['change_leaf']:.3g} (tolerance {TRAIN_LEAF_TOL}); "
+          f"{launches['mma_tf32x3']} mma_tf32x3 flash launches")
+    return {"steps": metrics, "worst_rel_err": worst,
+            "flash_launches": launches["mma_tf32x3"]}
 
 
 def train_kernel_vs_plain(dev) -> dict:
@@ -2952,7 +2978,7 @@ def train_full_depth(dev, smi: str) -> dict:
     step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
     flash = fa.LAUNCHES_BY_KERNEL["mma_bf16"] // TRAIN_TIMED
     if fa.LAUNCHES_BY_KERNEL["mma_bf16"] != 2 * cfg.n_layers * TRAIN_TIMED \
-            or fa.LAUNCHES_BY_KERNEL["fma_f32"]:
+            or fa.LAUNCHES_BY_KERNEL["mma_tf32x3"]:
         raise AssertionError(f"flash launches {fa.LAUNCHES_BY_KERNEL} over "
                              f"{TRAIN_TIMED} steps: want 2 a layer, bf16")
     box = {}
@@ -3097,12 +3123,13 @@ def train_fault(dev) -> dict:
 
 # ------------------------------------------ float32 flash and the tooling
 
-# phase 19 (a): the float32 flash kernel at hd 128 and 256
-# (flash_fma_split), timed at qwen3-32b's prefill and recurrentgemma-2b's
-# (window 2048, which does not bind at 512, so SDPA's causal mask is the
-# same function): (what, B, S, H, K, hd, causal, window), the model's
-# [B,S,H,hd] views
-F32_TIMED = [("qwen3-32b prefill", 2, 256, 64, 8, 128, True, None),
+# phase 19 (a): the float32 flash kernel (flash_tf32x3) timed at
+# granite-3-2b's prefill (hd 64), qwen3-32b's (hd 128) and
+# recurrentgemma-2b's (hd 256; window 2048, which does not bind at 512,
+# so SDPA's causal mask is the same function): (what, B, S, H, K, hd,
+# causal, window), the model's [B,S,H,hd] views
+F32_TIMED = [("granite-3-2b prefill", 8, 512, 32, 8, 64, True, None),
+             ("qwen3-32b prefill", 2, 256, 64, 8, 128, True, None),
              ("recurrentgemma-2b prefill", 8, 512, 10, 1, 256, True, 2048)]
 # (b): float32 forwards at full width through the kernels against the
 # same through the plain versions on the card: (name, layers, B, S).
@@ -3129,11 +3156,13 @@ def attention_layers(cfg) -> int:
 
 
 def float32_and_tooling(dev, flash_log: str, smi: str) -> dict:
-    """Phase 19: (a) the float32 flash kernel at hd 128 and 256 against
-    its plain version and timed beside it and SDPA, with its bound,
+    """Phase 19: (a) the float32 flash kernel at hd 64, 128 and 256
+    against its plain version and timed beside it and SDPA, with both
+    bounds (the CUDA cores' FMA rate and 3xTF32 on the tensor cores),
     registers, spills and shared memory; (b) float32 forwards of yi-6b
     (2 layers) and recurrentgemma-2b (3 layers) at full width, kernel
-    path against plain path, every flash launch on fma_f32 and counted;
+    path against plain path, every flash launch on mma_tf32x3 and
+    counted;
     (c) ``python -m repro_torch.analysis --all`` in a subprocess (exit
     code 0), its recompile guard's fill counting one load of the real
     mmu_step library; (d) a ladder fill under
@@ -3162,10 +3191,11 @@ def float32_and_tooling(dev, flash_log: str, smi: str) -> dict:
         q = draw(B, S, H, hd).transpose(1, 2)
         k, v = (draw(B, S, K, hd).transpose(1, 2) for _ in range(2))
         kx, vx = (x.repeat_interleave(H // K, dim=1) for x in (k, v))
-        before = fa.LAUNCHES_BY_KERNEL["fma_f32"]
+        before = fa.LAUNCHES_BY_KERNEL["mma_tf32x3"]
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
-        if fa.LAUNCHES_BY_KERNEL["fma_f32"] != before + 1:
-            raise AssertionError(f"{what}: float32 did not launch fma_f32")
+        if fa.LAUNCHES_BY_KERNEL["mma_tf32x3"] != before + 1:
+            raise AssertionError(f"{what}: float32 did not launch "
+                                 f"mma_tf32x3")
         want = ref.mha_reference(q, k, v, causal=causal, window=window)
         r = {"max_abs_err": close(got, want, TOL[torch.float32], what),
              "ms": device_ms(lambda: fa.flash_attention(
@@ -3175,24 +3205,33 @@ def float32_and_tooling(dev, flash_log: str, smi: str) -> dict:
              "library_ms": device_ms(
                  lambda: torch.nn.functional.scaled_dot_product_attention(
                      q, kx, vx, is_causal=causal))}
-        r["bound_ms"], r["bound_by"] = flash_bound_ms(q, k, causal, window)
+        # the bound on the tensor cores (3 x the operations at the TF32
+        # rate), and beside it the CUDA cores' FMA bound of earlier runs
+        r["bound_ms"], r["bound_by"] = flash_tf32x3_bound_ms(
+            q, k, causal, window)
+        r["fma_bound_ms"], r["fma_bound_by"] = flash_bound_ms(
+            q, k, causal, window)
         ops_ = flash_ops(q, k, causal, window)
         r["tflops"] = ops_ / (r["ms"] * 1e-3) / 1e12
-        r["ptxas"] = ptxas_usage(flash_log, f"flash_fma_splitILi{hd}E")
+        r["ptxas"] = ptxas_usage(flash_log, f"flash_tf32x3ILi{hd}E")
         r["smem_bytes"] = fa.smem_bytes(torch.float32, hd)
+        r["blocks_per_sm"] = fa.blocks_per_sm(torch.float32, hd)
         r["unit"] = (f"{what}: B={B}, S={S}, H={H}, K={K}, hd={hd}, "
                      f"float32, causal, window {window}, [B,S,H,hd] views")
         r["card"] = smi
         out["timed"][hd] = r
-        print(f"flash_attention (fma_f32, flash_fma_split<{hd}>): "
-              f"{r['ptxas']}; {r['smem_bytes']} bytes of static shared "
-              f"memory a block; max abs err {r['max_abs_err']:.3g} "
+        print(f"flash_attention (mma_tf32x3, flash_tf32x3<{hd}>): "
+              f"{r['ptxas']}; {r['smem_bytes']} bytes of dynamic shared "
+              f"memory a block, {r['blocks_per_sm']} blocks an SM "
+              f"(occupancy calculator); max abs err {r['max_abs_err']:.3g} "
               f"(tolerance {TOL[torch.float32]}); {r['ms']:.4f} ms at "
               f"{r['unit']}, plain {r['plain_ms']:.4f} ms, SDPA "
               f"{r['library_ms']:.4f} ms; {r['tflops']:.1f} TFLOP/s on the "
               f"{ops_ / 1e9:.2f} GFLOP the mask keeps, "
-              f"{r['bound_ms'] / r['ms']:.1%} of the bound "
-              f"({r['bound_ms']:.5f} ms, {r['bound_by']}); {smi}")
+              f"{r['bound_ms'] / r['ms']:.1%} of the 3xTF32 bound "
+              f"({r['bound_ms']:.5f} ms, {r['bound_by']}), "
+              f"{r['fma_bound_ms'] / r['ms']:.1%} of the FMA bound "
+              f"({r['fma_bound_ms']:.5f} ms, {r['fma_bound_by']}); {smi}")
         del q, k, v, kx, vx, got, want
 
     # (c) starts here, on the host, while (b) runs on the card
@@ -3227,11 +3266,11 @@ def float32_and_tooling(dev, flash_log: str, smi: str) -> dict:
                     ms = (time.perf_counter() - t0) * 1e3
                     launches = dict(fa.LAUNCHES_BY_KERNEL)
                     want_n = attention_layers(cfg)
-                    if launches != {"mma_bf16": 0, "fma_f32": want_n} \
+                    if launches != {"mma_bf16": 0, "mma_tf32x3": want_n} \
                             or fa.LAUNCHES != want_n:
                         raise AssertionError(
                             f"{name}: the float32 forward launched "
-                            f"{launches}, want {want_n} fma_f32")
+                            f"{launches}, want {want_n} mma_tf32x3")
                     if tuple(lg.shape) != (B, S, cfg.vocab_size):
                         raise AssertionError(f"{name}: logits "
                                              f"{tuple(lg.shape)}")
@@ -3246,16 +3285,16 @@ def float32_and_tooling(dev, flash_log: str, smi: str) -> dict:
                 err = close_scaled(lg, plain, F32_FWD_TOL, what)
                 out["forwards"][name] = {
                     "layers": layers, "B": B, "S": S, "hd": cfg.hd,
-                    "launches": launches["fma_f32"], "forward_ms": ms,
+                    "launches": launches["mma_tf32x3"], "forward_ms": ms,
                     "max_abs_err": err,
                     "largest_logit": float(plain.abs().max()),
                     "card": smi}
                 print(f"{what}: kernel path == plain path, max abs err "
                       f"{err:.4g} on the logits (bound {F32_FWD_TOL} of the "
                       f"largest, {float(plain.abs().max()):.3g}); "
-                      f"{launches['fma_f32']} fma_f32 launches; forward "
-                      f"{ms:.2f} ms (host clock after a sync, the first "
-                      f"call); {smi}")
+                      f"{launches['mma_tf32x3']} mma_tf32x3 launches; "
+                      f"forward {ms:.2f} ms (host clock after a sync, the "
+                      f"first call); {smi}")
                 del m, params, batch, lg, plain
                 torch.cuda.empty_cache()
         finally:
@@ -4449,22 +4488,28 @@ def main() -> int:
                                   "long_context") if x in r}}
             for name, line, r in (("flash_attention", 85, serve["flash"]),
                                   ("paged_attention", 73, serve["paged"]))]
-    # the float32 flash kernel at hd 128 and 256 (fma_f32's
-    # flash_fma_split), its launches those of phase 19's forwards
-    for hd, model in ((128, "yi-6b"), (256, "recurrentgemma-2b")):
+    # the float32 flash kernel (mma_tf32x3) at hd 64, 128 and 256, its
+    # launches those of phase 18 (b)'s float32 steps (hd 64) and of phase
+    # 19's forwards (hd 128 and 256)
+    f32_paths = {64: ("granite-3-2b float32 training (2 layers, 3 steps)",
+                      training["snapshot"]["flash_launches"]),
+                 128: ("yi-6b float32 forward",
+                       tooling["forwards"]["yi-6b"]["launches"]),
+                 256: ("recurrentgemma-2b float32 forward",
+                       tooling["forwards"]["recurrentgemma-2b"]["launches"])}
+    for hd, (path, n) in f32_paths.items():
         r = tooling["timed"][hd]
         attn.append({
-            "name": f"flash_attention_fma_f32_hd{hd}", "route": "cuda",
+            "name": f"flash_attention_mma_tf32x3_hd{hd}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:85",
-            "launches": tooling["forwards"][model]["launches"],
-            "launches_by_path": {f"{model} float32 forward": tooling[
-                "forwards"][model]["launches"]},
+            "launches": n, "launches_by_path": {path: n},
             "max_abs_err": max(r["max_abs_err"],
-                               attn_errs[f"fma_f32_hd{hd}"]),
+                               attn_errs[f"mma_tf32x3_hd{hd}"]),
             **{x: r[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms", "unit", "tflops", "ptxas",
-                                 "smem_bytes")},
+                                 "library_ms", "fma_bound_ms",
+                                 "fma_bound_by", "unit", "tflops", "ptxas",
+                                 "smem_bytes", "blocks_per_sm")},
             "matches_plain": True})
     print("models: " + json.dumps({
         "granite-moe-1b-a400m": {"snapshot": moe_snap, "serving": moe_serve},

@@ -11,13 +11,16 @@ version's VJP backward).
 given: on CUDA tensors it launches a kernel (or raises); on CPU tensors
 it runs the plain PyTorch version, ``ref.mha_reference``.  No flag or
 environment variable chooses the path.  On the card ``kernel_for``
-picks the kernel from the dtype: bf16 runs on the tensor cores
-(``mma_bf16``, hd 16 to 256), float32 on the CUDA cores (``fma_f32``, hd
-16 to 256, whose float32 FMAs meet the 1e-5 tolerance that TF32 cannot:
-``flash_fma`` up to hd 64, ``flash_fma_split`` at 128 and 256, a query
-row split over 8 lanes).  A call that the dtype's kernel cannot take
-raises (a head width of 48, say); none passes to the other kernel or to
-the plain version.
+picks the kernel from the dtype, both on the tensor cores and both for
+hd 16 to 256: bf16 runs ``flash_mma`` (``mma_bf16``), float32
+``flash_tf32x3`` (``mma_tf32x3``), which splits each float32 operand
+into two TF32 halves and sums three TF32 products, hi.hi + hi.lo +
+lo.hi, so that it meets the 1e-5 tolerance one TF32 pass cannot.  Both
+copy rows in 16-byte pieces (cp.async), so they need 16-byte aligned
+data pointers and b, h and s strides in whole 16-byte units.  A call
+that the dtype's kernel cannot take raises (a head width of 48, say, or
+a misaligned view); none passes to the other kernel or to the plain
+version.
 """
 from __future__ import annotations
 
@@ -30,11 +33,11 @@ from repro_torch.kernels import build, ref
 # kernel launches made by flash_attention since import, in all and by
 # kernel (training counts its forward's and remat's recomputation's)
 LAUNCHES = 0
-LAUNCHES_BY_KERNEL = {"mma_bf16": 0, "fma_f32": 0}
+LAUNCHES_BY_KERNEL = {"mma_bf16": 0, "mma_tf32x3": 0}
 
 # dtype -> (kernel, the C side's dtype code, head widths it is built for)
 KERNELS = {torch.bfloat16: ("mma_bf16", 1, (16, 32, 64, 128, 256)),
-           torch.float32: ("fma_f32", 0, (16, 32, 64, 128, 256))}
+           torch.float32: ("mma_tf32x3", 0, (16, 32, 64, 128, 256))}
 
 _p, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int32
 
@@ -62,6 +65,9 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int,
                                                    ctypes.c_int]
         lib.flash_attention_smem_bytes.restype = ctypes.c_int
+        lib.flash_attention_blocks_per_sm.argtypes = [ctypes.c_int,
+                                                      ctypes.c_int]
+        lib.flash_attention_blocks_per_sm.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         got = lib.flash_attention_args_size()
@@ -92,28 +98,27 @@ def check(q, k, v, window):
 
 
 def kernel_for(dtype, hd, strides, ptr_mod16) -> str:
-    """The kernel that takes a call: ``"mma_bf16"`` or ``"fma_f32"``;
+    """The kernel that takes a call: ``"mma_bf16"`` or ``"mma_tf32x3"``;
     raises when the dtype's kernel cannot take it.
 
     ``strides`` are the b, h and s strides (in elements) of q, k, v and
-    o; ``ptr_mod16`` their data pointers modulo 16.  The bf16 kernel
-    copies rows in 16-byte pieces (cp.async), so it needs both in whole
-    16-byte units."""
+    o; ``ptr_mod16`` their data pointers modulo 16.  Both kernels copy
+    rows in 16-byte pieces (cp.async), so they need both in whole 16-byte
+    units: strides that are multiples of 8 bf16 or 4 float32 elements."""
     if dtype not in KERNELS:
         raise TypeError(f"the kernels take {list(KERNELS)}, not {dtype}")
     name, _, dims = KERNELS[dtype]
     if hd not in dims:
         raise ValueError(f"the {name} kernel takes head widths {dims}, not "
                          f"{hd}")
-    if name == "mma_bf16":
-        odd = [s for s in strides if s % 8]
-        if odd:
-            raise ValueError(f"the mma_bf16 kernel needs b, h and s strides "
-                             f"that are multiples of 8 elements, got {odd}")
-        if any(ptr_mod16):
-            raise ValueError(f"the mma_bf16 kernel needs 16-byte aligned "
-                             f"data pointers, got offsets {list(ptr_mod16)}"
-                             f" modulo 16")
+    per16 = 16 // dtype.itemsize
+    odd = [s for s in strides if s % per16]
+    if odd:
+        raise ValueError(f"the {name} kernel needs b, h and s strides that "
+                         f"are multiples of {per16} elements, got {odd}")
+    if any(ptr_mod16):
+        raise ValueError(f"the {name} kernel needs 16-byte aligned data "
+                         f"pointers, got offsets {list(ptr_mod16)} modulo 16")
     return name
 
 
@@ -121,6 +126,16 @@ def smem_bytes(dtype, hd) -> int:
     """Shared memory one launch of the kernel for (dtype, hd) uses, as
     the compiled library reports it (builds it at first use)."""
     return _lib().flash_attention_smem_bytes(KERNELS[dtype][1], hd)
+
+
+def blocks_per_sm(dtype, hd) -> int:
+    """Blocks of the kernel for (dtype, hd) an SM of the current device
+    holds at once, as the occupancy calculator gives them (registers,
+    shared memory, threads); needs the card."""
+    n = _lib().flash_attention_blocks_per_sm(KERNELS[dtype][1], hd)
+    if n < 0:
+        raise RuntimeError(f"no occupancy for the {dtype} kernel at hd {hd}")
+    return n
 
 
 def launch(q, k, v, *, causal=True, window=None):

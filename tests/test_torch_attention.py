@@ -357,11 +357,11 @@ ALIGNED = [64 * 512, 64, 32 * 64] * 4   # b, h, s strides of q, k, v, o
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_for_each_dtype_and_width(dtype, hd):
-    """bf16 runs on the tensor cores at every width, float32 on the CUDA
-    cores at every width: hd 128 and 256 too, as the reference's kernel
-    takes any head width in either dtype."""
+    """bf16 runs on the tensor cores at every width, float32 on them too
+    in 3xTF32 at every width: hd 128 and 256 too, as the reference's
+    kernel takes any head width in either dtype."""
     td = DTYPES[dtype][1]
-    want = "mma_bf16" if dtype == "bfloat16" else "fma_f32"
+    want = "mma_bf16" if dtype == "bfloat16" else "mma_tf32x3"
     assert tfa.kernel_for(td, hd, ALIGNED, [0] * 4) == want
 
 
@@ -372,7 +372,7 @@ def test_flash_kernel_for_refuses_what_the_mma_kernel_cannot_take():
         tfa.kernel_for(bf, 96, ALIGNED, [0] * 4)
     # a width no float32 kernel is built for raises too, and passes to
     # neither the bf16 kernel nor the plain version
-    with pytest.raises(ValueError, match="fma_f32 kernel takes head "
+    with pytest.raises(ValueError, match="mma_tf32x3 kernel takes head "
                                          "widths"):
         tfa.kernel_for(torch.float32, 96, ALIGNED, [0] * 4)
     odd = list(ALIGNED)
@@ -384,5 +384,113 @@ def test_flash_kernel_for_refuses_what_the_mma_kernel_cannot_take():
         tfa.kernel_for(bf, 64, ALIGNED, [0, 2, 0, 0])
     with pytest.raises(TypeError, match="float16"):
         tfa.kernel_for(torch.float16, 64, ALIGNED, [0] * 4)
-    # float32 copies no 16-byte rows: its kernel takes any such layout
-    assert tfa.kernel_for(torch.float32, 64, odd, [0, 4, 0, 0]) == "fma_f32"
+    # float32 copies 16-byte rows too: strides in whole 4-float units and
+    # aligned pointers, or it raises
+    with pytest.raises(ValueError, match="mma_tf32x3 kernel needs b, h and "
+                                         "s strides that are multiples of 4 "
+                                         r"elements, got \[66\]"):
+        tfa.kernel_for(torch.float32, 64, odd, [0] * 4)
+    with pytest.raises(ValueError, match="16-byte aligned data pointers"):
+        tfa.kernel_for(torch.float32, 64, ALIGNED, [0, 4, 0, 0])
+    odd[5] = 68                         # 4-float units: taken
+    assert tfa.kernel_for(torch.float32, 64, odd, [0] * 4) == "mma_tf32x3"
+
+
+# The float32 kernel's arithmetic (csrc/flash_attention.cu, flash_tf32x3),
+# emulated on the CPU: every product of Q.K^T and P.V in 3xTF32.
+
+LOG2E = 1.4426950408889634
+TK_F32 = {64: 64, 128: 32, 256: 16}   # the kernel's keys a tile
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as cvt.rna.tf32.f32 rounds it: 10
+    mantissa bits, to nearest, ties away from zero (bit 12 of the
+    magnitude added, the low 13 bits cleared)."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mm_tf32x3(a, b):
+    """a @ b as the kernel's mma.sync takes it: each operand split into
+    TF32 halves, hi.lo + lo.hi, then hi.hi, summed in float32."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+def mm_tf32(a, b):
+    """a @ b in one TF32 pass."""
+    return tf32(a) @ tf32(b)
+
+
+def flash_emulated(q, k, v, window, mm, tk):
+    """The kernel's causal flash loop in float32 over [B, H, S, hd]
+    tensors: key tiles of ``tk``, the online softmax in base 2 with the
+    scale in the exponent, NEG_INF on masked scores, the division by
+    max(l, 1e-30), rows that see no key 0; both products through ``mm``."""
+    S, hd = q.shape[2], q.shape[3]
+    sl = torch.tensor((1.0 / hd ** 0.5) * LOG2E, dtype=torch.float32)
+    m = torch.full(q.shape[:3] + (1,), -1e30)
+    l = torch.zeros(q.shape[:3] + (1,))
+    o = torch.zeros(q.shape)
+    qp = torch.arange(S)[:, None]
+    for k0 in range(0, k.shape[2], tk):
+        kt, vt = k[:, :, k0:k0 + tk], v[:, :, k0:k0 + tk]
+        kp = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        keep = qp >= kp
+        if window is not None:
+            keep &= qp - kp < window
+        s = torch.where(keep, mm(q, kt.transpose(-1, -2)) * sl,
+                        torch.tensor(-1e30))
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr, p = torch.exp2(m - mn), torch.exp2(s - mn)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + mm(p, vt)
+        m = mn
+    return torch.where(m == -1e30, torch.zeros(()), o / l.clamp_min(1e-30))
+
+
+def attention_f64(q, k, v, window):
+    """Causal attention in float64; rows that see no key 0."""
+    S, hd = q.shape[2], q.shape[3]
+    s = q.double() @ k.double().transpose(-1, -2) / hd ** 0.5
+    qp, kp = torch.arange(S)[:, None], torch.arange(k.shape[2])[None, :]
+    keep = qp >= kp
+    if window is not None:
+        keep &= qp - kp < window
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), -1)
+    return torch.nan_to_num(p) @ v.double()
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    """The emulation's rounding is cvt.rna's: 1 + 2^-11 is half a TF32
+    step above 1 and goes away from zero, in either sign; just below
+    half a step goes to 1; a carry out of the mantissa moves the
+    exponent."""
+    x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -11 - 2 ** -23,
+                      2 - 2 ** -23, 3.0], dtype=torch.float32)
+    want = torch.tensor([1 + 2 ** -10, -(1 + 2 ** -10), 1.0, 2.0, 3.0],
+                        dtype=torch.float32)
+    assert torch.equal(tf32(x), want)
+    assert not (tf32(x).view(torch.int32) & 0x1FFF).any()
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("window", [None, 48])
+def test_flash_tf32x3_arithmetic_within_float32_tolerance(hd, window):
+    """The float32 kernel's design holds the JAX kernel tests' float32
+    tolerance: attention with every Q.K^T and P.V product in 3xTF32 and
+    the kernel's online softmax over its key tiles lies within 1e-5 of
+    float64 attention, causal and windowed, at the widths of the model
+    configs; one TF32 pass on the same inputs lies outside it."""
+    rng = np.random.default_rng(hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 160, hd),
+                                                    dtype=np.float32))
+               for _ in range(3))
+    want = attention_f64(q, k, v, window)
+    assert_close(flash_emulated(q, k, v, window, mm_tf32x3, TK_F32[hd]),
+                 want, TOL_F32)
+    with pytest.raises(AssertionError, match="Not equal to tolerance"):
+        assert_close(flash_emulated(q, k, v, window, mm_tf32, TK_F32[hd]),
+                     want, TOL_F32)

@@ -12,8 +12,8 @@ Inputs are numpy draws from a seed, on the card; the kernel (the
 wrapper's path for CUDA tensors) and the plain version (``kernels.ref``)
 see the same tensors.  Tolerances are the JAX kernel tests' own: float32
 1e-5; bfloat16 2e-2 for flash and 3e-2 for paged attention.  Every bf16
-flash call must run on the tensor-core kernel (``mma_bf16``) and every
-float32 call on the CUDA-core kernels (``fma_f32``, hd 16 to 256): the
+flash call must run on the bf16 tensor-core kernel (``mma_bf16``) and
+every float32 call on the 3xTF32 one (``mma_tf32x3``, hd 16 to 256): the
 tests count ``LAUNCHES_BY_KERNEL``.
 """
 import numpy as np
@@ -28,7 +28,7 @@ from repro_torch.kernels import ref
 pytestmark = pytest.mark.gpu
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-FLASH_KERNEL = {"float32": "fma_f32", "bfloat16": "mma_bf16"}
+FLASH_KERNEL = {"float32": "mma_tf32x3", "bfloat16": "mma_bf16"}
 
 
 @pytest.fixture
@@ -162,13 +162,14 @@ def test_flash_mma_refuses_misaligned_views(cuda):
     assert fa.LAUNCHES == n and fa.LAUNCHES_BY_KERNEL == by
 
 
-# float32 at hd 128 and 256 (flash_fma_split): (B, S, Sk, H, K, hd, causal,
-# window) -- the hd-128 prefills of chip_smoke.py's phase 16 (qwen3-32b
-# G 8, mixtral-8x7b with its window and with a window that binds,
-# qwen2-vl-7b G 7), ragged S != Sk; recurrentgemma-2b's local attention
-# (hd 256, G 10 on one kv head) where its window binds, and a window
-# that leaves rows 126 .. 199 no key (0 there)
-FMA_WIDE = [(2, 256, 256, 64, 8, 128, True, None),
+# float32 through the 3xTF32 kernel at every width: (B, S, Sk, H, K, hd,
+# causal, window) -- the hd-128 prefills of chip_smoke.py's phase 16
+# (qwen3-32b G 8, mixtral-8x7b with its window and with a window that
+# binds, qwen2-vl-7b G 7), ragged S != Sk; recurrentgemma-2b's local
+# attention (hd 256, G 10 on one kv head) where its window binds, and a
+# window that leaves rows 126 .. 199 no key (0 there); the same kinds of
+# call at hd 16, 32 and 64
+F32_WIDE = [(2, 256, 256, 64, 8, 128, True, None),
             (2, 256, 256, 32, 8, 128, True, 4096),
             (2, 300, 300, 32, 8, 128, True, 128),
             (2, 256, 256, 28, 4, 128, True, None),
@@ -176,21 +177,48 @@ FMA_WIDE = [(2, 256, 256, 64, 8, 128, True, None),
             (2, 200, 77, 8, 2, 128, True, None),
             (1, 512, 512, 10, 1, 256, True, 64),
             (2, 300, 300, 10, 1, 256, True, 128),
-            (2, 200, 77, 10, 1, 256, False, 50)]
+            (2, 200, 77, 10, 1, 256, False, 50),
+            (2, 77, 200, 4, 2, 16, False, None),
+            (2, 200, 77, 4, 2, 16, True, 50),
+            (2, 200, 77, 4, 2, 32, True, None),
+            (1, 512, 512, 8, 2, 32, True, 64),
+            (2, 300, 300, 8, 2, 64, True, 128),
+            (2, 200, 77, 4, 2, 64, False, 50)]
 
 
-@pytest.mark.parametrize("B,S,Sk,H,K,hd,causal,window", FMA_WIDE)
-def test_flash_fma_hd128_and_256(cuda, B, S, Sk, H, K, hd, causal, window):
-    """float32 at the widths the first float32 kernel did not take, in the
-    model's [B,S,H,hd] views, counted on fma_f32, within 1e-5 of the
-    plain version computed in full float32 (TF32 off)."""
+def draw_large_scores(shape_q, shape_kv, dev, rng):
+    """q ~ 8 N(0, 1) rounded to integers, k ~ N(0, 1) rounded to eighths,
+    v ~ N(0, 1): scores of standard deviation 8 (up to about 40 after the
+    scale), each q.k exact in float32 and in 3xTF32 alike.  Unrounded,
+    such draws leave the plain float32 version itself up to twice the
+    tolerance from float64 attention at hd 256 (the dot products'
+    rounding at that size), so a difference would not be the kernel's;
+    rounded, the comparison holds the softmax's range (large exponents,
+    running-max changes) to the tolerance."""
+    q = np.round(8 * rng.standard_normal(shape_q))
+    k = np.round(8 * rng.standard_normal(shape_kv)) / 8
+    v = rng.standard_normal(shape_kv)
+    return (torch.from_numpy(x.astype(np.float32)).to(dev) for x in (q, k, v))
+
+
+@pytest.mark.parametrize("large", [False, True])
+@pytest.mark.parametrize("B,S,Sk,H,K,hd,causal,window", F32_WIDE)
+def test_flash_tf32x3_every_width(cuda, B, S, Sk, H, K, hd, causal, window,
+                                  large):
+    """float32 at every width in the model's [B,S,H,hd] views, counted on
+    mma_tf32x3, within 1e-5 of the plain version computed in full float32
+    (TF32 off), rows that see no key exactly 0; ``large``: scores of
+    standard deviation 8 (``draw_large_scores``)."""
     rng = np.random.default_rng(6)
-    q = draw((B, S, H, hd), "float32", cuda, rng)
-    k, v = (draw((B, Sk, K, hd), "float32", cuda, rng) for _ in range(2))
+    if large:
+        q, k, v = draw_large_scores((B, S, H, hd), (B, Sk, K, hd), cuda, rng)
+    else:
+        q = draw((B, S, H, hd), "float32", cuda, rng)
+        k, v = (draw((B, Sk, K, hd), "float32", cuda, rng) for _ in range(2))
     n, by = fa.LAUNCHES, dict(fa.LAUNCHES_BY_KERNEL)
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert fa.LAUNCHES == n + 1
-    by["fma_f32"] += 1
+    by["mma_tf32x3"] += 1
     assert fa.LAUNCHES_BY_KERNEL == by
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -204,6 +232,26 @@ def test_flash_fma_hd128_and_256(cuda, B, S, Sk, H, K, hd, causal, window):
     if blind < S:
         assert not got[:, blind:].any()
     assert_close(got, want, 1e-5)
+
+
+def test_flash_tf32x3_refuses_misaligned_views(cuda):
+    """A float32 call the 3xTF32 kernel cannot take (cp.async copies
+    16-byte pieces) raises and launches nothing: it never passes to the
+    bf16 kernel or to the plain version."""
+    base = torch.zeros(1 * 2 * 64 * 64 + 8, device=cuda)
+    q = base[1:1 + 2 * 64 * 64].view(1, 2, 64, 64)   # 4 bytes off
+    kv = torch.zeros(1, 2, 64, 64, device=cuda)
+    odd = torch.zeros(1, 2, 64, 66, device=cuda)[..., :64]   # s stride 66
+    n, by = fa.LAUNCHES, dict(fa.LAUNCHES_BY_KERNEL)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        fa.flash_attention(odd, kv, kv)
+    assert fa.LAUNCHES == n and fa.LAUNCHES_BY_KERNEL == by
+    # a stride of 68 floats is whole 16-byte units: taken
+    wide = torch.zeros(1, 2, 64, 68, device=cuda)[..., :64]
+    assert not fa.flash_attention(wide, kv, kv).any()
+    assert fa.LAUNCHES_BY_KERNEL["mma_tf32x3"] == by["mma_tf32x3"] + 1
 
 
 # (B, H, K, hd, page, nb, P, lens): lens None draws them in [1, nb*page)

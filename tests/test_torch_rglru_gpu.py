@@ -74,17 +74,17 @@ def test_flash_hd256_matches_plain(cuda, B, S, Sk, causal, window, layout):
 
 
 def test_flash_hd256_float32_matches_plain(cuda):
-    """float32 at hd 256 launches the CUDA-core kernel (fma_f32's
-    flash_fma_split) and matches the plain version within the float32
-    tolerance of the JAX kernel tests, 1e-5, at the prefill's
+    """float32 at hd 256 launches the 3xTF32 tensor-core kernel
+    (mma_tf32x3, flash_tf32x3<256>) and matches the plain version within
+    the float32 tolerance of the JAX kernel tests, 1e-5, at the prefill's
     local-attention shape under a window that binds."""
     rng = np.random.default_rng(1)
     q, k, v = (torch.from_numpy(rng.standard_normal(
         s, dtype=np.float32)).to(cuda) for s in
         ((1, 10, 512, 256), (1, 1, 512, 256), (1, 1, 512, 256)))
-    before = fa.LAUNCHES_BY_KERNEL["fma_f32"]
+    before = fa.LAUNCHES_BY_KERNEL["mma_tf32x3"]
     got = fa.flash_attention(q, k, v, causal=True, window=64)
-    assert fa.LAUNCHES_BY_KERNEL["fma_f32"] == before + 1
+    assert fa.LAUNCHES_BY_KERNEL["mma_tf32x3"] == before + 1
     want = ref.mha_reference(q, k, v, causal=True, window=64)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
@@ -149,9 +149,9 @@ def test_smoke_kernel_path_matches_plain(cuda, monkeypatch):
             out.append(lg)
         return out, fed
 
-    before = (fa.LAUNCHES_BY_KERNEL["fma_f32"], pa.LAUNCHES)
+    before = (fa.LAUNCHES_BY_KERNEL["mma_tf32x3"], pa.LAUNCHES)
     kern, fed = serve()
-    assert fa.LAUNCHES_BY_KERNEL["fma_f32"] == before[0] + 1
+    assert fa.LAUNCHES_BY_KERNEL["mma_tf32x3"] == before[0] + 1
     assert pa.LAUNCHES == before[1] + 20
 
     def flash(q, k, v, *, causal=True, window=None):

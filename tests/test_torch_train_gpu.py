@@ -17,8 +17,8 @@ runs on a machine with one through (jax is not needed there, hence
   reductions could reorder).  The outputs are held to the kernel tests'
   tolerances (1e-5 in float32, two bf16 ulps: 1.6e-2 relative).
 - The train step: granite-3-2b's and mamba2-2.7b's smoke configs in
-  float32 (the kernels' ``fma_f32`` routes), one ``make_train_step``
-  with ``eps`` 1e-3 (see tests/test_torch_train.py) on ``cuda`` and on
+  float32 (flash's ``mma_tf32x3`` and ssd_intra's ``fma_f32`` routes),
+  one ``make_train_step`` with ``eps`` 1e-3 (see tests/test_torch_train.py) on ``cuda`` and on
   ``cpu`` from the same weights and batch: loss and gradient norm within
   1e-4 relative, every parameter and moment within 1e-4.
 - Restart determinism: tests/test_trainer_fault.py's crash-at-step-5
