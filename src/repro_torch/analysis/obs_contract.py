@@ -250,9 +250,10 @@ def check_name_uniqueness(names_mod=None) -> list:
     names_mod = names_mod or obs_names
     findings = []
     all_names: list = []
-    for tup in (names_mod.SPAN_NAMES, names_mod.EVENT_NAMES,
-                names_mod.COUNTER_NAMES, names_mod.GAUGE_NAMES,
-                names_mod.HIST_NAMES):
+    for tup in (names_mod.SPAN_NAMES,
+                getattr(names_mod, "PORT_SPAN_NAMES", ()),
+                names_mod.EVENT_NAMES, names_mod.COUNTER_NAMES,
+                names_mod.GAUGE_NAMES, names_mod.HIST_NAMES):
         all_names += list(tup)
     seen: set = set()
     for n in all_names:

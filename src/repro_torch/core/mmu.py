@@ -21,13 +21,20 @@ Three entry points share the step:
                      [T, W, C] flatten to S·W·C lanes, system-major
 
 All run on ``device="cuda"`` unless the caller passes ``device="cpu"``;
-with no card and no explicit CPU request they raise.
+with no card and no explicit CPU request they raise.  Each emits three
+``obs`` spans under the caller's current span: ``stage`` (the traces as
+tensors on the device, tiled over the ladder's lanes), ``scan`` (the
+state, the launches and one synchronize of the device's stream) and
+``fold`` (the state back on the host as Stats and extras).
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.core import ptwcp
 from repro_torch.core.caches import BT_DATA, REUSE_BUCKETS, access_data
 from repro_torch.core.stages import (Dyn, MMUState, Request, STAGES,
@@ -235,6 +242,28 @@ def _lane_trace(trace: dict, cfg: SimConfig, device, lanes: int | None):
             for k, x in out.items()}
 
 
+def _stage(stage):
+    """The ``stage`` span of one entry: the caller's, where it made one
+    (un-entered) before it stacked the traces, so that its clock covers
+    the stacking too; else a new one."""
+    return obs.span(obs.names.SPAN_STAGE) if stage is None else stage
+
+
+@contextlib.contextmanager
+def _scan(dev, lanes: int, steps: int, padded: int = 0):
+    """The ``scan`` span: the state made, the kernel's parameters and
+    launches, then one synchronize of `dev`'s stream, so that ``fold``
+    finds nothing left queued and times host work only.  ``launches``
+    is the change in ``mmu_step.LAUNCHES`` (0 on the CPU)."""
+    before = mmu_step.LAUNCHES
+    with obs.span(obs.names.SPAN_SCAN, lanes=lanes, padded_lanes=padded,
+                  accesses=lanes * steps) as sp:
+        yield sp
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        sp.set(launches=mmu_step.LAUNCHES - before)
+
+
 def simulate(cfg: SimConfig, trace: dict, stage_names=None, device=None,
              time_shards: int | None = None):
     """Run one trace under `cfg`; returns (Stats, extras) as numpy.
@@ -247,53 +276,66 @@ def simulate(cfg: SimConfig, trace: dict, stage_names=None, device=None,
     dev = resolve_device(device)
     names = tuple(stage_names) if stage_names else default_stages(cfg)
     step = make_step(cfg, names)
-    tr = _lane_trace(trace, cfg, dev, None)
-    st0 = make_state(cfg, 1, dev)
+    with obs.span(obs.names.SPAN_STAGE):
+        tr = _lane_trace(trace, cfg, dev, None)
     t = int(time_shards or 1)
-    if t > 1:
-        st, _ = parallel.time_shard_scan(
-            lambda s, trb: scan_accesses(step, s, trb, cfg, names),
-            st0, tr, t)
-    else:
-        st = scan_accesses(step, st0, tr, cfg, names)
-    stats, *rest = _finalize(st, cfg)
-    return (Stats(*[x[0] for x in stats]),
-            _extras_of(cfg, *rest, index=lambda x: x[0]))
+    with _scan(dev, 1, tr["vpn"].shape[0]):
+        st0 = make_state(cfg, 1, dev)
+        if t > 1:
+            st, _ = parallel.time_shard_scan(
+                lambda s, trb: scan_accesses(step, s, trb, cfg, names),
+                st0, tr, t)
+        else:
+            st = scan_accesses(step, st0, tr, cfg, names)
+    with obs.span(obs.names.SPAN_FOLD):
+        stats, *rest = _finalize(st, cfg)
+        return (Stats(*[x[0] for x in stats]),
+                _extras_of(cfg, *rest, index=lambda x: x[0]))
 
 
 def simulate_batch(cfg: SimConfig, traces: dict, stage_names=None,
-                   device=None):
+                   device=None, stage=None):
     """Run W workloads in lock-step: traces leaves are [T, W] (a
     multicore config's core lanes: ``trace_gen.generate_mix``'s [T, C]
-    leaves, ``core`` among them).
+    leaves, ``core`` among them).  `stage`: a ``stage`` span the caller
+    made before it stacked `traces`, closed here once they are on the
+    device (default: a span of this call's own).
 
     Returns (list of W Stats, list of W extras dicts), as numpy.
     """
     dev = resolve_device(device)
     names = tuple(stage_names) if stage_names else default_stages(cfg)
     step = make_step(cfg, names)
-    tr = _lane_trace(traces, cfg, dev, lanes=True)
-    W = tr["vpn"].shape[1]
-    st = scan_accesses(step, make_state(cfg, W, dev), tr, cfg, names)
-    stats, *rest = _finalize(st, cfg)
-    per = [Stats(*[x[i] for x in stats]) for i in range(W)]
-    extras = [_extras_of(cfg, *rest, index=lambda x, i=i: x[i])
-              for i in range(W)]
-    return per, extras
+    with _stage(stage):
+        tr = _lane_trace(traces, cfg, dev, lanes=True)
+    T, W = tr["vpn"].shape
+    with _scan(dev, W, T):
+        st = scan_accesses(step, make_state(cfg, W, dev), tr, cfg, names)
+    with obs.span(obs.names.SPAN_FOLD):
+        stats, *rest = _finalize(st, cfg)
+        per = [Stats(*[x[i] for x in stats]) for i in range(W)]
+        extras = [_extras_of(cfg, *rest, index=lambda x, i=i: x[i])
+                  for i in range(W)]
+        return per, extras
 
 
 def make_systems_runner(cfg: SimConfig, stage_names=None, device=None,
                         plan=None, time_shards: int = 1):
     """A reusable S x W runner for one ladder base config.
 
-    Returns ``run(dyns, traces) -> (per, extras)``: `dyns` has ``[S]``
-    leaves (``sim.systems.ladder_dyn``), traces leaves are ``[T, W]``,
-    shared by the systems.  A mesh block runs as S·W lanes, system-major
-    (lane ``s * W + w``): each Dyn leaf repeated W times, the traces
-    tiled S times.  ``per[s][w]`` is system s's Stats on workload w and
-    ``extras[s][w]`` its extras, as numpy.  Multicore traces ``[T, W,
-    C]`` (mixes stacked on axis 1) run as S·W·C lanes, lane ``(s * W +
-    w) * C + c``, and ``per[s][w]`` and ``extras[s][w]`` are lists of C.
+    Returns ``run(dyns, traces, stage=None, padded=0) -> (per,
+    extras)``: `dyns` has ``[S]`` leaves (``sim.systems.ladder_dyn``),
+    traces leaves are ``[T, W]``, shared by the systems; `stage` is a
+    ``stage`` span the caller made before it stacked `traces` (as in
+    ``simulate_batch``) and `padded` the number of `traces`' last
+    workloads that only repeat one to fill the width (the ``scan``
+    span's ``padded_lanes`` counts their lanes).  A mesh block runs as
+    S·W lanes, system-major (lane ``s * W + w``): each Dyn leaf repeated
+    W times, the traces tiled S times.  ``per[s][w]`` is system s's
+    Stats on workload w and ``extras[s][w]`` its extras, as numpy.
+    Multicore traces ``[T, W, C]`` (mixes stacked on axis 1) run as
+    S·W·C lanes, lane ``(s * W + w) * C + c``, and ``per[s][w]`` and
+    ``extras[s][w]`` are lists of C.
 
     `plan` (``parallel.plan_mesh`` for this S x W grid) spreads the grid
     over the visible cards (`device` repeated on the CPU), one block a
@@ -303,6 +345,10 @@ def make_systems_runner(cfg: SimConfig, stage_names=None, device=None,
     serial carry (``parallel.time_shard_scan``, one scan of t·S·W lanes
     a round); it needs a 1x1 plan, as in the reference.  The runner
     records the last hand-off's info on ``run.last_time_shard_info``.
+    Without a plan, one call emits one ``stage``, ``scan`` and ``fold``;
+    with one, each block stages, scans and folds its own state (the
+    caller's `stage` span ends where the blocks begin, and `padded` goes
+    uncounted), and the lanes are split outside any span.
     """
     dev = resolve_device(device)
     names = tuple(stage_names) if stage_names else default_stages(cfg)
@@ -313,53 +359,59 @@ def make_systems_runner(cfg: SimConfig, stage_names=None, device=None,
             f"time sharding needs a 1x1 ('sys', 'wl') plan (devices go "
             f"to the 't' mesh axis), got {plan.describe()}")
 
-    def run_block(dyns: Dyn, traces: dict):
-        # one mesh block, on its Dyn's device: outputs lead [S_b, W_b(, C)]
+    def scan_block(dyns: Dyn, traces: dict, stage=None, padded: int = 0):
+        # one mesh block's stage and scan, on its Dyn's device: the
+        # finished state and the lead of its outputs, [S_b, W_b(, C)]
         bdev = dyns.l2tlb_lat.device
         S = dyns.l2tlb_lat.shape[0]
         vpn = np.asarray(traces["vpn"])
         W = vpn.shape[1]
         C = vpn.shape[2] if vpn.ndim == 3 else None
-        if C is not None:  # core lanes ride the workload axis
-            traces = {k: np.asarray(v).reshape((v.shape[0], W * C))
-                      for k, v in traces.items()}
-        tr = _lane_trace(traces, cfg, bdev, lanes=True)
-        L = tr["vpn"].shape[1]
-        tr = {k: x.repeat(1, S) for k, x in tr.items()}
-        dyn = Dyn(*[x.to(bdev).repeat_interleave(L) for x in dyns])
-        st0 = make_state(cfg, S * L, bdev)
-        if t_shards > 1:
-            def body(st, trb):
-                # the blocks' lanes are block-major: tile the lane Dyn
-                d = Dyn(*[x.repeat(st.now.shape[0] // (S * L))
-                          for x in dyn])
-                return scan_accesses(make_step(cfg, names, d), st, trb,
-                                     cfg, names, d)
+        with _stage(stage):
+            if C is not None:  # core lanes ride the workload axis
+                traces = {k: np.asarray(v).reshape((v.shape[0], W * C))
+                          for k, v in traces.items()}
+            tr = _lane_trace(traces, cfg, bdev, lanes=True)
+            T, L = tr["vpn"].shape
+            tr = {k: x.repeat(1, S) for k, x in tr.items()}
+            dyn = Dyn(*[x.to(bdev).repeat_interleave(L) for x in dyns])
+        with _scan(bdev, S * L, T, padded * S * (L // W)):
+            st0 = make_state(cfg, S * L, bdev)
+            if t_shards > 1:
+                def body(st, trb):
+                    # the blocks' lanes are block-major: tile the lane Dyn
+                    d = Dyn(*[x.repeat(st.now.shape[0] // (S * L))
+                              for x in dyn])
+                    return scan_accesses(make_step(cfg, names, d), st, trb,
+                                         cfg, names, d)
 
-            st, info = parallel.time_shard_scan(body, st0, tr, t_shards)
-            run.last_time_shard_info = info
-        else:
-            st = scan_accesses(make_step(cfg, names, dyn), st0, tr, cfg,
-                               names, dyn)
-        lead = (S, W) if C is None else (S, W, C)
+                st, info = parallel.time_shard_scan(body, st0, tr, t_shards)
+                run.last_time_shard_info = info
+            else:
+                st = scan_accesses(make_step(cfg, names, dyn), st0, tr, cfg,
+                                   names, dyn)
+        return st, ((S, W) if C is None else (S, W, C))
+
+    def fold_block(st, lead):
         return parallel.tree_map(
             lambda x: x.reshape(lead + x.shape[1:]), _finalize(st, cfg))
 
-    if plan is None:
-        dispatch = run_block
-    else:
+    def run_block(dyns: Dyn, traces: dict):
+        # one mesh block: outputs lead [S_b, W_b(, C)]
+        st, lead = scan_block(dyns, traces)
+        with obs.span(obs.names.SPAN_FOLD):
+            return fold_block(st, lead)
+
+    dispatch = None
+    if plan is not None:
         mesh_devices = None
         if dev.type != "cuda" or plan.n_devices == 1:
             mesh_devices = [dev] * plan.n_devices
         dispatch = parallel.shard_wrap(run_block, plan, mesh_devices)
 
-    def run(dyns: Dyn, traces: dict):
-        vpn = np.asarray(traces["vpn"])
-        S, W = dyns.l2tlb_lat.shape[0], vpn.shape[1]
-        C = vpn.shape[2] if vpn.ndim == 3 else None
-        if plan is None:
-            dyns = dyns.to(dev)
-        stats, *rest = dispatch(dyns, traces)
+    def split(folded, S, W, C):
+        # the folded [S, W(, C)] leaves as per[s][w] and extras[s][w]
+        stats, *rest = folded
 
         def lane(*ix):
             return (Stats(*[x[ix] for x in stats]),
@@ -376,6 +428,18 @@ def make_systems_runner(cfg: SimConfig, stage_names=None, device=None,
                     per[s][w] = [p for p, _ in cores]
                     extras[s][w] = [e for _, e in cores]
         return per, extras
+
+    def run(dyns: Dyn, traces: dict, stage=None, padded: int = 0):
+        vpn = np.asarray(traces["vpn"])
+        S, W = dyns.l2tlb_lat.shape[0], vpn.shape[1]
+        C = vpn.shape[2] if vpn.ndim == 3 else None
+        if dispatch is None:
+            st, lead = scan_block(dyns.to(dev), traces, stage, padded)
+            with obs.span(obs.names.SPAN_FOLD):
+                return split(fold_block(st, lead), S, W, C)
+        if stage is not None:
+            stage.close()  # the caller's stacking: each block stages its own
+        return split(dispatch(dyns, traces), S, W, C)
 
     run.last_time_shard_info = None
     return run

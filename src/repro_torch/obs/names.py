@@ -13,17 +13,34 @@ OB001 analyzer pass checks the same tables in ``repro.obs``).
 Span taxonomy (docs/architecture.md, "Observability"):
 
   ladder_fill                 one ``runner.run_ladder`` fill (the unit
-                              BENCH_sweep records); all other sweep
-                              spans/events are its descendants
+  | batch_fill                BENCH_sweep records); all other sweep
+                              spans/events are its descendants.  The
+                              port's ``runner.run_batch`` roots the same
+                              tree at ``batch_fill`` (attrs system,
+                              n_workloads, sim_n, backend), with one
+                              chunk_wait and one dispatch
   ├─ trace_gen                one workload's trace generation, opened ON
   │                           the producer-pool worker thread with an
   │                           explicit ``parent=`` handle — producer-side
   │                           TRUE generation time
   ├─ chunk_wait               consumer-side wait for a chunk's traces
   │                           (generation NOT hidden behind simulation —
-  │                           the legacy ``trace_gen_wall_s`` semantics)
+  │                           the legacy ``trace_gen_wall_s`` semantics;
+  │                           in run_batch all of ``generate_many``)
   ├─ dispatch                 one compiled shard_map call over an
-  │                           [S, chunk] block (+ host device_get)
+  │                           [S, chunk] block (+ host device_get); in
+  │                           the port one call into ``core.mmu``, whose
+  │                           three phases are its children:
+  │   ├─ stage                the traces stacked, made host tensors,
+  │   │                       copied to the device and tiled over the
+  │   │                       ladder's lanes
+  │   ├─ scan                 the state made, the kernel's parameters,
+  │   │                       its launches and one stream synchronize
+  │   │                       (attrs lanes, padded_lanes, accesses,
+  │   │                       launches); nothing is left queued after it
+  │   ├─ fold                 the finished state copied back and split
+  │   │                       into each lane's Stats and extras (host
+  │   │                       work only: the scan's synchronize waited)
   │   └─ time_shard_round     (event) one speculative hand-off round of
   │                           ``parallel.time_shard_scan``, with the
   │                           exact-known prefix after the round
@@ -48,6 +65,11 @@ Span taxonomy (docs/architecture.md, "Observability"):
                               BENCH_serve field re-derives from the
                               run's subtree alone (OB001, schema-5
                               discipline)
+
+Counters the simulator bumps (``emit=True``, so ``report.rollup`` sums
+them from the trace): ``sim_cache.hit`` / ``sim_cache.miss``, once for
+each cell ``runner`` looks up in its result cache (only with
+``cache=True``), and ``sim_cache.store``, once for each entry it writes.
 """
 from __future__ import annotations
 
@@ -61,6 +83,15 @@ SPAN_SERVE_RUN = "serve.load_run"
 
 SPAN_NAMES = (SPAN_LADDER_FILL, SPAN_TRACE_GEN, SPAN_CHUNK_WAIT,
               SPAN_DISPATCH, SPAN_DECODE_STEP, SPAN_SERVE_RUN)
+
+# the port's own spans: the reference emits none of them, so they stay
+# out of SPAN_NAMES, which must equal the reference's
+SPAN_BATCH_FILL = "batch_fill"
+SPAN_STAGE = "stage"
+SPAN_SCAN = "scan"
+SPAN_FOLD = "fold"
+
+PORT_SPAN_NAMES = (SPAN_BATCH_FILL, SPAN_STAGE, SPAN_SCAN, SPAN_FOLD)
 
 # ------------------------------------------------------------ events
 EV_COMPILE = "xla_compile"

@@ -67,6 +67,9 @@ FIELD_SOURCES = {
     "t_rounds": ("attr", "t_rounds"),
     "trace_gen_wall_s": ("sum_span_dur", names.SPAN_CHUNK_WAIT),
     "compile_plus_sim_wall_s": ("sum_span_dur", names.SPAN_DISPATCH),
+    # a sum over the pool threads' trace_gen spans: thread time, not the
+    # wall time generation took (threads overlap); kept so, for parity
+    # with the reference, whose FIELD_SOURCES this table must equal
     "trace_gen_true_wall_s": ("sum_span_dur", names.SPAN_TRACE_GEN),
     "trace_file": ("trace_path", None),
     "cores": ("attr", "cores"),

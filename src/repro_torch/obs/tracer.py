@@ -15,6 +15,30 @@ fill via an *explicit* ``parent=`` handle — a :class:`Span` or its
 integer id.  Record emission (id allocation, list append, file write)
 happens under one lock.
 
+When the file is written: a record joins the in-memory list at once,
+and the file at the next root-level record (one with no parent: a root
+span closing, an event or count outside any span, a metrics snapshot),
+at ``flush`` or at ``close``, when every record not yet in it is
+serialized, appended in emission order and flushed.  So a span tree
+reaches the file whole when its root closes, and the spans that close
+inside it (``trace_gen`` on the generating pool's threads among them)
+cost a list append.  A write and flush for each would let go of the
+interpreter lock in their system call, and a pool thread would then wait
+behind the other generating threads for up to a switch interval (5 ms)
+to take it back.  A process killed inside a tree loses that tree's
+lines, not the ones before it.
+
+Clock: a span's ``t0`` (and an event's ``t``) is ``time.time()``, the
+host's wall clock, which is the clock of ``torch.profiler``'s chrome
+trace: an event's ``ts`` plus the trace's ``baseTimeNanoseconds`` / 1e3
+is ``time.time()`` in microseconds, so ``t0 * 1e6 - baseTimeNanoseconds
+/ 1e3`` places a span on the trace's timeline (held by
+``tests/test_torch_spans.py``).  ``dur_s`` is measured on
+``time.perf_counter()``.  ``t0`` is stamped when the span is made, not
+when it is entered: a caller may make a span, do work, and hand it on to
+be entered and closed elsewhere (``core.mmu``'s ``stage`` span, made by
+the runner before it stacks the traces).
+
 Records are sanitized to plain JSON values at emission time
 (numpy and torch scalars become Python numbers), which is what makes the
 file ↔ memory round trip exact: ``json.loads(json.dumps(rec)) == rec``.
@@ -24,7 +48,7 @@ file; otherwise traces land in ``REPRO_OBS_DIR`` (default
 ``.obs_trace_torch/`` next to the port's sim cache, ``.sim_cache_torch/``
 or ``REPRO_TORCH_SIM_CACHE``) as ``trace-torch-<pid>.jsonl``, so a run
 of the port and one of the reference never share a trace file.  The
-file itself is only created when the first record is emitted — an
+file itself is only created when the first record is written — an
 import alone never touches the filesystem.
 
 This module deliberately imports nothing of the package (stdlib only),
@@ -139,8 +163,9 @@ class Tracer:
     """Thread-safe span tracer + JSONL sink (see module docstring).
 
     ``overhead_s`` accumulates the monotonic time spent *inside* record
-    emission (serialize + append + write) — the number the <2%%-of-sim
-    overhead acceptance test bounds.
+    emission (append, and at a root-level record serialize + write +
+    flush) — the number the <2%%-of-sim overhead acceptance test
+    bounds.
     """
 
     def __init__(self, path: str | None = None):
@@ -150,6 +175,7 @@ class Tracer:
         self._path = path or default_path()
         self._file = None
         self.events: list[dict] = []
+        self._unwritten: list[dict] = []  # records the file lacks yet
         self.overhead_s = 0.0
 
     @property
@@ -244,22 +270,32 @@ class Tracer:
 
     def _emit(self, rec: dict) -> None:
         t0 = time.perf_counter()
-        line = json.dumps(rec)
         with self._lock:
             self.events.append(rec)
-            if self._file is None:
-                self._file = self._open()
-            self._file.write(line + "\n")
-            self._file.flush()
+            self._unwritten.append(rec)
+            if rec.get("parent") is None:
+                self._write()
             self.overhead_s += time.perf_counter() - t0
+
+    def _write(self) -> None:
+        """Append the records not yet in the file to it, and flush (with
+        the lock held)."""
+        if self._file is None:
+            self._file = self._open()
+        self._file.write("".join(json.dumps(r) + "\n"
+                                 for r in self._unwritten))
+        self._file.flush()
+        self._unwritten.clear()
 
     def flush(self) -> None:
         with self._lock:
-            if self._file is not None:
-                self._file.flush()
+            if self._unwritten or self._file is not None:
+                self._write()
 
     def close(self) -> None:
         with self._lock:
+            if self._unwritten:
+                self._write()
             if self._file is not None:
                 self._file.close()
                 self._file = None

@@ -144,6 +144,7 @@ def _store(path: str, result) -> None:
         with os.fdopen(fd, "wb") as f:
             pickle.dump(result, f)
         os.replace(tmp, path)
+        obs.count(obs.names.CTR_SIM_CACHE_STORE, emit=True)
     except BaseException:
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -164,7 +165,11 @@ def _cached(system, workload, n, seed, overrides, cache: bool):
     if not cache:
         return None
     path = _path(system, workload, n, seed, overrides)
-    return _load(path) if os.path.exists(path) else None
+    got = _load(path) if os.path.exists(path) else None
+    # hit = a usable entry came back (an unreadable one is a miss)
+    obs.count(obs.names.CTR_SIM_CACHE_HIT if got is not None
+              else obs.names.CTR_SIM_CACHE_MISS, emit=True)
+    return got
 
 
 def _stack_traces(gens, n: int) -> dict:
@@ -186,6 +191,10 @@ def run_batch(system: str, workloads=None, n: int = 150_000, seed: int = 0,
 
     Fills the per-(system, workload) disk cache; returns dict
     workload -> (stats, extras, spec).  ``device`` defaults to the card.
+    A call that simulates runs under a ``batch_fill`` span: trace_gen
+    spans on the generating pool's threads, parented to it, inside one
+    chunk_wait (the whole of the generation: nothing hides it), then one
+    dispatch holding ``mmu.simulate_batch``'s stage, scan and fold.
     """
     workloads = list(workloads or trace_gen.all_workloads())
     cfg = _sim_config(system, overrides)
@@ -203,18 +212,27 @@ def run_batch(system: str, workloads=None, n: int = 150_000, seed: int = 0,
         else:
             out[w] = got
     if missing:
-        gens = trace_gen.generate_many(missing, n=n, seed=seed)
+        dev = resolve_device(device)
         # overrides may change the composition (e.g. victima=True on
         # radix): let make_step re-derive the stages from the final cfg
         stage_names = None if overrides else systems.get(system).stages
-        per, extras = simulate_batch(cfg, _stack_traces(gens, n),
-                                     stage_names=stage_names,
-                                     device=device)
-        for w, g, st, ex in zip(missing, gens, per, extras):
-            result = (st, ex, g["spec"])
-            if cache:
-                _store(_path(system, w, n, seed, overrides), result)
-            out[w] = result
+        with obs.span(obs.names.SPAN_BATCH_FILL, system=system,
+                      n_workloads=len(missing), sim_n=n,
+                      backend="cuda" if dev.type == "cuda" else "plain"
+                      ) as fill:
+            with obs.span(obs.names.SPAN_CHUNK_WAIT, workloads=missing):
+                gens = trace_gen.generate_many(missing, n=n, seed=seed,
+                                               parent=fill)
+            with obs.span(obs.names.SPAN_DISPATCH, workloads=missing):
+                stage = obs.span(obs.names.SPAN_STAGE)  # stacking counts
+                per, extras = simulate_batch(cfg, _stack_traces(gens, n),
+                                             stage_names=stage_names,
+                                             device=dev, stage=stage)
+            for w, g, st, ex in zip(missing, gens, per, extras):
+                result = (st, ex, g["spec"])
+                if cache:
+                    _store(_path(system, w, n, seed, overrides), result)
+                out[w] = result
     return {w: out[w] for w in workloads}
 
 
@@ -281,8 +299,9 @@ def run_ladder(ladder: str, workloads=None, n: int = 150_000, seed: int = 0,
 
     A fill that simulates runs under a ``ladder_fill`` span (trace_gen
     spans on the pool threads, parented to it explicitly; chunk_wait and
-    dispatch spans for each chunk), and ``LADDER_PERF`` gets
-    ``obs.report.fill_record`` of the closed tree.  Fields that mean
+    dispatch spans for each chunk, each dispatch holding
+    ``make_systems_runner``'s stage, scan and fold), and ``LADDER_PERF``
+    gets ``obs.report.fill_record`` of the closed tree.  Fields that mean
     something else in torch: ``backend`` is ``"cuda"`` or ``"plain"``
     (the device's path), ``block`` is None (the kernel takes the whole
     trace a launch), ``devices`` the cells of the mesh (1 without one),
@@ -354,10 +373,13 @@ def run_ladder(ladder: str, workloads=None, n: int = 150_000, seed: int = 0,
             group = missing[lo:lo + chunk]
             with obs.span(obs.names.SPAN_CHUNK_WAIT, workloads=list(group)):
                 gens = [futs[w].result() for w in group]
-            padded = gens + [gens[-1]] * (chunk - len(gens))
+            pad = chunk - len(gens)
             with obs.span(obs.names.SPAN_DISPATCH, chunk_index=n_chunks,
                           workloads=list(group), cores=n_cores):
-                per, extras = run_fn(dyns, _stack_traces(padded, n))
+                stage = obs.span(obs.names.SPAN_STAGE)  # stacking counts
+                per, extras = run_fn(
+                    dyns, _stack_traces(gens + [gens[-1]] * pad, n),
+                    stage=stage, padded=pad)
             n_chunks += 1
             for si, s in enumerate(members):
                 for wi, (w, g) in enumerate(zip(group, gens)):

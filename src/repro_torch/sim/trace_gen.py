@@ -1,7 +1,8 @@
 """Synthetic memory-access trace generators (stand-ins for the paper's
 Sniper traces of GraphBIG / XSBench / GUPS / DLRM / GenomicsBench).
 
-The port's own copy of ``repro.sim.trace_gen`` (numpy only): the same
+The port's own copy of ``repro.sim.trace_gen`` (numpy, and the port's
+stdlib-only ``obs`` for ``generate_many``'s spans): the same
 seed gives the same trace as the reference, byte for byte, which is what
 lets the port's Stats be held against the JAX package's, on any numpy
 version (see ``_zipf``); multiprogrammed mixes (``generate_mix``) too.
@@ -28,6 +29,8 @@ import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+import repro_torch.obs as obs
 
 GB = 1 << 30
 PAGE4 = 4096
@@ -328,20 +331,29 @@ def generate_mix(spec: str, n: int = 400_000, seed: int = 0,
 
 
 def generate_many(names, n: int = 400_000, seed: int = 0,
-                  workers: int | None = None) -> list[dict]:
+                  workers: int | None = None, parent=None) -> list[dict]:
     """Generate traces for ``names`` on a thread pool, in input order.
 
     numpy releases the GIL inside its kernels, so generation genuinely
     overlaps on multi-core hosts; results are bit-identical to serial
     ``generate`` calls (see its thread-safety note — pinned by
-    the reference's tests/test_parallel.py for seeds 0/1/7).
+    the reference's tests/test_parallel.py for seeds 0/1/7).  With
+    `parent` (an ``obs`` span or its id) each workload's generation runs
+    in a ``trace_gen`` span on its pool thread, parented to it.
     """
     names = list(names)
     if not names:
         return []
     workers = workers or min(len(names), os.cpu_count() or 1, 8)
+
+    def gen(w):
+        if parent is None:
+            return generate(w, n=n, seed=seed)
+        with obs.span(obs.names.SPAN_TRACE_GEN, parent=parent, wl=w):
+            return generate(w, n=n, seed=seed)
+
     with ThreadPoolExecutor(max_workers=workers) as pool:
-        return list(pool.map(lambda w: generate(w, n=n, seed=seed), names))
+        return list(pool.map(gen, names))
 
 
 def all_workloads() -> list[str]:

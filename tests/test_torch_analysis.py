@@ -203,9 +203,9 @@ def test_recompile_guard_catches_a_library_loaded_every_chunk(
     def loading_runner(cfg, stage_names=None, device=None):
         run = real(cfg, stage_names, device)
 
-        def run_loading(dyns, traces):
+        def run_loading(dyns, traces, **kw):
             build.load("mmu_step")
-            return run(dyns, traces)
+            return run(dyns, traces, **kw)
         return run_loading
 
     monkeypatch.setattr(runner, "make_systems_runner", loading_runner)

@@ -379,7 +379,7 @@ def test_run_ladder_reuses_cached_member_cells(tmp_path, monkeypatch):
     calls = []
 
     def fake_make_systems_runner(cfg, stage_names=None, device=None):
-        def fake_run(dyns, traces):
+        def fake_run(dyns, traces, **kw):
             S, W = dyns.l2tlb_lat.shape[0], traces["vpn"].shape[1]
             calls.append((S, W))
             return ([[t_base.zero_stats() for _ in range(W)]

@@ -92,11 +92,11 @@ def test_kernel_library_loads_count_as_dispatch_compiles(trace, tmp_path,
         run = real(cfg, stage_names, device)
         loaded = []
 
-        def run_once_loaded(dyns, traces):
+        def run_once_loaded(dyns, traces, **kw):
             if not loaded:
                 loaded.append(build.load("mmu_step"))
                 build.load("flash_attention")
-            return run(dyns, traces)
+            return run(dyns, traces, **kw)
         return run_once_loaded
 
     monkeypatch.setattr(runner, "make_systems_runner", loading_runner)
