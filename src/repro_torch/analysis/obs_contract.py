@@ -253,6 +253,7 @@ def check_name_uniqueness(names_mod=None) -> list:
     for tup in (names_mod.SPAN_NAMES,
                 getattr(names_mod, "PORT_SPAN_NAMES", ()),
                 names_mod.EVENT_NAMES, names_mod.COUNTER_NAMES,
+                getattr(names_mod, "PORT_COUNTER_NAMES", ()),
                 names_mod.GAUGE_NAMES, names_mod.HIST_NAMES):
         all_names += list(tup)
     seen: set = set()

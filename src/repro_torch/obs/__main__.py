@@ -5,7 +5,8 @@
     PYTHONPATH=src python -m repro_torch.obs diff OLD.json NEW.json [--warn-pct 20]
 
 ``report`` prints the trace rollup (derived fill records, span totals,
-counters); ``--check`` re-derives every ladder-fill record from the raw
+counters, and each fill's counters: a job's, where a job is one fill);
+``--check`` re-derives every ladder-fill record from the raw
 JSONL and compares it field-by-field against the artifact's
 ``ladder_fills`` (exit 1 on any mismatch — the artifact is then NOT a
 faithful readout of the run).  ``diff`` compares two artifacts'
@@ -52,6 +53,7 @@ def main(argv=None) -> int:
     if args.cmd == "report":
         events = report.read_trace(args.trace)
         roll = report.rollup(events, trace_file=args.trace)
+        roll["fill_counters"] = report.fill_counters(events)
         if args.json:
             print(json.dumps(roll, indent=2, sort_keys=True))
         else:
@@ -65,6 +67,9 @@ def main(argv=None) -> int:
                 print(f"event {name:<17} n={c}")
             for name, c in sorted(roll["counters"].items()):
                 print(f"counter {name:<15} n={c}")
+            for i, f in enumerate(roll["fill_counters"]):
+                print(f"fill_counters[{i}] {f['fill']}: "
+                      + json.dumps(f["counters"], sort_keys=True))
         if args.check:
             problems = report.check(events, _load_json(args.check),
                                     trace_file=args.trace)

@@ -70,6 +70,11 @@ Counters the simulator bumps (``emit=True``, so ``report.rollup`` sums
 them from the trace): ``sim_cache.hit`` / ``sim_cache.miss``, once for
 each cell ``runner`` looks up in its result cache (only with
 ``cache=True``), and ``sim_cache.store``, once for each entry it writes.
+The trace generator's Zipf sampler bumps ``trace_gen.zipf_band`` (its
+trials in the near-tie band) and ``trace_gen.zipf_scalar`` (those left to
+the scalar sampler) in the registry alone, once a round, on the pool's
+threads; ``runner.run_batch`` and ``runner.run_ladder`` write what a fill
+added to each as one count record under the fill.
 """
 from __future__ import annotations
 
@@ -127,3 +132,10 @@ COUNTER_NAMES = (CTR_SIM_CACHE_HIT, CTR_SIM_CACHE_MISS,
                  CTR_REQS_ADMITTED, CTR_REQS_RETIRED, CTR_POOL_EXHAUSTED)
 GAUGE_NAMES = (GAUGE_PAGES_FREE, GAUGE_SLOT_OCCUPANCY)
 HIST_NAMES = (HIST_DECODE_STEP_S, HIST_REQ_TICKS)
+
+# the port's own counters: out of COUNTER_NAMES, which must equal the
+# reference's, as the port's own spans are out of SPAN_NAMES
+CTR_ZIPF_BAND = "trace_gen.zipf_band"
+CTR_ZIPF_SCALAR = "trace_gen.zipf_scalar"
+
+PORT_COUNTER_NAMES = (CTR_ZIPF_BAND, CTR_ZIPF_SCALAR)

@@ -229,6 +229,25 @@ def ladder_records(events: list[dict],
             for f in fill_spans(events)]
 
 
+def fill_counters(events: list[dict]) -> list[dict]:
+    """For each closed fill (a ``ladder_fill`` or ``batch_fill`` span at
+    the root), in order: its name and id, and the count records under it
+    summed by name (a job's counters, where a job is one fill)."""
+    roots = [e for e in events if e.get("kind") == "span"
+             and e.get("parent") is None
+             and e.get("name") in (names.SPAN_LADDER_FILL,
+                                   names.SPAN_BATCH_FILL)]
+    out = []
+    for r in roots:
+        sub = _descendants(events, r["id"])
+        counts: dict[str, float] = {}
+        for e in events:
+            if e.get("kind") == "count" and e.get("id") in sub:
+                counts[e["name"]] = counts.get(e["name"], 0) + e.get("n", 1)
+        out.append({"fill": r["name"], "id": r["id"], "counters": counts})
+    return out
+
+
 # ----------------------------------------------------- serve records
 
 def serve_spans(events: list[dict]) -> list[dict]:

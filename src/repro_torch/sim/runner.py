@@ -194,7 +194,8 @@ def run_batch(system: str, workloads=None, n: int = 150_000, seed: int = 0,
     A call that simulates runs under a ``batch_fill`` span: trace_gen
     spans on the generating pool's threads, parented to it, inside one
     chunk_wait (the whole of the generation: nothing hides it), then one
-    dispatch holding ``mmu.simulate_batch``'s stage, scan and fold.
+    dispatch holding ``mmu.simulate_batch``'s stage, scan and fold; the
+    Zipf sampler's counters as ``trace_gen.zipf_counts`` writes them.
     """
     workloads = list(workloads or trace_gen.all_workloads())
     cfg = _sim_config(system, overrides)
@@ -220,7 +221,8 @@ def run_batch(system: str, workloads=None, n: int = 150_000, seed: int = 0,
                       n_workloads=len(missing), sim_n=n,
                       backend="cuda" if dev.type == "cuda" else "plain"
                       ) as fill:
-            with obs.span(obs.names.SPAN_CHUNK_WAIT, workloads=missing):
+            with obs.span(obs.names.SPAN_CHUNK_WAIT, workloads=missing), \
+                    trace_gen.zipf_counts(fill):
                 gens = trace_gen.generate_many(missing, n=n, seed=seed,
                                                parent=fill)
             with obs.span(obs.names.SPAN_DISPATCH, workloads=missing):
@@ -300,7 +302,8 @@ def run_ladder(ladder: str, workloads=None, n: int = 150_000, seed: int = 0,
     A fill that simulates runs under a ``ladder_fill`` span (trace_gen
     spans on the pool threads, parented to it explicitly; chunk_wait and
     dispatch spans for each chunk, each dispatch holding
-    ``make_systems_runner``'s stage, scan and fold), and ``LADDER_PERF``
+    ``make_systems_runner``'s stage, scan and fold; the Zipf sampler's
+    counters as ``trace_gen.zipf_counts`` writes them), and ``LADDER_PERF``
     gets ``obs.report.fill_record`` of the closed tree.  Fields that mean
     something else in torch: ``backend`` is ``"cuda"`` or ``"plain"``
     (the device's path), ``block`` is None (the kernel takes the whole
@@ -366,8 +369,9 @@ def run_ladder(ladder: str, workloads=None, n: int = 150_000, seed: int = 0,
 
     n_chunks = 0
     torchprof.reset_device_peaks(dev)  # nothing off the card
-    with fill, torchprof.maybe_profile(), ThreadPoolExecutor(
-            max_workers=min(len(missing), GEN_WORKERS)) as pool:
+    with fill, trace_gen.zipf_counts(fill), torchprof.maybe_profile(), \
+            ThreadPoolExecutor(max_workers=min(len(missing),
+                                               GEN_WORKERS)) as pool:
         futs = {w: pool.submit(gen, w) for w in missing}
         for lo in range(0, len(missing), chunk):
             group = missing[lo:lo + chunk]

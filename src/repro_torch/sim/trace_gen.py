@@ -22,6 +22,8 @@ one-at-a-time calls — the property the seed-keyed sim cache relies on.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import math
 import os
@@ -99,6 +101,58 @@ MAX_PAGES4 = 1 << 23  # counter-table bound (≈32GB footprint)
 
 _INT64_MAX = float(np.iinfo(np.int64).max)
 _EPS = 2.0 ** -52
+# np.power on np.longdouble calls the C library's powl and lets go of the
+# interpreter lock; with x87's 64-bit significand (x86-64 Linux) its
+# power is within about 2**-11 of a double's ULP of the true one
+_EXTENDED = np.finfo(np.longdouble).nmant >= 63
+# C's pow rounds once an approximation within 0.04 ULP of the true power
+# (glibc's worst case of 0.54 ULP less that rounding's 0.5); powl's error
+# fits in the rest of this margin, so an extended power farther than it
+# from every rounding midpoint rounds to the double C's pow returns, and
+# one nearer rounds to it or to the double across that midpoint
+_POW_MARGIN = 0.05
+# the most trials a round of ``_zipf`` draws ahead (two 2 MiB arrays of
+# doubles; the first round draws `n`, as numpy does)
+_ZIPF_AHEAD = 1 << 18
+
+
+def _c_pow(base: np.ndarray, y: float) -> tuple[np.ndarray, np.ndarray]:
+    """The doubles C's ``pow(base, y)`` may return for float64 `base`,
+    from the extended power: the nearest, and the one across the nearest
+    midpoint where the power lies within ``_POW_MARGIN`` ULPs (of the
+    larger spacing) of it, else the nearest again."""
+    z = np.power(base.astype(np.longdouble), np.longdouble(y))
+    r = z.astype(np.float64)
+    d = z - r  # exact: r is z rounded
+    up = np.spacing(r)  # nan at inf: not proven
+    down = r - np.nextafter(r, 0.0)
+    sure = np.minimum(up / 2 - d, down / 2 + d) > _POW_MARGIN * up
+    return r, np.where(sure, r, np.nextafter(r, np.where(d > 0, np.inf, 0.0)))
+
+
+def _zipf_band(u: np.ndarray, v: np.ndarray, am1: float, b: float,
+               cap) -> tuple[np.ndarray, np.ndarray]:
+    """``_zipf_trial`` of each (U, V), clipped to `cap`, wherever every
+    double C's ``pow`` may return gives it: the samples (0.0 if
+    rejected), and the mask of the trials this does not decide, left to
+    ``_zipf_trial``.  The floor, the range test and the accept test are
+    IEEE operations in the scalar sampler's order, so they give its bits.
+    """
+    if not _EXTENDED:
+        return np.zeros_like(u), np.ones(u.shape, bool)
+    with np.errstate(all="ignore"):  # C's overflow: inf, rejected below
+        xs = [np.floor(p) for p in _c_pow(1.0 - u, -1.0 / am1)]
+        base = 1.0 + 1.0 / xs[0]
+        # large x share a few bases: one powl each
+        ub, inv = np.unique(base, return_inverse=True)
+        ts = [t[inv] for t in _c_pow(ub, am1)]
+        got = [np.where((x <= _INT64_MAX) & (x >= 1.0)
+                        & (v * x * (t - 1.0) / (b - 1.0) <= t / b),
+                        np.minimum(x, cap), 0.0) for x in xs for t in ts]
+        scalar = 1.0 + 1.0 / xs[1] != base
+    for g in got[1:]:
+        scalar |= g != got[0]
+    return got[0], scalar
 
 
 def _zipf_trial(u: float, v: float, am1: float, b: float) -> float:
@@ -114,6 +168,44 @@ def _zipf_trial(u: float, v: float, am1: float, b: float) -> float:
     return x if v * x * (t - 1.0) / (b - 1.0) <= t / b else 0.0
 
 
+def _zipf_trials(u: np.ndarray, v: np.ndarray, am1: float, b: float,
+                 cap) -> np.ndarray:
+    """``_zipf_trial`` of each (U, V): the samples (0.0 if rejected).
+
+    Computed in numpy, but ``np.power`` may differ from the C library's
+    ``pow`` in the last place (SIMD builds), so every trial whose floor,
+    clip or accept test lies within a few ulps of flipping (the band) is
+    decided again as ``_zipf_trial`` decides it: by ``_zipf_band`` in
+    extended precision, outside the interpreter lock, and by
+    ``_zipf_trial`` itself where that proves nothing.  The counters
+    ``trace_gen.zipf_band`` and ``trace_gen.zipf_scalar`` count the two,
+    once a call.  Above ``exact_floor`` a floor one off is clipped away
+    and moves the accept test by less than its band.
+    """
+    tol = 8 * _EPS
+    exact_floor = max(cap + 2.0, 2.0 ** 27)
+    with np.errstate(all="ignore"):  # pow overflow: inf, rejected
+        p = np.power(1.0 - u, -1.0 / am1)
+        x = np.floor(p)
+        base = 1.0 + 1.0 / x
+        # pow(1, y) is exactly 1 in C: such trials (x >= 2**53) are sure
+        t = np.where(base == 1.0, 1.0, np.power(base, am1))
+        lhs = v * x * (t - 1.0) / (b - 1.0)
+        rhs = t / b
+        unsure = (((p < exact_floor) & (np.abs(p - np.rint(p)) <= tol * p))
+                  | (np.abs(p - _INT64_MAX) <= tol * p) | (p > 1e300)
+                  | ((base != 1.0) & (np.abs(lhs - rhs)
+                                      <= tol * (v * x / (b - 1.0) + rhs))))
+    x = np.where((x <= _INT64_MAX) & (lhs <= rhs), x, 0.0)
+    band = np.flatnonzero(unsure)
+    x[band], scalar = _zipf_band(u[band], v[band], am1, b, cap)
+    idx = band[scalar]
+    x[idx] = [_zipf_trial(u[j], v[j], am1, b) for j in idx.tolist()]
+    obs.count(obs.names.CTR_ZIPF_BAND, len(band))
+    obs.count(obs.names.CTR_ZIPF_SCALAR, len(idx))
+    return x
+
+
 def _zipf(rng: np.random.Generator, a: float, n: int, cap: int) -> np.ndarray:
     """``np.minimum(rng.zipf(a, n), cap)`` as numpy 2.0 draws it, on any
     numpy version.
@@ -121,41 +213,38 @@ def _zipf(rng: np.random.Generator, a: float, n: int, cap: int) -> np.ndarray:
     numpy changed ``Generator.zipf``'s rejection sampler after 2.0, so
     the same seed gave other pages on a newer numpy than the one the
     reference's snapshots were made with.  This is numpy 2.0's sampler:
-    each trial consumes two doubles (U, V) in order, and a round draws as
-    many trials as samples are still missing, so the generator ends where
-    ``rng.zipf`` leaves it.  A round is computed in numpy, but
-    ``np.power`` may differ from the C library's ``pow`` in the last
-    place (SIMD builds), so every trial whose floor, clip or accept test
-    lies within a few ulps of flipping is recomputed by ``_zipf_trial``.
-    Above ``exact_floor`` a floor one off is clipped away and moves the
-    accept test by less than its band.
+    each trial consumes two doubles (U, V) in order until `n` are
+    accepted, so the samples are the first `n` accepted trials and the
+    generator stops after the last of them.  numpy 2.0 draws a round of
+    as many trials as samples are still missing, which never passes that
+    trial; so does the first round here.  Later rounds draw ahead, on a
+    copy of the generator, about as many trials as the first round's
+    share of acceptances says the missing samples take, and then advance
+    the generator by the trials they used: one or two rounds where
+    numpy's take ten or twenty, each a pass of numpy calls that let go of
+    the interpreter lock.  ``_zipf_trials`` decides a round's trials.
     """
     am1 = a - 1.0
     b = math.pow(2.0, am1)
-    tol = 8 * _EPS
-    exact_floor = max(cap + 2.0, 2.0 ** 27)
     out = np.empty(n, np.int64)
-    k = 0
+    k, share = 0, 1.0
     while k < n:
-        u, v = rng.random(2 * (n - k)).reshape(-1, 2).T
-        with np.errstate(all="ignore"):  # pow overflow: inf, rejected
-            p = np.power(1.0 - u, -1.0 / am1)
-            x = np.floor(p)
-            base = 1.0 + 1.0 / x
-            # pow(1, y) is exactly 1 in C: such trials (x >= 2**53) are sure
-            t = np.where(base == 1.0, 1.0, np.power(base, am1))
-            lhs = v * x * (t - 1.0) / (b - 1.0)
-            rhs = t / b
-            unsure = (((p < exact_floor) & (np.abs(p - np.rint(p)) <= tol * p))
-                      | (np.abs(p - _INT64_MAX) <= tol * p) | (p > 1e300)
-                      | ((base != 1.0) & (np.abs(lhs - rhs)
-                                          <= tol * (v * x / (b - 1.0) + rhs))))
-        x = np.where((x <= _INT64_MAX) & (lhs <= rhs), x, 0.0)
-        idx = np.flatnonzero(unsure)
-        x[idx] = [_zipf_trial(u[j], v[j], am1, b) for j in idx.tolist()]
-        got = np.minimum(x[x > 0.0], cap).astype(np.int64)
-        out[k:k + len(got)] = got
-        k += len(got)
+        need = n - k
+        if k == 0:
+            src, m = rng, need
+        else:
+            src = copy.deepcopy(rng)
+            m = max(need, min(int(need / share * 1.1) + 64, _ZIPF_AHEAD))
+        uv = src.random(2 * m)
+        x = _zipf_trials(*uv.reshape(-1, 2).T, am1, b, cap)
+        hit = np.flatnonzero(x > 0.0)[:need]
+        if k == 0:
+            share = max(len(hit), 1) / m
+        else:  # the trials used: up to the last sample taken
+            rng.random(out=uv[:2 * (int(hit[-1]) + 1 if len(hit) == need
+                                    else m)])
+        out[k:k + len(hit)] = np.minimum(x[hit], cap).astype(np.int64)
+        k += len(hit)
     return out
 
 
@@ -354,6 +443,18 @@ def generate_many(names, n: int = 400_000, seed: int = 0,
 
     with ThreadPoolExecutor(max_workers=workers) as pool:
         return list(pool.map(gen, names))
+
+
+@contextlib.contextmanager
+def zipf_counts(parent):
+    """Write under `parent` (an ``obs`` span or its id) one count record
+    for each of the Zipf sampler's counters (``obs.names.
+    PORT_COUNTER_NAMES``): what the block added to it, on every thread."""
+    names = obs.names.PORT_COUNTER_NAMES
+    before = [obs.REGISTRY.counter(k) for k in names]
+    yield
+    for k, n0 in zip(names, before):
+        obs.tracer().count(k, obs.REGISTRY.counter(k) - n0, parent=parent)
 
 
 def all_workloads() -> list[str]:

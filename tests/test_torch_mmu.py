@@ -26,9 +26,11 @@ from repro.core import mmu as j_mmu
 from repro.core.stages import base as j_base
 from repro.sim import systems as j_systems
 from repro.sim import trace_gen as j_trace_gen
+from repro_torch import obs as t_obs
 from repro_torch.core import caches as t_caches
 from repro_torch.core import mmu as t_mmu
 from repro_torch.core.stages import base as t_base
+from repro_torch.data.pipeline import _NO_CAP as T_NO_CAP
 from repro_torch.sim import runner as t_runner
 from repro_torch.sim import systems as t_systems
 from repro_torch.sim import trace_gen as t_trace_gen
@@ -135,23 +137,86 @@ def test_trace_gen_copy_matches_reference():
             assert np.array_equal(a["trace"][k], b["trace"][k]), (name, k)
 
 
-@pytest.mark.parametrize("a,cap", [(1.02, 1 << 21), (1.12, 1 << 23),
-                                   (2.0, 1000), (1.0001, 1 << 30)])
-def test_zipf_rounds_equal_the_scalar_sampler(a, cap):
-    """The vectorised Zipf rounds give numpy 2.0's sampler trial by trial
-    (``_zipf_trial``, C's pow) and leave the generator where it does."""
-    n = 5000 if a < 1.01 else 40_000
+@pytest.mark.parametrize("seed", [0, 7, 3_000_003_201])
+def test_trace_gen_matches_reference_at_full_length(seed):
+    """Every workload at the benchmark's 150,000 accesses, where the Zipf
+    sampler's near-tie band holds thousands of trials a trace, byte for
+    byte the reference's (``rng.zipf`` itself)."""
+    for name in j_trace_gen.all_workloads():
+        a = j_trace_gen.generate(name, n=150_000, seed=seed)["trace"]
+        b = t_trace_gen.generate(name, n=150_000, seed=seed)["trace"]
+        for k in a:
+            assert a[k].tobytes() == b[k].tobytes(), (name, k)
+
+
+# the traces' exponents (zipf_a + 1e-9) at their page counts (1,572,864;
+# dlrm's 2,700,083), and the data pipeline's draw (a = 1.3, no cap); the
+# last case starts with half of a 64-bit draw held back by the generator
+ZIPF_CASES = [(1.02, 1 << 21, 40_000), (1.12, 1 << 23, 40_000),
+              (2.0, 1000, 40_000), (1.0001, 1 << 30, 5000)] + [
+    (a + 1e-9, 1_572_864, 150_000) for a in (1.02, 1.05, 1.08, 1.10, 1.12)
+] + [(1.05 + 1e-9, 2_700_083, 150_000), (1.3, T_NO_CAP, 150_000),
+     (1.02 + 1e-9, 1_572_864, 20_000, True)]
+
+
+def zipf_rng(seed: int, held: bool = False):
+    rng = np.random.default_rng(seed)
+    if held:
+        rng.integers(1 << 20, dtype=np.uint32)
+    return rng
+
+
+def scalar_zipf(seed: int, a: float, n: int, cap,
+                held: bool = False) -> tuple[list, object]:
+    """numpy 2.0's Zipf sampler one trial at a time (``_zipf_trial``, C's
+    pow): the `n` samples clipped to `cap`, and the generator after."""
     am1, b = a - 1.0, 2.0 ** (a - 1.0)
-    r1 = np.random.default_rng(11)
+    rng = zipf_rng(seed, held)
     want = []
     while len(want) < n:
-        x = t_trace_gen._zipf_trial(r1.random(), r1.random(), am1, b)
+        x = t_trace_gen._zipf_trial(rng.random(), rng.random(), am1, b)
         if x > 0.0:
             want.append(min(int(x), cap))
-    r2 = np.random.default_rng(11)
+    return want, rng
+
+
+@pytest.mark.parametrize("a,cap,n,held", [
+    pytest.param(a, cap, n, any(held), id=f"{a}-{cap}" + "-held" * any(held))
+    for a, cap, n, *held in ZIPF_CASES])
+def test_zipf_rounds_equal_the_scalar_sampler(a, cap, n, held):
+    """The vectorised Zipf rounds give numpy 2.0's sampler trial by trial
+    (``_zipf_trial``, C's pow) and leave the generator where it does,
+    the half of a draw it may hold back included."""
+    want, r1 = scalar_zipf(11, a, n, cap, held)
+    r2 = zipf_rng(11, held)
     got = t_trace_gen._zipf(r2, a, n, cap)
     assert got.dtype == np.int64 and np.array_equal(got, want)
+    assert r1.bit_generator.state == r2.bit_generator.state
     assert r1.random() == r2.random()
+
+
+@pytest.mark.parametrize("extended", [False, True])
+def test_zipf_band_counters_and_fallback(extended, monkeypatch):
+    """With the long double's precision probe forced under 63 bits every
+    band trial takes the scalar path, with the same samples; on the real
+    probe (x86-64's 63) most are decided vectorised.
+    ``trace_gen.zipf_band`` and ``zipf_scalar`` count the two."""
+    if not extended:
+        monkeypatch.setattr(t_trace_gen, "_EXTENDED", False)
+    a, cap, n = 1.05 + 1e-9, 1_572_864, 150_000
+    band, scalar = t_obs.names.PORT_COUNTER_NAMES
+    before = [t_obs.REGISTRY.counter(k) for k in (band, scalar)]
+    r2 = np.random.default_rng(5)
+    got = t_trace_gen._zipf(r2, a, n, cap)
+    n_band, n_scalar = [t_obs.REGISTRY.counter(k) - b0
+                        for k, b0 in zip((band, scalar), before)]
+    want, r1 = scalar_zipf(5, a, n, cap)
+    assert np.array_equal(got, want) and r1.random() == r2.random()
+    assert n_band > 0
+    if extended:
+        assert 0 <= n_scalar < n_band
+    else:
+        assert n_scalar == n_band
 
 
 # ------------------------------------------------------- simulation

@@ -12,6 +12,8 @@
 - the result cache's counters (``sim_cache.hit`` / ``miss`` / ``store``)
   count what ``cache=True`` looks up and writes, nothing with
   ``cache=False``, and ``python -m repro_torch.obs report`` sums them;
+- each fill writes the Zipf sampler's counters (``trace_gen.zipf_band``
+  / ``zipf_scalar``) under its root, and the report gives them a fill;
 - a span's ``t0`` lies on ``torch.profiler``'s clock (the chrome
   trace's ``ts`` plus ``baseTimeNanoseconds``), read both ways the
   benchmark can.
@@ -63,7 +65,7 @@ def children(events, parent_id, name=None):
 def assert_nested(events, root_id):
     """Every span under `root_id` lies inside its parent's interval."""
     by_id = {e["id"]: e for e in spans_of(events)}
-    under = report._descendants(events, root_id) - {root_id}
+    under = report._descendants(events, root_id) & by_id.keys() - {root_id}
     assert under
     for i in under:
         e, p = by_id[i], by_id[by_id[i]["parent"]]
@@ -164,7 +166,7 @@ def test_tracer_overhead_is_small(trace):
 
 def test_cache_counters(trace, capsys):
     def counts(since):
-        return report.rollup(trace.events[since:])["counters"]
+        return cache_counts(report.rollup(trace.events[since:])["counters"])
 
     runner.run_batch("radix", WLS, n=8, seed=1, cache=True, device="cpu")
     assert counts(0) == {names.CTR_SIM_CACHE_MISS: len(WLS),
@@ -179,9 +181,51 @@ def test_cache_counters(trace, capsys):
     trace.flush()
     assert obs_cli.main(["report", trace.path, "--json"]) == 0
     roll = json.loads(capsys.readouterr().out)
-    assert roll["counters"] == {names.CTR_SIM_CACHE_MISS: len(WLS),
-                                names.CTR_SIM_CACHE_STORE: len(WLS),
-                                names.CTR_SIM_CACHE_HIT: len(WLS)}
+    assert cache_counts(roll["counters"]) == {
+        names.CTR_SIM_CACHE_MISS: len(WLS),
+        names.CTR_SIM_CACHE_STORE: len(WLS),
+        names.CTR_SIM_CACHE_HIT: len(WLS)}
+
+
+def cache_counts(counters: dict) -> dict:
+    return {k: n for k, n in counters.items() if k.startswith("sim_cache.")}
+
+
+@pytest.mark.parametrize("entry", ["run_batch", "run_ladder"])
+def test_fills_write_the_zipf_counters(trace, capsys, entry):
+    """Each fill writes, under its root, one count record for each of the
+    Zipf sampler's counters: what its generation added to the registry.
+    ``python -m repro_torch.obs report`` gives them a fill (a job)."""
+    before = [obs.REGISTRY.counter(k) for k in names.PORT_COUNTER_NAMES]
+    for seed in (1, 2):
+        if entry == "run_batch":
+            runner.run_batch("victima", WLS, n=2000, seed=seed, cache=False,
+                             device="cpu")
+        else:
+            runner.run_ladder("radix", workloads=WLS, n=2000, seed=seed,
+                              members=("radix", "victima"), cache=False,
+                              device="cpu")
+    added = {k: obs.REGISTRY.counter(k) - b
+             for k, b in zip(names.PORT_COUNTER_NAMES, before)}
+    fills = report.fill_counters(trace.events)
+    root = (names.SPAN_BATCH_FILL if entry == "run_batch"
+            else names.SPAN_LADDER_FILL)
+    assert [f["fill"] for f in fills] == [root, root]
+    assert all(set(f["counters"]) == set(names.PORT_COUNTER_NAMES)
+               for f in fills)
+    assert {k: sum(f["counters"][k] for f in fills) for k in added} == added
+    band, scalar = names.PORT_COUNTER_NAMES
+    assert added[band] > 0 and 0 <= added[scalar] <= added[band]
+    for f in fills:
+        (rec,) = [e for e in trace.events if e.get("kind") == "count"
+                  and e["name"] == band and e["parent"] == f["id"]]
+        assert rec["n"] == f["counters"][band]
+    trace.flush()
+    assert obs_cli.main(["report", trace.path]) == 0
+    out = capsys.readouterr().out
+    for i, f in enumerate(fills):
+        assert (f"fill_counters[{i}] {root}: "
+                + json.dumps(f["counters"], sort_keys=True)) in out
 
 
 def test_span_clock_is_the_profiler_s(trace, tmp_path):
